@@ -1,0 +1,116 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``mxnet_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
+Hopper (``sm_90a``) into its own shared library with a plain C interface,
+at first use, into ``mxnet_tpu_torch/_build/`` (git-ignored). The library
+name carries a hash of its source and the flags, so an edited source is
+rebuilt and a checkout that holds no build builds everything on its first
+call. All sources are compiled at once, one ``nvcc`` process each. Nothing
+outside the repository is used but the CUDA toolkit. A failed build
+raises; there is no fallback to the plain PyTorch versions.
+
+Every source exports ``const char* mxtpu_cuda_error_string(int)`` for
+:func:`check`. Wrappers call :func:`library` for their ``ctypes.CDLL`` and
+add one to ``LAUNCHES[name]`` each time they launch a kernel, so a run
+can show which kernels its main path went through.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+from ..base import MXNetError
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+#: kernel launches per wrapper name since the last ``LAUNCHES.clear()``
+LAUNCHES = collections.Counter()
+
+_lock = threading.Lock()
+_libs = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``nvcc`` on ``PATH``,
+    or ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise MXNetError("nvcc not found (set CUDA_HOME); the port's CUDA "
+                     "kernels are built from mxnet_tpu_torch/csrc at first use")
+
+
+def sources() -> dict:
+    """``{stem: path}`` of every ``.cu`` source under ``csrc/``."""
+    return {f[:-3]: os.path.join(CSRC, f)
+            for f in sorted(os.listdir(CSRC)) if f.endswith(".cu")}
+
+
+def _target(stem: str, path: str) -> str:
+    """Library path keyed by a hash of the source and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    with open(path, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
+
+
+def build_all() -> dict:
+    """Compile every source whose library is missing, all ``nvcc``
+    processes running together; return ``{stem: library path}``. Each
+    library is written to a private name and renamed into place, so
+    concurrent builds never load a half-written file."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    targets = {stem: _target(stem, p) for stem, p in sources().items()}
+    todo = {s: t for s, t in targets.items() if not os.path.exists(t)}
+    if not todo:
+        return targets
+    nvcc = nvcc_path()
+    procs = {}
+    for stem, out in todo.items():
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, sources()[stem]]
+        procs[stem] = (tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    failed = []
+    for stem, (tmp, out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{stem}.cu:\n{log.decode(errors='replace')}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise MXNetError("nvcc failed to build the port's kernels:\n"
+                         + "\n".join(failed))
+    return targets
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<stem>.cu`` (built first if
+    needed; cached for the process)."""
+    with _lock:
+        lib = _libs.get(stem)
+        if lib is None:
+            lib = _libs[stem] = ctypes.CDLL(build_all()[stem])
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str):
+    """Raise when a launcher returned a non-zero ``cudaError_t``."""
+    if err:
+        lib.mxtpu_cuda_error_string.restype = ctypes.c_char_p
+        lib.mxtpu_cuda_error_string.argtypes = [ctypes.c_int]
+        msg = lib.mxtpu_cuda_error_string(err).decode()
+        raise MXNetError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,119 @@
+"""Port parity: ``mxnet_tpu_torch.ops.flash_attention.paged_decode_attention``
+against the JAX package's ``paged_decode_attention`` (its plain jnp path
+on the CPU), on the same numpy inputs.
+
+Tolerance (float32): 1e-5 absolute and relative. Both sides compute a
+float32 softmax over at most a few dozen positions; they differ only in
+summation order, which moves the outputs (|out| <= ~3) by ~1e-7.
+
+The Hopper kernel itself runs only on a card: the ``*_on_cuda`` tests
+skip without one (run them there with ``-k on_cuda``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu.ops.flash_attention import \
+    paged_decode_attention as jax_paged_decode
+from mxnet_tpu_torch.ops import _kernels
+from mxnet_tpu_torch.ops.flash_attention import (
+    _torch_paged_decode,
+    paged_decode_attention,
+)
+
+TOL = 1e-5
+BS, NUM_BLOCKS, MAX_BLOCKS, B, D = 4, 40, 6, 4, 16
+
+# (query heads, kv heads): group 1, 2, 4 and 16 (multi-query)
+HEADS = [(4, 4), (4, 2), (8, 2), (16, 1)]
+# context lengths per slot: an empty slot, block boundaries, ragged, and
+# one past the table's reach (clipped to MAX_BLOCKS * BS)
+LENS = {
+    "ctx0": [0, 5, 9, 1],
+    "block_boundary": [BS, 2 * BS, MAX_BLOCKS * BS, 3 * BS],
+    "ragged": [1, 7, 13, 22],
+    "over_table": [MAX_BLOCKS * BS + 3, 2, 11, 0],
+}
+
+
+def _inputs(seed, h, kvh, lens, shuffled=True):
+    rs = np.random.RandomState(seed)
+    q = rs.randn(B, h, D).astype(np.float32)
+    kp = rs.randn(NUM_BLOCKS, BS, kvh, D).astype(np.float32)
+    vp = rs.randn(NUM_BLOCKS, BS, kvh, D).astype(np.float32)
+    ids = np.arange(1, B * MAX_BLOCKS + 1)
+    if shuffled:  # tables scattered across the pool, never block 0
+        ids = rs.permutation(np.arange(1, NUM_BLOCKS))[:B * MAX_BLOCKS]
+    tables = ids.reshape(B, MAX_BLOCKS).astype(np.int32)
+    return q, kp, vp, tables, np.asarray(lens, np.int32)
+
+
+def _both(q, kp, vp, tables, lens, scale=None):
+    want = np.asarray(jax_paged_decode(q, kp, vp, tables, lens, scale=scale))
+    got = paged_decode_attention(*(torch.from_numpy(a) for a in
+                                   (q, kp, vp, tables, lens)), scale=scale)
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("lens", list(LENS), ids=list(LENS))
+@pytest.mark.parametrize("h,kvh", HEADS, ids=[f"g{h // k}" for h, k in HEADS])
+def test_matches_jax(h, kvh, lens):
+    _kernels.LAUNCHES.clear()
+    got, want = _both(*_inputs(0, h, kvh, LENS[lens]))
+    assert got.shape == (B, h, D) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    for slot, n in enumerate(LENS[lens]):
+        if n == 0:  # empty slots answer zeros, not uniform-weight noise
+            assert not got[slot].any()
+    assert _kernels.LAUNCHES["paged_decode"] == 0  # CPU: plain version
+
+
+def test_unshuffled_tables_and_explicit_scale():
+    got, want = _both(*_inputs(1, 8, 2, LENS["ragged"], shuffled=False),
+                      scale=0.3)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def test_single_position_context_returns_that_value():
+    """ctx == 1: softmax over one position is exactly that row of V."""
+    q, kp, vp, tables, _ = _inputs(2, 4, 2, LENS["ragged"])
+    lens = np.ones(B, np.int32)
+    got, want = _both(q, kp, vp, tables, lens)
+    first = vp[tables[:, 0], 0]                      # (B, KVH, D)
+    np.testing.assert_allclose(got, np.repeat(first, 2, axis=1),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def test_heads_must_divide():
+    q, kp, vp, tables, lens = _inputs(0, 4, 4, LENS["ragged"])
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        paged_decode_attention(torch.zeros(B, 3, D), torch.from_numpy(kp),
+                               torch.from_numpy(vp),
+                               torch.from_numpy(tables),
+                               torch.from_numpy(lens))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kvh", HEADS, ids=[f"g{h // k}" for h, k in HEADS])
+def test_kernel_matches_plain_on_cuda(h, kvh, dtype):
+    """On the card: the Hopper kernel against the plain version on the
+    same CUDA tensors. fp32: 1e-5 (summation order). bf16: both read the
+    same bf16 values and compute in fp32, then round once to bf16, so
+    they may differ by one bf16 step of the output: 1e-2 abs + rel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dt = getattr(torch, dtype)
+    tol = TOL if dt == torch.float32 else 1e-2
+    for lens in LENS.values():
+        args = [torch.from_numpy(a).cuda()
+                for a in _inputs(3, h, kvh, lens)]
+        args[:3] = [a.to(dt) for a in args[:3]]
+        n0 = _kernels.LAUNCHES["paged_decode"]
+        got = paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["paged_decode"] == n0 + 1
+        want = _torch_paged_decode(*args, 1.0 / D ** 0.5)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
