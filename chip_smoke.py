@@ -11,15 +11,27 @@ Phases (each prints one line of facts; any failure exits non-zero):
    capability (must be 9.0), TF32 turned off for float32 parity;
 2. build — every CUDA kernel of the port from ``mxnet_tpu_torch/csrc``;
 3. kernels — each kernel against its plain PyTorch version on the card,
-   at the serving path's shapes, in float32 and bfloat16, then timed
-   with CUDA events beside its bound and the plain version's time;
-4. model parity — a StarCoderBase-1B-width decoder (random weights from
+   in float32 and bfloat16: paged decode (K3) at the serving path's
+   shapes; flash attention forward (K1) and its split backward (K2: the dq
+   kernel and the dk/dv kernel) at BERT-base's training shape,
+   ``bench_flash_attention``'s causal shape, llama3-8B's head layout with
+   a sliding window, a ragged and a causal cross shape; then each timed
+   with CUDA events beside its bound, its plain version's time and one
+   PyTorch library call computing the same function;
+4. serving parity — a StarCoderBase-1B-width decoder (random weights from
    a seed): prefill + 32 paged decode steps, each step's logits against
    the dense forward's logits at that position; then one full-width
-   decode step at the kernel timing's shape, timed and profiled (device
-   time by kernel, idle share);
+   decode step, timed and profiled (device time by kernel, idle share);
 5. serving — ``GenerationEngine`` answers 20 ragged requests at full
-   width; the paged-decode launch count must equal layers x decode steps.
+   width; the paged-decode launch count must equal layers x decode steps;
+6. train parity — BERT-base at full width (bench_bert's shapes: batch 64,
+   sequence 128, vocab 30522), one forward + backward through the Gluon
+   loop with the kernels, and again with attention swapped (here only)
+   for the plain versions: the loss and every gradient must agree;
+7. train — the Gluon loop as ``bench_bert`` runs it (Normal(0.02) init,
+   Adam lr 1e-4 wd 0.01): one warm-up step, 10 timed steps, one profiled
+   step; the loss must be finite and fall, and K1/K2 must have launched
+   once per layer per forward/backward.
 
 Then one JSON line listing every ported kernel, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -50,6 +62,17 @@ PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # convex mixes of V rows, |out| < ~5, so ~1e-6); bf16 rounds the output
 # once on both sides, so they may differ by one bf16 step (2^-8 relative)
 KERNEL_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
+# flash attention kernels vs plain, relative to the largest |value|: fp32
+# differs by summation order only (~3e-6 at T = 2048 measured); bf16 O and
+# gradients are rounded once on both sides, so they may differ by one bf16
+# step (2^-7 of the largest value); the LSE is fp32 on both sides
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# bench_bert on an accelerator: bert_base(dropout=0, no pooler/classifier)
+BERT_BATCH, BERT_SEQ, BERT_VOCAB, BERT_LAYERS = 64, 128, 30522, 12
+# kernels vs plain attention over a full BERT-base forward + backward in
+# fp32, each parameter's gradient relative to the largest |grad| of its
+# layer's group (see train_parity_phase)
+TRAIN_GRAD_RTOL = 1e-4
 # decode vs dense logits, relative to max |logit|: float32 reorderings
 # over 24 layers stay near 1e-6; the same check in bfloat16 is off by
 # ~1e-2 (printed below), so 1e-4 tells the two apart
@@ -197,6 +220,185 @@ def kernel_phase(dev, gen):
         bound_by=row["bound_by"],
         bound_share=f"{row['bound_ms'] / kernel_ms:.4f}")
     return row, (kp, vp, tables, lens)
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: flash attention kernels (K1, K2) against their plain versions
+# ---------------------------------------------------------------------------
+
+# name: (B, H, KVH, T, S, D, causal, window, native_gqa)
+FLASH_CASES = {
+    "bert_base": (BERT_BATCH, 12, 12, BERT_SEQ, BERT_SEQ, 64, False, 0,
+                  False),
+    "bench_causal": (2, 8, 8, 4096, 4096, 64, True, 0, False),
+    "llama3_8b_window": (1, 32, 8, 2048, 2048, 128, True, 1024, False),
+    "llama3_8b_window_native": (1, 32, 8, 2048, 2048, 128, True, 1024,
+                                True),
+    "ragged": (2, 4, 4, 1000, 1000, 64, False, 0, False),
+    "causal_cross": (4, 4, 4, 128, 512, 64, True, 0, False),
+}
+
+
+def visible_pairs(T, S, causal, window):
+    """(query row, key) pairs the mask lets through, per (batch, head)."""
+    if not causal:
+        return T * S
+    q = np.arange(T) + (S - T)
+    hi = np.clip(q + 1, 0, S)
+    lo = np.clip(q - window + 1, 0, S) if window > 0 else 0
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def flash_work(B, H, KVH, T, S, D, causal, window, item):
+    """Operations and bytes (each input read once, each output written
+    once) of K1, K2's dq kernel and K2's dk/dv kernel."""
+    pairs = B * H * visible_pairs(T, S, causal, window)
+    q_b, kv_b, rows_b = B * H * T * D * item, B * KVH * S * D * item, \
+        B * H * T * 4
+    return {
+        "flash_fwd": (4 * pairs * D, 2 * q_b + 2 * kv_b + rows_b),
+        "flash_bwd_dq": (6 * pairs * D, 3 * q_b + 2 * kv_b + 2 * rows_b),
+        "flash_bwd_dkv": (8 * pairs * D, 2 * q_b + 4 * kv_b + 2 * rows_b),
+    }
+
+
+def flash_inputs(gen, dev, B, H, KVH, T, S, D, dtype):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    return (randn(B, H, T, D), randn(B, KVH, S, D), randn(B, KVH, S, D),
+            randn(B, H, T, D))
+
+
+def flash_kernel_phase(dev, gen):
+    """Every case in fp32 and bf16: O and the gradients through the
+    public autograd op (K1 forward, K2 backward), the LSE from K1 itself,
+    all against the plain versions on the same tensors. Then, at the
+    training shape in fp32, each kernel timed beside its bound, its plain
+    version and scaled_dot_product_attention (never used by the port)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from mxnet_tpu_torch.ops.flash_attention import (
+        _cuda_flash_bwd,
+        _cuda_flash_fwd,
+        _torch_flash_bwd,
+        _torch_flash_fwd,
+        flash_attention,
+    )
+
+    errs = {}
+    for name, (B, H, KVH, T, S, D, causal, window, native) in \
+            FLASH_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g = flash_inputs(gen, dev, B, H, KVH, T, S, D, dtype)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = flash_attention(*leaves, causal=causal, window=window,
+                                  native_gqa=native)
+            out.backward(g)
+            _, lse = _cuda_flash_fwd(q, k, v, D ** -0.5, causal, window)
+            torch.cuda.synchronize()
+            want_o, want_lse = _torch_flash_fwd(q, k, v, D ** -0.5, causal,
+                                                window)
+            want = _torch_flash_bwd(q, k, v, want_o, want_lse, g, D ** -0.5,
+                                    causal, window)
+            tol = FLASH_TOL[dtype]
+            facts = {}
+            for what, got, ref, lim in (
+                    ("out", out, want_o, tol),
+                    ("lse", lse, want_lse, FLASH_TOL[torch.float32]),
+                    ("dq", leaves[0].grad, want[0], tol),
+                    ("dk", leaves[1].grad, want[1], tol),
+                    ("dv", leaves[2].grad, want[2], tol)):
+                diff = float((got.detach().float() - ref.float()).abs().max())
+                rel = diff / max(float(ref.float().abs().max()), 1e-30)
+                check(got.dtype == ref.dtype and got.shape == ref.shape,
+                      f"flash {name} {what}: {got.dtype} {tuple(got.shape)}")
+                check(rel <= lim, f"flash {name} {dtype} {what} disagrees "
+                      f"with plain: {rel:.3e} > {lim}")
+                facts[what] = f"{rel:.2e}"
+                errs[(name, dtype, what)] = diff
+            say("kernel", case=f"flash_{name}",
+                dtype=str(dtype).split(".")[1], shape=f"B{B}_H{H}_KVH{KVH}"
+                f"_T{T}_S{S}_D{D}", causal=causal, window=window,
+                native_gqa=native, rel_err=",".join(
+                    f"{k}:{v}" for k, v in facts.items()),
+                tol_rel=tol, ok=True)
+            del q, k, v, g, leaves, out, want
+
+    # timing at BERT-base's training shape, fp32 (the training type)
+    B, H, KVH, T, S, D, causal, window, _ = FLASH_CASES["bert_base"]
+    q, k, v, g = flash_inputs(gen, dev, B, H, KVH, T, S, D, torch.float32)
+    scale = D ** -0.5
+    out, lse = _cuda_flash_fwd(q, k, v, scale, causal, window)
+    plain_o, plain_lse = _torch_flash_fwd(q, k, v, scale, causal, window)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def lib_fwd_bwd():
+        o = sdpa(qs, ks, vs)
+        torch.autograd.grad(o, (qs, ks, vs), g)
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    bwd_args = fa._bwd_operands(q, k, v, out, lse, g)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+
+    def dq_only():
+        fa._launch_flash_bwd("dq", *bwd_args, (dq,), scale, causal, window)
+
+    def dkv_only():
+        fa._launch_flash_bwd("dkv", *bwd_args, (dk, dv), scale, causal,
+                             window)
+
+    times = {
+        "flash_fwd": (cuda_ms(lambda: _cuda_flash_fwd(
+            q, k, v, scale, causal, window), 50),
+            cuda_ms(lambda: _torch_flash_fwd(q, k, v, scale, causal,
+                                             window), 20),
+            cuda_ms(lambda: sdpa(q, k, v), 50)),
+    }
+    plain_bwd = cuda_ms(lambda: _torch_flash_bwd(
+        q, k, v, plain_o, plain_lse, g, scale, causal, window), 20)
+    lib_bwd = cuda_ms(lib_fwd_bwd, 20)
+    times["flash_bwd_dq"] = (cuda_ms(dq_only, 50), plain_bwd, lib_bwd)
+    times["flash_bwd_dkv"] = (cuda_ms(dkv_only, 50), plain_bwd, lib_bwd)
+    both = cuda_ms(lambda: _cuda_flash_bwd(q, k, v, out, lse, g, scale,
+                                           causal, window), 50)
+    work = flash_work(B, H, KVH, T, S, D, causal, window, 4)
+    replaces = {"flash_fwd": "mxnet_tpu/ops/flash_attention.py:93",
+                "flash_bwd_dq": "mxnet_tpu/ops/flash_attention.py:457",
+                "flash_bwd_dkv": "mxnet_tpu/ops/flash_attention.py:505"}
+    err_of = {"flash_fwd": ("out",), "flash_bwd_dq": ("dq",),
+              "flash_bwd_dkv": ("dk", "dv")}
+    rows = []
+    for name, (ms, plain_ms, lib_ms) in times.items():
+        ops, nbytes = work[name]
+        t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/" + (
+                "flash_fwd.cu" if name == "flash_fwd" else "flash_bwd.cu"),
+            "replaces": replaces[name],
+            "launches": None,  # filled from the training phase
+            "max_abs_err": max(errs[("bert_base", torch.float32, w)]
+                               for w in err_of[name]),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms,
+        }
+        rows.append(row)
+        say("kernel-time", kernel=name, shape=f"B{B}_H{H}_T{T}_D{D}_fp32",
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{lib_ms:.4f}", bound_ms=f"{row['bound_ms']:.5f}",
+            bound_by=row["bound_by"], tflops=f"{ops / ms / 1e9:.2f}",
+            bound_share=f"{row['bound_ms'] / ms:.4f}")
+    say("kernel-time", kernel="flash_bwd_dq+dkv", ms=f"{both:.4f}",
+        note='"plain_ms/library_ms of each K2 row are the whole backward"')
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +590,196 @@ def serving_phase(net, dev, launches, device_line):
     return main_launches
 
 
+# ---------------------------------------------------------------------------
+# phases 6 and 7: BERT-base training through the Gluon loop
+# ---------------------------------------------------------------------------
+
+def bert_setup(ctx, **cut):
+    """BERT-base as bench_bert builds it on an accelerator (``cut``
+    overrides widths for a rehearsal on the host), Normal(0.02) weights
+    from seed SEED, and its fixed batch (ids and labels from numpy seed
+    SEED), with deferred shapes resolved by one forward."""
+    import mxnet_tpu_torch as mx
+
+    # the position table's own init="normal" draws from the default
+    # generator; the rest from the seeded Normal(0.02)
+    torch.manual_seed(SEED)
+    t0 = time.perf_counter()
+    net = mx.models.bert_base(dropout=0.0, use_pooler=False,
+                              use_classifier=False, **cut)
+    net.initialize(init=mx.initializer.Normal(0.02, seed=SEED), ctx=ctx)
+    vocab = cut.get("vocab_size", BERT_VOCAB)
+    rs = np.random.RandomState(SEED)
+    x = mx.nd.array(rs.randint(0, vocab, (BERT_BATCH, BERT_SEQ)),
+                    dtype="int32", ctx=ctx)
+    y = mx.nd.array(rs.randint(0, vocab, (BERT_BATCH, BERT_SEQ))
+                    .astype(np.float32), ctx=ctx)
+    net(x)
+    mx.nd.waitall()
+    n_params = sum(p.data().size for p in net.collect_params().values())
+    say("bert-model", config="BERT-base (bert_12_768_12, vocab 30522)",
+        params=n_params, batch=BERT_BATCH, seq=BERT_SEQ, dtype="float32",
+        init_s=f"{time.perf_counter() - t0:.2f}", ctx=ctx)
+    return net, x, y
+
+
+def _fwd_bwd(mx, net, x, y):
+    """One recorded forward and backward; the mean loss stays on the
+    device (no host sync)."""
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = sce(net(x)[-1], y)
+    loss.backward()
+    return loss.data.detach().mean()
+
+
+def train_parity_phase(net, x, y):
+    """One forward + backward with the kernels, then the same with
+    ``F.flash_attention`` swapped, in this script only, for an autograd
+    function over the plain versions. Loss within 1e-5 relative; each
+    gradient within TRAIN_GRAD_RTOL of the largest |grad| of its block
+    (the weight and bias of one layer): an attention key bias has a zero
+    gradient in exact arithmetic (softmax ignores a shift shared by all
+    keys), so on both sides it is float noise, judged against its block's
+    weight gradient and not against itself."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray.ndarray import apply
+    from mxnet_tpu_torch.ops.flash_attention import (
+        _torch_flash_bwd,
+        _torch_flash_fwd,
+    )
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal):
+            out, lse = _torch_flash_fwd(q, k, v, q.shape[-1] ** -0.5,
+                                        causal)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.causal = causal
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, out, lse = ctx.saved_tensors
+            return (*_torch_flash_bwd(q, k, v, out, lse, g,
+                                      q.shape[-1] ** -0.5, ctx.causal),
+                    None)
+
+    params = net.collect_params()
+    loss_k = float(_fwd_bwd(mx, net, x, y))
+    grads_k = {k: p.grad().data.clone() for k, p in params.items()}
+    kernel_op = mx.nd.flash_attention
+    mx.nd.flash_attention = lambda q, k, v, causal=False, **kw: apply(
+        PlainFlash.apply, q, k, v, causal)
+    try:
+        loss_p = float(_fwd_bwd(mx, net, x, y))
+    finally:
+        mx.nd.flash_attention = kernel_op
+    torch.cuda.synchronize()
+    blocks = {}
+    for name, p in params.items():
+        block = name.rsplit("_", 1)[0]
+        blocks[block] = max(blocks.get(block, 0.0),
+                            float(p.grad().data.abs().max()))
+    worst, worst_name = 0.0, ""
+    for name, p in params.items():
+        diff = float((grads_k[name] - p.grad().data).abs().max())
+        rel = diff / max(blocks[name.rsplit("_", 1)[0]], 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    say("train-parity", loss_kernels=f"{loss_k:.6f}",
+        loss_plain=f"{loss_p:.6f}", loss_rel=f"{loss_rel:.3e}",
+        worst_grad_rel=f"{worst:.3e}", worst_param=worst_name,
+        tol_rel=TRAIN_GRAD_RTOL, params=len(params))
+    check(np.isfinite(loss_k) and loss_rel <= 1e-5,
+          "kernel loss disagrees with plain attention")
+    check(worst <= TRAIN_GRAD_RTOL,
+          f"{worst_name} gradient disagrees with plain attention: {worst}")
+    del grads_k
+
+
+# device time of a train step by kind of kernel (first match wins)
+STEP_GROUPS = (("flash_attention", ("mxtpu_flash",)),
+               ("matmul", ("gemm", "gemv")),
+               ("layer_norm", ("layer_norm",)),
+               ("reduce_softmax", ("reduce", "softmax", "logsumexp")),
+               ("embedding_index", ("index", "embedding", "gather",
+                                    "scatter")),
+               ("elementwise", ("elementwise", "unrolled")))
+
+
+def train_phase(net, x, y, launches, steps=10):
+    """The Gluon loop of bench_bert: one warm-up step, ``steps`` timed
+    steps (host clock around synchronised work), one profiled step. The
+    launch counts are read over exactly these steps."""
+    import mxnet_tpu_torch as mx
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-4, "wd": 0.01})
+
+    def step():
+        loss = _fwd_bwd(mx, net, x, y)
+        trainer.step(BERT_BATCH)
+        return loss
+
+    launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t1) * 1e6
+    counts = dict(launches)
+    n_steps = steps + 2
+    losses = [float(v) for v in losses]
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    check(busy > 0, "the profiler saw no device time")
+    flash = sum(us for n, us in by_name.items() if "flash" in n)
+    say("train", device_steps=n_steps, step_ms=f"{step_s * 1e3:.3f}",
+        samples_per_s=f"{BERT_BATCH / step_s:.2f}",
+        loss_first=f"{losses[0]:.5f}", loss_last=f"{losses[-1]:.5f}",
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        profiled_busy_ms=f"{busy / 1e3:.3f}",
+        profiled_idle_share=f"{1 - busy / window_us:.4f}",
+        flash_share=f"{flash / busy:.4f}",
+        flash_fwd=counts.get("flash_fwd", 0),
+        flash_bwd_dq=counts.get("flash_bwd_dq", 0),
+        flash_bwd_dkv=counts.get("flash_bwd_dkv", 0))
+    groups = {}
+    for name, us in by_name.items():
+        group = next((g for g, keys in STEP_GROUPS if any(
+            k in name.lower() for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + us
+    say("train-step-split", **{g: f"{us / 1e3:.3f}ms/{us / busy:.4f}"
+                               for g, us in sorted(groups.items(),
+                                                   key=lambda kv: -kv[1])})
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        say("train-step-kernel", ms_per_step=f"{us / 1e3:.4f}",
+            share=f"{us / busy:.4f}", name=f'"{name[:90]}"')
+    check(all(np.isfinite(losses)), f"non-finite training loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(counts.get(name, 0) == BERT_LAYERS * n_steps,
+              f"{name} launched {counts.get(name, 0)} times in {n_steps} "
+              f"train steps of {BERT_LAYERS} layers")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAILED: no CUDA device visible")
@@ -418,6 +810,7 @@ def main():
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     row, pools = kernel_phase(dev, gen)
+    flash_rows = flash_kernel_phase(dev, gen)
 
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -429,8 +822,18 @@ def main():
         step_phase(net, pools, row["ms"])
     del pools
     row["launches"] = serving_phase(net, dev, _kernels.LAUNCHES, smi)
+    del net
+    torch.cuda.empty_cache()
+
+    import mxnet_tpu_torch as mx
+
+    bert, x, y = bert_setup(mx.gpu(0))
+    train_parity_phase(bert, x, y)
+    counts = train_phase(bert, x, y, _kernels.LAUNCHES)
+    for r in flash_rows:
+        r["launches"] = counts[r["name"]]
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": [row] + flash_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

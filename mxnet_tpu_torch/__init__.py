@@ -2,18 +2,47 @@
 
 It grows slice by slice beside the JAX package, which stays the
 reference. It imports ``torch`` and nothing of JAX or ``mxnet_tpu``.
-Entry points run on ``cuda:0`` unless the caller passes
-``device="cpu"``; with no CUDA card and no explicit CPU request they
-raise. Import as::
+Entry points run on ``cuda:0`` unless the caller asks for the CPU
+(``ctx=mx.cpu()`` / ``device="cpu"``); with no CUDA card and no explicit
+CPU request they raise. (MXNet's own default context was the CPU.)
+Import as::
 
     import mxnet_tpu_torch as mx
-    net = mx.serving.TransformerDecoderLM(vocab_size=64)   # on mx.gpu(0)
+    from mxnet_tpu_torch import autograd, gluon
+
+    net = mx.models.bert_base(dropout=0.0, use_pooler=False,
+                              use_classifier=False)
+    net.initialize(init=mx.initializer.Normal(0.02))      # on mx.gpu(0)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 1e-4, "wd": 0.01})
+    sce = gluon.loss.SoftmaxCrossEntropyLoss()
+    with autograd.record():
+        loss = sce(net(x)[-1], y)
+    loss.backward()
+    trainer.step(batch_size)
+
+    net = mx.serving.TransformerDecoderLM(vocab_size=64)   # serving
     eng = mx.serving.GenerationEngine(net, [8, 16], slots=4, chunk=4)
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from . import base  # noqa: F401
 from .base import MXNetError  # noqa: F401
-from .context import cpu, gpu, resolve_device  # noqa: F401
+from .context import (  # noqa: F401
+    Context,
+    cpu,
+    current_context,
+    gpu,
+    resolve_device,
+    tpu,
+)
+from . import ndarray  # noqa: F401
+from . import ndarray as nd  # noqa: F401
+from .ndarray import NDArray  # noqa: F401
+from . import autograd  # noqa: F401
+from . import initializer  # noqa: F401
+from . import optimizer  # noqa: F401
+from . import gluon  # noqa: F401
+from . import models  # noqa: F401
 from . import serving  # noqa: F401

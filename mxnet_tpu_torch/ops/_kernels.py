@@ -3,7 +3,8 @@
 Every ``mxnet_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into its own shared library with a plain C interface,
 at first use, into ``mxnet_tpu_torch/_build/`` (git-ignored). The library
-name carries a hash of its source and the flags, so an edited source is
+name carries a hash of its source, the shared ``csrc/*.cuh`` headers and
+the flags, so an edited source is
 rebuilt and a checkout that holds no build builds everything on its first
 call. All sources are compiled at once, one ``nvcc`` process each. Nothing
 outside the repository is used but the CUDA toolkit. A failed build
@@ -60,10 +61,14 @@ def sources() -> dict:
 
 
 def _target(stem: str, path: str) -> str:
-    """Library path keyed by a hash of the source and the flags."""
+    """Library path keyed by a hash of the flags, the source and every
+    shared header (``csrc/*.cuh``) it may include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(path, "rb") as f:
-        h.update(f.read())
+    headers = [os.path.join(CSRC, f) for f in sorted(os.listdir(CSRC))
+               if f.endswith(".cuh")]
+    for p in [path] + headers:
+        with open(p, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 

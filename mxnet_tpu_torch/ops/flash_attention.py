@@ -1,16 +1,26 @@
-"""Paged decode attention: the serving fast path's one kernel.
+"""Attention operators: flash attention (training) and paged decode
+attention (serving).
 
-PyTorch counterpart of ``paged_decode_attention`` in
-``mxnet_tpu/ops/flash_attention.py``. On a CUDA tensor it launches the
-hand-written Hopper kernel ``csrc/paged_decode.cu`` (the port of the TPU
-kernel ``_paged_decode_kernel``); on a CPU tensor it runs
-:func:`_torch_paged_decode`, the plain PyTorch version of the same
-function (the port of ``_jnp_paged_decode``). A CUDA tensor never takes
-the plain version: the kernel launches or the call raises.
+PyTorch counterpart of ``mxnet_tpu/ops/flash_attention.py``. On CUDA
+tensors each operator launches a hand-written Hopper kernel from
+``csrc/``; on CPU tensors it runs the plain PyTorch version of the same
+function beside it. A CUDA tensor never takes the plain version: the
+kernel launches or the call raises.
 
-The kernel's bound on an H100 SXM is the bytes of K and V in context,
-read once, over 3.35 TB/s; see the note at the top of the CUDA source for
-why this first version stays far from it at the serving shape.
+- :func:`flash_attention` is a ``torch.autograd.Function``: its forward
+  launches ``csrc/flash_fwd.cu`` (the port of the TPU kernel
+  ``_flash_fwd_kernel``) and saves O and the fp32 log-sum-exp; its
+  backward launches the two kernels of ``csrc/flash_bwd.cu`` (the ports of
+  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``). The plain
+  versions are :func:`_torch_flash_fwd` (the port of ``_jnp_flash_fwd``)
+  and :func:`_torch_flash_bwd` (the port of the blockwise scan backward
+  in ``_flash_bwd_rule``).
+- :func:`paged_decode_attention` launches ``csrc/paged_decode.cu`` (the
+  port of ``_paged_decode_kernel``); its plain version is
+  :func:`_torch_paged_decode` (the port of ``_jnp_paged_decode``).
+
+Each kernel's bound on an H100 SXM, and why the first versions stay far
+from it, is in the note at the top of its CUDA source.
 """
 
 from __future__ import annotations
@@ -138,3 +148,262 @@ def paged_decode_attention(query, k_pool, v_pool, block_tables,
                          f"{query.device}")
     return _torch_paged_decode(query, k_pool, v_pool, block_tables,
                                context_lens.to(torch.int32), float(scale))
+
+
+# ---------------------------------------------------------------------------
+# flash attention: plain versions
+# ---------------------------------------------------------------------------
+
+
+def _repeat_kv(q, k, v):
+    """Expand grouped kv heads to the query head count (query heads
+    h*G .. h*G+G-1 share kv head h, ``jnp.repeat`` order)."""
+    if k.shape[1] != q.shape[1]:
+        rep = q.shape[1] // k.shape[1]
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    return k, v
+
+
+def _visible(T, S, cols, window, device):
+    """(T, len(cols)) bool: which key columns each query row sees under
+    the causal mask aligned bottom-right (``tril(k=S-T)``) and, for
+    ``window > 0``, the band of the last ``window`` positions."""
+    rows = torch.arange(T, device=device)[:, None]
+    rel = rows + (S - T) - cols[None, :]
+    ok = rel >= 0
+    if window > 0:
+        ok = ok & (rel < window)
+    return ok
+
+
+def _torch_flash_fwd(q, k, v, scale, causal, window=0):
+    """Plain version of the forward: the full fp32 score matrix, masked
+    scores -1e30, then O (in the input type) and the fp32 LSE
+    ``(B, H, T)``. Grouped kv heads are repeated."""
+    T, S = q.shape[2], k.shape[2]
+    k, v = _repeat_kv(q, k, v)
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * scale
+    if causal or window > 0:
+        ok = _visible(T, S, torch.arange(S, device=q.device), window,
+                      q.device)
+        s = torch.where(ok, s, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhts,bhsd->bhtd", p / l, v.float())
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _torch_flash_bwd(q, k, v, out, lse, g, scale, causal, window=0,
+                     block_size=1024):
+    """Plain version of the backward: recompute p from the LSE one block
+    of ``block_size`` key rows at a time, all in fp32, accumulate dq over
+    the blocks; grouped kv heads are repeated and their dk/dv summed over
+    each group."""
+    B, H, T, D = q.shape
+    KVH, S = k.shape[1], k.shape[2]
+    kf, vf = _repeat_kv(q, k, v)
+    g32, q32 = g.float(), q.float()
+    delta = (g32 * out.float()).sum(dim=-1)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for j0 in range(0, S, block_size):
+        ks = kf[:, :, j0:j0 + block_size].float()
+        vs = vf[:, :, j0:j0 + block_size].float()
+        s = torch.einsum("bhtd,bhsd->bhts", q32, ks) * scale
+        if causal or window > 0:
+            cols = torch.arange(j0, j0 + ks.shape[2], device=q.device)
+            s = torch.where(_visible(T, S, cols, window, q.device), s,
+                            _NEG_INF)
+        p = torch.exp(s - lse[..., None])
+        dvs.append(torch.einsum("bhts,bhtd->bhsd", p, g32))
+        dp = torch.einsum("bhtd,bhsd->bhts", g32, vs)
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.einsum("bhts,bhsd->bhtd", ds, ks)
+        dks.append(torch.einsum("bhts,bhtd->bhsd", ds, q32))
+    dk, dv = torch.cat(dks, dim=2), torch.cat(dvs, dim=2)
+    if H != KVH:
+        dk = dk.reshape(B, KVH, H // KVH, S, D).sum(dim=2)
+        dv = dv.reshape(B, KVH, H // KVH, S, D).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the Hopper kernels
+# ---------------------------------------------------------------------------
+
+
+def _flash_lib(stem):
+    lib = _kernels.library(stem)
+    if getattr(lib, "_mxtpu_typed", False):
+        return lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # B, H, KVH, T, S, D, causal, window; scale; strides; stream
+    dims = [i32] * 8 + [ctypes.c_float, ptr, ptr]
+    if stem == "flash_fwd":
+        fns = {"mxtpu_flash_fwd": [i32] + [ptr] * 5 + dims}
+    else:
+        fns = {"mxtpu_flash_bwd_dq": [i32] + [ptr] * 7 + dims,
+               "mxtpu_flash_bwd_dkv": [i32] + [ptr] * 8 + dims}
+    for name, argtypes in fns.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    lib._mxtpu_typed = True
+    return lib
+
+
+def _kernel_operands(q, k, v, g=None):
+    """Check what the kernels take and return the tensors (last dim made
+    contiguous) with their (batch, head, row) element strides, 12 int64s
+    (dO's three are zeros when there is no dO)."""
+    B, H, T, D = q.shape
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype or (g is not None and g.dtype != q.dtype):
+        raise TypeError("flash attention kernels take float32 or bfloat16, "
+                        f"the same for q, k, v (and dO); got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if D > _MAX_HEAD_DIM:
+        raise ValueError(f"flash attention kernels take head_dim <= "
+                         f"{_MAX_HEAD_DIM}; got {D}")
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D \
+            or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    for name, t in (("key", k), ("value", v), ("grad", g)):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, query on {q.device}")
+    ts = [t if t.stride(-1) == 1 else t.contiguous()
+          for t in (q, k, v, g if g is not None else q)]
+    strides = [s for t in ts for s in t.stride()[:3]]
+    if g is None:
+        strides[9:] = [0, 0, 0]
+    return ts, (ctypes.c_longlong * 12)(*strides)
+
+
+def _cuda_flash_fwd(q, k, v, scale, causal, window):
+    """Launch K1 on the current stream: O (input type) and LSE (fp32)."""
+    (q, k, v, _), strides = _kernel_operands(q, k, v)
+    B, H, T, D = q.shape
+    KVH, S = k.shape[1], k.shape[2]
+    out = torch.empty((B, H, T, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    lib = _flash_lib("flash_fwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mxtpu_flash_fwd(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), B, H, KVH, T, S, D, int(causal),
+            int(window), float(scale), strides, stream)
+    _kernels.check(lib, err, "flash_fwd launch")
+    _kernels.LAUNCHES["flash_fwd"] += 1
+    return out, lse
+
+
+def _bwd_operands(q, k, v, out, lse, g):
+    """Checked backward operands, plus delta = rowsum(dO * O) in fp32 (one
+    torch expression, as in the JAX package) and the strides."""
+    (q, k, v, g), strides = _kernel_operands(q, k, v, g)
+    delta = (g.float() * out.float()).sum(dim=-1)
+    return q, k, v, g, lse.contiguous(), delta, strides
+
+
+def _launch_flash_bwd(kernel, q, k, v, g, lse, delta, strides, outs, scale,
+                      causal, window):
+    """Launch one kernel of K2 on the current stream: ``"dq"`` writes
+    ``outs = (dq,)``, ``"dkv"`` writes ``outs = (dk, dv)``."""
+    B, H, T, D = q.shape
+    KVH, S = k.shape[1], k.shape[2]
+    lib = _flash_lib("flash_bwd")
+    fn = lib.mxtpu_flash_bwd_dq if kernel == "dq" else lib.mxtpu_flash_bwd_dkv
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), *(o.data_ptr() for o in outs), B, H, KVH,
+                 T, S, D, int(causal), int(window), float(scale), strides,
+                 stream)
+    _kernels.check(lib, err, f"flash_bwd_{kernel} launch")
+    _kernels.LAUNCHES[f"flash_bwd_{kernel}"] += 1
+
+
+def _cuda_flash_bwd(q, k, v, out, lse, g, scale, causal, window):
+    """Launch K2 (the dq kernel, then the dk/dv kernel) on the current
+    stream."""
+    q, k, v, g, lse, delta, strides = _bwd_operands(q, k, v, out, lse, g)
+    B, H, T, D = q.shape
+    KVH, S = k.shape[1], k.shape[2]
+    dq = torch.empty((B, H, T, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, KVH, S, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    args = (q, k, v, g, lse, delta, strides)
+    _launch_flash_bwd("dq", *args, (dq,), scale, causal, window)
+    _launch_flash_bwd("dkv", *args, (dk, dv), scale, causal, window)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward K1 / backward K2 on CUDA tensors; the plain versions on
+    CPU tensors. Saves q, k, v, O and the fp32 LSE."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window):
+        if q.device.type == "cuda":
+            out, lse = _cuda_flash_fwd(q, k, v, scale, causal, window)
+        elif q.device.type == "cpu":
+            out, lse = _torch_flash_fwd(q, k, v, scale, causal, window)
+        else:
+            raise ValueError(f"flash attention runs on cuda or cpu, not "
+                             f"{q.device}")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cuda":
+            grads = _cuda_flash_bwd(q, k, v, out, lse, g, *ctx.args)
+        else:
+            grads = _torch_flash_bwd(q, k, v, out, lse, g, *ctx.args)
+        return (*grads, None, None, None)
+
+
+def flash_attention(query, key, value, scale=None, causal=False,
+                    block_size=1024, window=0, native_gqa=False):
+    """Memory-efficient attention, differentiable. ``query`` is
+    ``(B, H, T, D)``, ``key``/``value`` ``(B, KVH, S, D)`` with
+    ``KVH | H`` (grouped-query heads); the result is ``(B, H, T, D)`` in
+    the input type.
+
+    ``causal`` masks bottom-right aligned (row ``t`` sees columns up to
+    ``t + S - T``); ``window > 0`` turns causal on and lets each position
+    see only the last ``window`` positions, and needs ``T == S``.
+
+    CUDA tensors run the Hopper kernels (float32 or bfloat16, ``D <=
+    128``; anything else raises), counted in ``_kernels.LAUNCHES``
+    ``["flash_fwd"]``, ``["flash_bwd_dq"]`` and ``["flash_bwd_dkv"]``;
+    CPU tensors run the plain versions. ``block_size`` and
+    ``native_gqa`` are accepted for parity with the JAX package: the
+    kernels pick their own tiles and always read grouped kv heads
+    unrepeated, so both values compute the same function."""
+    del block_size, native_gqa
+    if scale is None:
+        scale = 1.0 / (query.shape[-1] ** 0.5)
+    if window and window < 0:
+        raise ValueError(f"window must be >= 0 (0 disables); got {window}")
+    if query.shape[1] % key.shape[1] != 0:
+        raise ValueError("query heads must be a multiple of kv heads; got "
+                         f"{query.shape[1]} vs {key.shape[1]}")
+    if window and window > 0:
+        causal = True
+        if query.shape[2] != key.shape[2]:
+            raise ValueError("window attention expects self-attention "
+                             "(T == S)")
+    return _FlashAttention.apply(query, key, value, float(scale),
+                                 bool(causal), int(window or 0))

@@ -1,0 +1,48 @@
+"""Math operators on tensors: reductions with MXNet's axis semantics, and
+the few element-wise operators the loss needs.
+
+PyTorch counterpart of the matching part of ``mxnet_tpu/ops/math.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ndarray.ndarray import torch_dtype
+
+
+def _axes(axis, exclude, ndim):
+    """MXNet reduction axes: None means all, ``exclude`` inverts."""
+    if axis is None or axis == ():
+        ax = tuple(range(ndim))
+        return tuple(sorted(set(range(ndim)) - set(ax))) if exclude else ax
+    if isinstance(axis, int):
+        axis = (axis,)
+    ax = tuple(a % ndim for a in axis)
+    if exclude:
+        ax = tuple(i for i in range(ndim) if i not in ax)
+    return ax
+
+
+def sum(data, axis=None, keepdims=False, exclude=False):  # noqa: A001
+    ax = _axes(axis, exclude, data.dim())
+    return data.sum(dim=ax, keepdim=keepdims) if ax else data
+
+
+def mean(data, axis=None, keepdims=False, exclude=False):
+    ax = _axes(axis, exclude, data.dim())
+    return data.mean(dim=ax, keepdim=keepdims) if ax else data
+
+
+def logsumexp(data, axis=None, keepdims=False):
+    ax = _axes(axis, False, data.dim())
+    return torch.logsumexp(data, dim=ax, keepdim=keepdims)
+
+
+def log_softmax(data, axis=-1):
+    return torch.log_softmax(data, dim=axis)
+
+
+def cast(data, dtype="float32"):
+    return data.to(torch_dtype(dtype))
+

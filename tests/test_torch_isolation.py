@@ -1,9 +1,9 @@
 """The PyTorch port stands alone: no file of ``mxnet_tpu_torch/`` and not
 ``chip_smoke.py`` imports JAX or any module of the JAX package
 ``mxnet_tpu`` (matched by exact top-level name, so ``mxnet_tpu_torch``
-itself is allowed); importing the port's serving surface loads no JAX;
-and without a CUDA card the entry points refuse to run unless the CPU
-was asked for.
+itself is allowed); importing the port's serving and training surfaces
+loads no JAX; and without a CUDA card the entry points refuse to run
+unless the CPU was asked for.
 """
 
 import ast
@@ -55,6 +55,7 @@ def test_scanner_matches_exact_names(tmp_path):
 def test_import_loads_no_jax():
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "import mxnet_tpu_torch as mx; mx.serving.GenerationEngine; "
+            "mx.gluon.Trainer; mx.models.bert_base; mx.nd.array; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -79,3 +80,25 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
     assert mx.gpu(1) == torch.device("cuda", 1)
     net = TransformerDecoderLM(device="cpu")
     assert net.params()["embed"].device.type == "cpu"
+
+    # training surface: the default context is the card
+    assert mx.current_context() == mx.gpu(0) == mx.tpu(0)
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mx.nd.array([1.0, 2.0])
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mx.nd.zeros((2,))
+    dense = mx.gluon.nn.Dense(3, in_units=2)
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        dense.initialize()
+    bert = mx.models.get_bert_model(
+        vocab_size=16, num_layers=1, units=8, hidden_size=16, num_heads=2,
+        max_length=8, dropout=0.0, use_pooler=False, use_classifier=False)
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        bert.initialize()
+    assert mx.nd.array([1.0, 2.0], ctx=mx.cpu()).context == mx.cpu()
+    dense.initialize(ctx=mx.cpu())
+    assert dense.weight.data().data.device.type == "cpu"
+    with mx.cpu():
+        assert mx.current_context() == mx.cpu()
+        assert mx.nd.ones((2,)).context == mx.cpu()
+    assert mx.current_context() == mx.gpu(0)
