@@ -31,7 +31,27 @@ Phases (each prints one line of facts; any failure exits non-zero):
 7. train — the Gluon loop as ``bench_bert`` runs it (Normal(0.02) init,
    Adam lr 1e-4 wd 0.01): one warm-up step, 10 timed steps, one profiled
    step; the loss must be finite and fall, and K1/K2 must have launched
-   once per layer per forward/backward.
+   once per layer per forward/backward;
+8. resnet parity — ResNet-50 v1 at full width (``bench_resnet``'s
+   shapes: batch 128, 224 x 224, 1000 classes, fp32) through
+   ``optimize_for("tpu_fused_conv_bn")``: one forward + backward with the
+   fused 1x1-conv + BN-statistics kernels (K4 forward, K5 dW and dX),
+   every kernel call also held against its plain version on the same
+   tensors; the gradients against a run with K5 swapped (here only) for
+   its plain version, the loss against a run with K4 and K5 swapped, then
+   the un-fused net on the same weights;
+9. resnet train — the Gluon loop with ``bench_resnet``'s settings (Xavier
+   init, SGD lr 0.05 momentum 0.9 wd 1e-4): one warm-up step, 10 timed
+   steps, one profiled step (device time split into cuDNN convs, K4, K5,
+   BN and element-wise kernels and the SGD update); the loss must be finite
+   and fall, the running statistics move, and K4, K5-dW and K5-dX launch
+   30 times per step.
+
+Phase 3 also checks K4 and K5's two kernels against their plain versions
+(fp32 and bf16, with and without the BatchNorm prologue, at ResNet-50's
+stage shapes and two ragged ones) and times them at each of ResNet-50's
+nine 1x1 shapes beside their bounds, their plain versions and
+``torch.matmul`` of the bare product.
 
 Then one JSON line listing every ported kernel, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -73,6 +93,32 @@ BERT_BATCH, BERT_SEQ, BERT_VOCAB, BERT_LAYERS = 64, 128, 30522, 12
 # fp32, each parameter's gradient relative to the largest |grad| of its
 # layer's group (see train_parity_phase)
 TRAIN_GRAD_RTOL = 1e-4
+# bench_resnet on an accelerator: resnet50_v1 (1000 classes), batch 128 at
+# 224 x 224, labels in [0, 10), SGD lr 0.05 momentum 0.9 wd 1e-4
+RESNET_BATCH, RESNET_SIZE = 128, 224
+RESNET_SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+RESNET_FUSED = 30  # stride-1 1x1 convs optimize_for marks in ResNet-50 v1
+# those convs as (M = N * H * W, K -> N, calls per step) at batch 128
+RESNET_1X1 = ((401408, 64, 64, 1), (401408, 64, 256, 4),
+              (401408, 256, 64, 2), (100352, 128, 512, 4),
+              (100352, 512, 128, 3), (25088, 256, 1024, 6),
+              (25088, 1024, 256, 5), (6272, 512, 2048, 3),
+              (6272, 2048, 512, 2))
+# K4/K5 vs plain, relative to the largest |value| of each output, as
+# (storage-type outputs y/dx/dw, fp32 statistics): fp32 differs by
+# summation order only (~1e-6 measured over 401408 rows); in bf16 y, dx and
+# dw are rounded once on both sides (one bf16 step, 2^-7 of the largest
+# value) while the statistics stay fp32 (order only; 1e-4 leaves room for
+# one bf16 operand rounded the other way)
+FUSED_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
+# ResNet-50 with K4/K5 vs with their plain versions (see
+# resnet_parity_phase): loss within 1e-5 relative, each weight's gradient
+# within 1e-4 of its own largest |grad|
+RESNET_LOSS_RTOL, RESNET_GRAD_RTOL = 1e-5, 1e-4
+# the fused net against the un-fused one: another computation (the conv
+# bias is applied and cancelled, cuDNN sums in its own order), so 1e-4
+# relative for the loss
+UNFUSED_LOSS_RTOL = 1e-4
 # decode vs dense logits, relative to max |logit|: float32 reorderings
 # over 24 layers stay near 1e-6; the same check in bfloat16 is off by
 # ~1e-2 (printed below), so 1e-4 tells the two apart
@@ -398,6 +444,182 @@ def flash_kernel_phase(dev, gen):
             bound_share=f"{row['bound_ms'] / ms:.4f}")
     say("kernel-time", kernel="flash_bwd_dq+dkv", ms=f"{both:.4f}",
         note='"plain_ms/library_ms of each K2 row are the whole backward"')
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: fused 1x1-conv + BN-statistics kernels (K4, K5) against their
+# plain versions
+# ---------------------------------------------------------------------------
+
+# name: (M, K, N): ResNet-50's three stage-1 shapes, one of each later
+# stage, and two shapes that fit no tile
+FUSED_CASES = {
+    "stage1_64_64": (401408, 64, 64), "stage1_64_256": (401408, 64, 256),
+    "stage1_256_64": (401408, 256, 64), "stage2_512_128": (100352, 512, 128),
+    "stage3_256_1024": (25088, 256, 1024),
+    "stage4_2048_512": (6272, 2048, 512),
+    "ragged_72_40": (1000, 72, 40), "ragged_37_23": (1000, 37, 23),
+}
+FUSED_MODES = {"plain": (False, False), "prologue": (True, False),
+               "prologue_relu": (True, True)}
+
+
+def fused_inputs(gen, dev, M, K, N, dtype, prologue):
+    """x, w, scale, shift (None without a prologue), y, dy, dsum, dssq."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x, w = randn(M, K).to(dtype), randn(K, N, scale=K ** -0.5).to(dtype)
+    s = torch.rand(K, generator=gen, device=dev) + 0.5 if prologue else None
+    t = randn(K, scale=0.1) if prologue else None
+    return (x, w, s, t, randn(M, N).to(dtype), randn(M, N).to(dtype),
+            randn(N), randn(N, scale=0.01))
+
+
+def fused_kernel_phase(dev, gen):
+    """K4 and K5's dW and dX kernels against their plain versions on the
+    same tensors, every case in fp32 and bf16, with no prologue and with
+    one (relu off and on). Returns the largest absolute error of each
+    kernel over the fp32 ResNet-50 cases without a prologue (the path's
+    variant)."""
+    from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
+
+    worst = {"fused_fwd": 0.0, "fused_dw": 0.0, "fused_dx": 0.0}
+    for name, (M, K, N) in FUSED_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for mode, (pro, relu) in FUSED_MODES.items():
+                x, w, s, t, y, dy, ds, dq = fused_inputs(gen, dev, M, K, N,
+                                                         dtype, pro)
+                got = {"fused_fwd": fcbn._cuda_fused_fwd(x, w, s, t, relu),
+                       "fused_dw": (fcbn._cuda_fused_dw(
+                           x, w, y, s, t, dy, ds, dq, relu),),
+                       "fused_dx": fcbn._cuda_fused_dx(x, w, y, s, t, dy,
+                                                       ds, dq, relu)}
+                torch.cuda.synchronize()
+                want = {"fused_fwd": fcbn._torch_fused_fwd(x, w, s, t, relu),
+                        "fused_dw": (fcbn._torch_fused_dw(
+                            x, y, s, t, dy, ds, dq, relu, w.dtype),),
+                        "fused_dx": fcbn._torch_fused_dx(x, w, y, s, t, dy,
+                                                         ds, dq, relu)}
+                lim_t, lim_f = FUSED_TOL[dtype]
+                facts = {}
+                for kernel, outs in want.items():
+                    for i, ref in enumerate(outs):
+                        g = got[kernel][i]
+                        if ref is None:
+                            check(g is None, f"{kernel} {name} output {i}")
+                            continue
+                        check(g.dtype == ref.dtype and g.shape == ref.shape,
+                              f"{kernel} {name} output {i}: {g.dtype} "
+                              f"{tuple(g.shape)}")
+                        diff = float((g.float() - ref.float()).abs().max())
+                        rel = diff / max(float(ref.float().abs().max()),
+                                         1e-30)
+                        lim = lim_t if ref.dtype == dtype else lim_f
+                        check(rel <= lim, f"{kernel} {name} {dtype} {mode} "
+                              f"output {i} disagrees with plain: {rel:.3e} > "
+                              f"{lim}")
+                        facts[f"{kernel[6:]}{i}"] = f"{rel:.1e}"
+                        if dtype == torch.float32 and not pro \
+                                and not name.startswith("ragged"):
+                            worst[kernel] = max(worst[kernel], diff)
+                say("fused-kernel", case=name, shape=f"M{M}_K{K}_N{N}",
+                    dtype=str(dtype).split(".")[1], mode=mode,
+                    rel_err=",".join(f"{k}:{v}" for k, v in facts.items()),
+                    tol_rel=f"{lim_t:.3g}/{lim_f:.3g}", ok=True)
+                del x, w, y, dy, got, want
+    return worst
+
+
+def fused_work(M, K, N, item=4):
+    """Operations (2 M K N) and bytes (each input read once, each output
+    written once) of K4 and K5's two kernels without a prologue."""
+    x, w, mn, vec = M * K * item, K * N * item, M * N * item, 2 * N * 4
+    ops = 2 * M * K * N
+    return {"fused_fwd": (ops, x + w + mn + vec),
+            "fused_dw": (ops, x + 2 * mn + vec + w),
+            "fused_dx": (ops, 2 * mn + w + vec + x)}
+
+
+def fused_time_phase(dev, gen, worst):
+    """K4, K5-dW and K5-dX timed at each of ResNet-50's 1x1 shapes (fp32,
+    no prologue, as the training path runs them) with CUDA events, beside
+    their bounds, their plain versions and torch.matmul of the bare
+    product. The kernels line gets each kernel's totals over the 30 calls
+    of one training step."""
+    from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
+
+    replaces = {"fused_fwd": "mxnet_tpu/ops/fused_conv_bn.py:105",
+                "fused_dw": "mxnet_tpu/ops/fused_conv_bn.py:216",
+                "fused_dx": "mxnet_tpu/ops/fused_conv_bn.py:246"}
+    total = {k: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "ops": 0, "bytes": 0}
+             for k in replaces}
+    for M, K, N, calls in RESNET_1X1:
+        x, w, _, _, y, dy, ds, dq = fused_inputs(gen, dev, M, K, N,
+                                                 torch.float32, False)
+        runs = {
+            "fused_fwd": (lambda: fcbn._cuda_fused_fwd(x, w, None, None),
+                          lambda: fcbn._torch_fused_fwd(x, w, None, None),
+                          lambda: torch.matmul(x, w)),
+            "fused_dw": (lambda: fcbn._cuda_fused_dw(x, w, y, None, None, dy,
+                                                     ds, dq),
+                         lambda: fcbn._torch_fused_dw(x, y, None, None, dy,
+                                                      ds, dq, False, w.dtype),
+                         lambda: torch.matmul(x.t(), dy)),
+            "fused_dx": (lambda: fcbn._cuda_fused_dx(x, w, y, None, None, dy,
+                                                     ds, dq),
+                         lambda: fcbn._torch_fused_dx(x, w, y, None, None, dy,
+                                                      ds, dq, False),
+                         lambda: torch.matmul(dy, w.t())),
+        }
+        work = fused_work(M, K, N)
+        for name, (kern, plain, lib) in runs.items():
+            ms, plain_ms, lib_ms = (cuda_ms(kern, 20), cuda_ms(plain, 10),
+                                    cuda_ms(lib, 20))
+            ops, nbytes = work[name]
+            t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            tot = total[name]
+            tot["ms"] += calls * ms
+            tot["plain"] += calls * plain_ms
+            tot["lib"] += calls * lib_ms
+            tot["ops"] += calls * ops
+            tot["bytes"] += calls * nbytes
+            say("kernel-time", kernel=name, shape=f"M{M}_K{K}_N{N}_fp32",
+                calls_per_step=calls, ms=f"{ms:.4f}",
+                plain_ms=f"{plain_ms:.4f}",
+                matmul_product_only_ms=f"{lib_ms:.4f}",
+                bound_ms=f"{max(t_ops, t_bytes):.5f}",
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                tflops=f"{ops / ms / 1e9:.2f}",
+                bound_share=f"{max(t_ops, t_bytes) / ms:.4f}")
+        del x, w, y, dy
+    rows = []
+    for name, tot in total.items():
+        t_ops = tot["ops"] / PEAK_OPS[torch.float32] * 1e3
+        t_bytes = tot["bytes"] / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/fused_conv_bn.cu",
+            "replaces": replaces[name],
+            "launches": None,  # filled from the ResNet training phase
+            "max_abs_err": worst[name],
+            "ms": tot["ms"],
+            "plain_ms": tot["plain"],
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            # no single PyTorch call computes the product with its
+            # statistics; the bare product's time is in the lines above
+            "library_ms": None,
+        })
+        say("kernel-time", kernel=name, shape="resnet50_step_30_calls",
+            ms=f"{tot['ms']:.4f}", plain_ms=f"{tot['plain']:.4f}",
+            matmul_product_only_ms=f"{tot['lib']:.4f}",
+            bound_ms=f"{rows[-1]['bound_ms']:.4f}",
+            bound_by=rows[-1]["bound_by"], gflop=f"{tot['ops'] / 1e9:.2f}",
+            gbytes=f"{tot['bytes'] / 1e9:.3f}")
     return rows
 
 
@@ -780,6 +1002,384 @@ def train_phase(net, x, y, launches, steps=10):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 8 and 9: ResNet-50 v1 training through optimize_for
+# ---------------------------------------------------------------------------
+
+def resnet_setup(ctx, batch=RESNET_BATCH, size=RESNET_SIZE, spec=None):
+    """ResNet-50 v1 as bench_resnet builds it on an accelerator (``spec`` =
+    (layers, channels, classes) builds a smaller ResNetV1 for a rehearsal
+    on the host), Xavier weights from seed SEED, and its fixed batch
+    (images and labels from numpy seed SEED). Returns the net, its
+    ``optimize_for("tpu_fused_conv_bn")`` adapter, the batch, the fused
+    convs and a builder of the same architecture."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    def build():
+        return vision.resnet50_v1(classes=1000) if spec is None else \
+            vision.ResNetV1(vision.BottleneckV1, *spec)
+
+    torch.manual_seed(SEED)
+    t0 = time.perf_counter()
+    net = build()
+    net.initialize(init=mx.initializer.Xavier(seed=SEED), ctx=ctx)
+    rs = np.random.RandomState(SEED)
+    x = mx.nd.array(rs.rand(batch, 3, size, size).astype(np.float32),
+                    ctx=ctx)
+    y = mx.nd.array(rs.randint(0, 10, (batch,)).astype(np.float32), ctx=ctx)
+    net(x[0:2])  # resolve deferred shapes (predict mode: no state moves)
+    fused = net.optimize_for(backend="tpu_fused_conv_bn")
+    marked = []
+
+    def walk(b):
+        if getattr(b, "_tpu_fused", False):
+            marked.append(b)
+        for c in b._children.values():
+            walk(c)
+
+    walk(net)
+    if spec is None:
+        check(len(marked) == RESNET_FUSED, f"optimize_for marked "
+              f"{len(marked)} convs of ResNet-50, expected {RESNET_FUSED}")
+    mx.nd.waitall()
+    n_params = sum(p.data().size for p in net.collect_params().values())
+    say("resnet-model", config="ResNet-50 v1 (resnet50_v1, 1000 classes)"
+        if spec is None else f"ResNetV1{spec}", params=n_params,
+        fused_convs=len(marked), batch=batch, image=size, dtype="float32",
+        init_s=f"{time.perf_counter() - t0:.2f}", ctx=ctx)
+    return net, fused, x, y, marked, build
+
+
+def _resnet_fwd_bwd(mx, call, x, y):
+    """One recorded forward and backward; the mean loss stays on the
+    device."""
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = sce(call(x), y)
+    loss.backward()
+    return loss.data.detach().mean()
+
+
+def _grads(params):
+    return {k: p.grad().data.clone() for k, p in params.items()
+            if p.grad_req != "null"}
+
+
+def _grad_errors(grads, ref, skip=()):
+    """The worst gradient error, each relative to its own largest |grad|,
+    and its parameter."""
+    worst, worst_name = 0.0, ""
+    for name in ref:
+        if name in skip:
+            continue
+        scale = max(float(ref[name].abs().max()), 1e-30)
+        rel = float((grads[name] - ref[name]).abs().max()) / scale
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
+
+
+class _CheckedCalls:
+    """Inside ``with``: every K4 and K5 call of the fused operators also
+    runs the plain version on the same tensors and records each output's
+    error relative to its largest |value| (the plain versions launch no
+    kernel of the port, so the launch counts stay the main path's)."""
+
+    def __init__(self):
+        from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
+
+        self._fcbn = fcbn
+        self.worst = {"fused_fwd": 0.0, "fused_dw": 0.0, "fused_dx": 0.0}
+        self.calls = {k: 0 for k in self.worst}
+
+    def _note(self, kernel, outs, refs):
+        self.calls[kernel] += 1
+        for g, r in zip(outs, refs):
+            if r is None:
+                continue
+            rel = float((g.float() - r.float()).abs().max()) / max(
+                float(r.float().abs().max()), 1e-30)
+            self.worst[kernel] = max(self.worst[kernel], rel)
+
+    def __enter__(self):
+        f = self._fcbn
+        self._saved = (f._fused_fwd, f._fused_bwd)
+        fwd, bwd = self._saved
+
+        def fwd_checked(*args):
+            out = fwd(*args)
+            self._note("fused_fwd", out, f._torch_fused_fwd(*args))
+            return out
+
+        def bwd_checked(*args):
+            dx, dw, dsc, dbi = bwd(*args)
+            rdx, rdw, rsc, rbi = f._torch_fused_bwd(*args)
+            self._note("fused_dw", (dw,), (rdw,))
+            self._note("fused_dx", (dx, dsc, dbi), (rdx, rsc, rbi))
+            return dx, dw, dsc, dbi
+
+        f._fused_fwd, f._fused_bwd = fwd_checked, bwd_checked
+        return self
+
+    def __exit__(self, *exc):
+        self._fcbn._fused_fwd, self._fcbn._fused_bwd = self._saved
+        return False
+
+
+def _swapped_op(forward):
+    """An ``nd`` operator for ``_contrib_fused_matmul_stats`` whose forward
+    is ``forward(x, w)`` and whose backward is K5's plain version."""
+    from mxnet_tpu_torch.ndarray.ndarray import apply
+    from mxnet_tpu_torch.ops.fused_conv_bn import _torch_fused_bwd
+
+    class Swapped(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx_, a, w):
+            out = forward(a, w)
+            ctx_.save_for_backward(a, w, out[0])
+            return out
+
+        @staticmethod
+        def backward(ctx_, dy, dsum, dssq):
+            a, w, out = ctx_.saved_tensors
+            dx, dw, _, _ = _torch_fused_bwd(a, w, out, None, None, dy, dsum,
+                                            dssq)
+            return dx, dw
+
+    return lambda a, w: apply(Swapped.apply, a, w)
+
+
+def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
+    """ResNet-50 through optimize_for with the kernels against the same
+    net with K4/K5 swapped, in this script only, for their plain versions,
+    and against the un-fused net, all in training mode with cuDNN's
+    deterministic algorithms.
+
+    - Every K4/K5 call of the kernel run is also held against its plain
+      version on the same tensors (FUSED_TOL).
+    - Gradients: the run with K5 swapped for its plain version (K4 kept,
+      so both backward passes see the same forward activations) must give
+      every weight's gradient within RESNET_GRAD_RTOL of its own largest
+      |grad|. With K4 swapped too the forward rounds otherwise, and at
+      Xavier init this net's training-mode gradient is chaotic at fp32
+      rounding: every relu that a rounding moves across zero changes the
+      backward, and BatchNorm's backward leaves a small residual of large
+      cancelling terms. That run's gradient difference is printed beside
+      ``chaos_floor``, the kernel run against itself with its input moved
+      by one rounding.
+    - Losses: with K4/K5 swapped, within RESNET_LOSS_RTOL; the un-fused
+      net, within UNFUSED_LOSS_RTOL (its gradient difference printed)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
+
+    def swapped_run(op, expect):
+        """One step with ``op`` in place of the fused operator; the
+        kernels launched must be ``expect``."""
+        kernel_op = mx.nd._contrib_fused_matmul_stats
+        mx.nd._contrib_fused_matmul_stats = op
+        launches.clear()
+        try:
+            loss = float(_resnet_fwd_bwd(mx, fused, x, y))
+        finally:
+            mx.nd._contrib_fused_matmul_stats = kernel_op
+        got = {k: v for k, v in launches.items() if v}
+        check(got == expect, f"the swapped run launched {got}, not {expect}")
+        return loss
+
+    params = net.collect_params()
+    n = len(marked)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches.clear()
+        with _CheckedCalls() as calls:
+            loss_k = float(_resnet_fwd_bwd(mx, fused, x, y))
+        counts = dict(launches)
+        lim = FUSED_TOL[torch.float32][0]
+        say("resnet-parity", check="every_call_vs_plain",
+            calls=calls.calls,
+            worst_rel={k: f"{v:.2e}" for k, v in calls.worst.items()},
+            tol_rel=lim)
+        for k in ("fused_fwd", "fused_dw", "fused_dx"):
+            check(counts.get(k, 0) == n and calls.calls[k] == n,
+                  f"{k} launched {counts.get(k, 0)} times in one step of "
+                  f"{n} fused convs")
+            check(calls.worst[k] <= lim, f"{k} disagrees with its plain "
+                  f"version on the main path's tensors: {calls.worst[k]:.3e}")
+        grads_k = _grads(params)
+
+        loss_b = swapped_run(
+            _swapped_op(lambda a, w: fcbn._fused_fwd(a, w, None, None,
+                                                     False)),
+            {"fused_fwd": n})
+        # a conv bias before a training-mode BatchNorm has a zero gradient
+        # in exact arithmetic: float noise on both sides, judged against
+        # its conv's weight gradient
+        noise = {k for k in grads_k if "conv2d" in k and k.endswith("_bias")}
+        grads_b = _grads(params)
+        worst, worst_name = _grad_errors(grads_b, grads_k, noise)
+        for k in noise:
+            w = k[:-len("bias")] + "weight"
+            rel = float((grads_b[k] - grads_k[k]).abs().max()) / max(
+                float(grads_k[w].abs().max()), 1e-30)
+            if rel > worst:
+                worst, worst_name = rel, k
+        say("resnet-parity", vs="plain_K5_same_forward",
+            loss_kernels=f"{loss_k:.7f}", loss_plain_k5=f"{loss_b:.7f}",
+            worst_grad_rel=f"{worst:.3e}", worst_param=worst_name,
+            tol_grad=RESNET_GRAD_RTOL, params=len(grads_k))
+        check(loss_b == loss_k, "the same forward gave another loss")
+        check(worst <= RESNET_GRAD_RTOL, f"{worst_name} gradient with K5 "
+              f"disagrees with its plain version: {worst}")
+        del grads_b
+
+        loss_p = swapped_run(
+            _swapped_op(lambda a, w: fcbn._torch_fused_fwd(a, w, None,
+                                                           None)), {})
+        chaos, chaos_name = _grad_errors(_grads(params), grads_k, noise)
+        xp = NDArray(x.data * (1.0 + 2.0 ** -24 * torch.randn(
+            x.shape, generator=torch.Generator(x.data.device).manual_seed(
+                SEED), device=x.data.device)))
+        _resnet_fwd_bwd(mx, fused, xp, y)
+        floor, floor_name = _grad_errors(_grads(params), grads_k, noise)
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        say("resnet-parity", vs="plain_K4_K5", loss_kernels=f"{loss_k:.7f}",
+            loss_plain=f"{loss_p:.7f}", loss_rel=f"{loss_rel:.3e}",
+            tol_loss=RESNET_LOSS_RTOL, worst_grad_rel=f"{chaos:.3e}",
+            worst_param=chaos_name, chaos_floor=f"{floor:.3e}",
+            chaos_floor_param=floor_name)
+        check(np.isfinite(loss_k) and loss_rel <= RESNET_LOSS_RTOL,
+              "ResNet-50 loss with K4/K5 disagrees with their plain versions")
+
+        # the un-fused net on the same weights
+        plain = build()
+        plain.initialize(ctx=ctx)
+        plain(x[0:2])
+        for p, q in zip(plain.collect_params().values(), params.values()):
+            p.set_data(q.data())
+        loss_u = float(_resnet_fwd_bwd(mx, plain, x, y))
+        grads_u = {k: p.grad().data for k, p in zip(
+            params.keys(), plain.collect_params().values())
+            if p.grad_req != "null"}
+        worst, worst_name = _grad_errors(grads_u, grads_k, noise)
+        loss_rel = abs(loss_k - loss_u) / abs(loss_u)
+        say("resnet-parity", vs="unfused_net", loss_fused=f"{loss_k:.7f}",
+            loss_unfused=f"{loss_u:.7f}", loss_rel=f"{loss_rel:.3e}",
+            tol_loss=UNFUSED_LOSS_RTOL, worst_grad_rel=f"{worst:.3e}",
+            worst_param=worst_name, chaos_floor=f"{floor:.3e}")
+        check(loss_rel <= UNFUSED_LOSS_RTOL,
+              "the fused ResNet-50 loss disagrees with the un-fused net's")
+        del plain, grads_u, grads_k
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def resnet_group(name):
+    """The kind of a kernel in a ResNet train step's device time."""
+    n = name.lower()
+    if "mxtpu_fcbn" in n:
+        if "dw_kernel" in n or "reduce_splits" in n:
+            return "k5_dw"
+        return "k5_dx" if "dx_kernel" in n else "k4"
+    if any(k in n for k in ("conv", "cudnn", "xmma", "implicit", "wgrad",
+                            "dgrad", "fprop", "winograd")):
+        return "conv_cudnn"
+    return "gemm" if "gemm" in n else "bn_elementwise"
+
+
+def _device_us(prof):
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+    return by_name
+
+
+def resnet_train_phase(net, fused, x, y, marked, launches, steps=10):
+    """The Gluon loop with bench_resnet's settings: one warm-up step,
+    ``steps`` timed steps (host clock around synchronised work), one
+    profiled step (its forward + backward and its SGD update in two
+    profiler windows). The launch counts are read over exactly these
+    steps."""
+    import mxnet_tpu_torch as mx
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = x.shape[0]
+    params = net.collect_params()
+    trainer = mx.gluon.Trainer(params, "sgd", dict(RESNET_SGD))
+    stats = {k: p.data().data.clone() for k, p in params.items()
+             if "running" in k}
+
+    def step():
+        loss = _resnet_fwd_bwd(mx, fused, x, y)
+        trainer.step(batch)
+        return loss
+
+    launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof_fb:
+        t1 = time.perf_counter()
+        losses.append(_resnet_fwd_bwd(mx, fused, x, y))
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t1) * 1e6
+    with profile(activities=acts) as prof_sgd:
+        t1 = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        window_us += (time.perf_counter() - t1) * 1e6
+    counts = dict(launches)
+    n_steps = steps + 2
+    losses = [float(v) for v in losses]
+    by_name = _device_us(prof_fb)
+    sgd_us = sum(_device_us(prof_sgd).values())
+    busy = sum(by_name.values()) + sgd_us
+    check(busy > 0, "the profiler saw no device time")
+    groups = {"sgd": sgd_us}
+    for name, us in by_name.items():
+        g = resnet_group(name)
+        groups[g] = groups.get(g, 0.0) + us
+    say("resnet-train", device_steps=n_steps, step_ms=f"{step_s * 1e3:.3f}",
+        images_per_s=f"{batch / step_s:.2f}",
+        loss_first=f"{losses[0]:.5f}", loss_last=f"{losses[-1]:.5f}",
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        profiled_busy_ms=f"{busy / 1e3:.3f}",
+        profiled_idle_share=f"{1 - busy / window_us:.4f}",
+        fused_fwd=counts.get("fused_fwd", 0),
+        fused_dw=counts.get("fused_dw", 0),
+        fused_dx=counts.get("fused_dx", 0))
+    say("resnet-step-split", **{g: f"{us / 1e3:.3f}ms/{us / busy:.4f}"
+                                for g, us in sorted(groups.items(),
+                                                    key=lambda kv: -kv[1])})
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        say("resnet-step-kernel", ms_per_step=f"{us / 1e3:.4f}",
+            share=f"{us / busy:.4f}", name=f'"{name[:90]}"')
+    check(all(np.isfinite(losses)), f"non-finite training loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    moved = 0
+    for k, before in stats.items():
+        now = params[k].data().data
+        check(bool(torch.isfinite(now).all()), f"{k} is not finite")
+        moved += int(not torch.equal(now, before))
+    check(moved == len(stats), f"only {moved} of {len(stats)} running "
+          "statistics moved")
+    for name in ("fused_fwd", "fused_dw", "fused_dx"):
+        check(counts.get(name, 0) == len(marked) * n_steps,
+              f"{name} launched {counts.get(name, 0)} times in {n_steps} "
+              f"train steps of {len(marked)} fused convs")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAILED: no CUDA device visible")
@@ -811,6 +1411,8 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(SEED)
     row, pools = kernel_phase(dev, gen)
     flash_rows = flash_kernel_phase(dev, gen)
+    fused_rows = fused_time_phase(dev, gen, fused_kernel_phase(dev, gen))
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -832,8 +1434,18 @@ def main():
     counts = train_phase(bert, x, y, _kernels.LAUNCHES)
     for r in flash_rows:
         r["launches"] = counts[r["name"]]
+    del bert, x, y
+    torch.cuda.empty_cache()
+
+    net, fused, x, y, marked, build = resnet_setup(mx.gpu(0))
+    resnet_parity_phase(net, fused, x, y, marked, build, _kernels.LAUNCHES,
+                        mx.gpu(0))
+    torch.cuda.empty_cache()
+    counts = resnet_train_phase(net, fused, x, y, marked, _kernels.LAUNCHES)
+    for r in fused_rows:
+        r["launches"] = counts[r["name"]]
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
-    print(json.dumps({"kernels": [row] + flash_rows}))
+    print(json.dumps({"kernels": [row] + flash_rows + fused_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,6 +1,6 @@
-"""Gluon of the port: blocks, layers, losses, Trainer."""
+"""Gluon of the port: blocks, layers, losses, Trainer, model zoo."""
 
-from . import loss, nn, utils  # noqa: F401
+from . import loss, model_zoo, nn, utils  # noqa: F401
 from .block import Block, HybridBlock  # noqa: F401
 from .parameter import (  # noqa: F401
     DeferredInitializationError,

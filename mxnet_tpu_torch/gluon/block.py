@@ -194,3 +194,17 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+    def optimize_for(self, x=None, backend="tpu_fused_conv_bn", strict=True,
+                     **kwargs):
+        """Apply a backend optimisation pass (reference:
+        ``HybridBlock.optimize_for(x, backend='MKLDNN')``, the conv+BN
+        subgraph fusion). The ``"tpu_fused_conv_bn"`` backend switches the
+        interior to NHWC with fused 1x1-conv + BN-statistics kernels and
+        RETURNS an adapter keeping the NCHW interface (see
+        ``gluon/nn/tpu_fusion.py``). ``x`` (a sample input) is accepted for
+        API parity and unused."""
+        del x, kwargs
+        from .nn.tpu_fusion import optimize_for as _opt
+
+        return _opt(self, backend=backend, strict=strict)

@@ -1,0 +1,5 @@
+"""``mx.gluon.model_zoo`` of the port (reference:
+``python/mxnet/gluon/model_zoo/``)."""
+
+from . import vision  # noqa: F401
+from .vision import get_model  # noqa: F401

@@ -2,11 +2,12 @@
 
 PyTorch counterpart of ``mxnet_tpu/initializer.py``: the same registry and
 name-suffix dispatch (``*weight`` -> ``_init_weight``, ``*bias`` and
-``*beta`` -> zeros, ``*gamma`` -> ones). Random draws happen on the
-array's own device, from a ``torch.Generator`` seeded with ``seed`` when
-one is given, else from the device's default generator
-(``torch.manual_seed``). They are not the JAX package's numbers: parity
-tests carry the weights across instead.
+``*beta`` -> zeros, ``*gamma`` -> ones, BatchNorm's ``*running_mean`` /
+``*moving_mean`` -> zeros and ``*running_var`` / ``*moving_var`` ->
+ones). Random draws happen on the array's own device, from a
+``torch.Generator`` seeded with ``seed`` when one is given, else from the
+device's default generator (``torch.manual_seed``). They are not the JAX
+package's numbers: parity tests carry the weights across instead.
 """
 
 from __future__ import annotations
@@ -45,6 +46,10 @@ class Initializer:
         if suffix.endswith("bias") or suffix.endswith("beta"):
             self._init_zero(name, arr)
         elif suffix.endswith("gamma"):
+            self._init_one(name, arr)
+        elif suffix.endswith("running_mean") or suffix.endswith("moving_mean"):
+            self._init_zero(name, arr)
+        elif suffix.endswith("running_var") or suffix.endswith("moving_var"):
             self._init_one(name, arr)
         else:
             self._init_weight(name, arr)

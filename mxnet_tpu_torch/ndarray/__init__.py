@@ -13,4 +13,8 @@ from .ndarray import (  # noqa: F401
     zeros,
 )
 from .op import *  # noqa: F401,F403
+from .op import (  # noqa: F401
+    _contrib_fused_matmul_stats,
+    _contrib_fused_scaled_matmul_stats,
+)
 from . import op  # noqa: F401

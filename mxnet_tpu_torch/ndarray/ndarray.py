@@ -98,6 +98,10 @@ class NDArray:
         return _np.dtype(str(self._t.dtype).split(".")[1])
 
     @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
     def size(self) -> int:
         return self._t.numel()
 
@@ -122,6 +126,13 @@ class NDArray:
         device, where device errors surface)."""
         if self._t.is_cuda:
             torch.cuda.synchronize(self._t.device)
+
+    def _set_data(self, value):
+        """Overwrite the contents in place (never recorded): how an
+        operator writes back auxiliary state such as BatchNorm's running
+        statistics."""
+        with torch.no_grad():
+            self._t.copy_(_unwrap(value).detach())
 
     # -- conversion and shape -----------------------------------------
     def astype(self, dtype, copy=True) -> "NDArray":

@@ -83,5 +83,10 @@ def pick(data, index, axis=-1, keepdims=False):
     return r if keepdims else r.squeeze(axis)
 
 
+def flatten(data):
+    """Collapse every axis but the first: ``(d0, d1 * d2 * ...)``."""
+    return data.reshape(data.shape[0], -1)
+
+
 def identity(data):
     return data.clone()

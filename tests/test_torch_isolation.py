@@ -56,6 +56,8 @@ def test_import_loads_no_jax():
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "import mxnet_tpu_torch as mx; mx.serving.GenerationEngine; "
             "mx.gluon.Trainer; mx.models.bert_base; mx.nd.array; "
+            "mx.gluon.model_zoo.vision.resnet50_v1; mx.nd.Convolution; "
+            "mx.nd._contrib_fused_matmul_stats; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -95,6 +97,9 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
         max_length=8, dropout=0.0, use_pooler=False, use_classifier=False)
     with pytest.raises(mx.MXNetError, match="no CUDA device"):
         bert.initialize()
+    resnet = mx.gluon.model_zoo.vision.resnet50_v1()
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        resnet.initialize()
     assert mx.nd.array([1.0, 2.0], ctx=mx.cpu()).context == mx.cpu()
     dense.initialize(ctx=mx.cpu())
     assert dense.weight.data().data.device.type == "cpu"
