@@ -12,12 +12,14 @@ Phases (each prints one line of facts; any failure exits non-zero):
 2. build — every CUDA kernel of the port from ``mxnet_tpu_torch/csrc``;
 3. kernels — each kernel against its plain PyTorch version on the card,
    in float32 and bfloat16: paged decode (K3) at the serving path's
-   shapes; flash attention forward (K1) and its split backward (K2: the dq
-   kernel and the dk/dv kernel) at BERT-base's training shape,
-   ``bench_flash_attention``'s causal shape, llama3-8B's head layout with
-   a sliding window, a ragged and a causal cross shape; then each timed
+   shapes; flash attention forward (K1), its split backward (K2: the dq
+   kernel and the dk/dv kernel) and its fused backward (K6) at BERT-base's
+   training shape, ``bench_flash_attention``'s causal shape, llama3-8B's
+   head layout with a sliding window and at its full causal training
+   shape (T = 8192), a ragged and a causal cross shape; then each timed
    with CUDA events beside its bound, its plain version's time and one
-   PyTorch library call computing the same function;
+   PyTorch library call computing the same function (K6 beside K2 at
+   BERT-base's and Llama-3-8B's shapes);
 4. serving parity — a StarCoderBase-1B-width decoder (random weights from
    a seed): prefill + 32 paged decode steps, each step's logits against
    the dense forward's logits at that position; then one full-width
@@ -45,7 +47,19 @@ Phases (each prints one line of facts; any failure exits non-zero):
    steps, one profiled step (device time split into cuDNN convs, K4, K5,
    BN and element-wise kernels and the SGD update); the loss must be finite
    and fall, the running statistics move, and K4, K5-dW and K5-dX launch
-   30 times per step.
+   30 times per step;
+10. llama parity — Llama-3-8B at its published widths cut to 2 decoder
+   layers (meta-llama/Meta-Llama-3-8B ``config.json``: vocab 128256,
+   hidden 4096, intermediate 14336, 32 heads over 8 kv heads, rope theta
+   500000; 1,486,901,248 parameters, fp32), one sequence of 8192 tokens:
+   one forward + backward through the Gluon loop with
+   ``MXTPU_FLASH_BWD=fused`` (K6) and again with ``split`` (K2) on the
+   same weights; the loss must be equal and every gradient agree;
+11. llama train — ``parallel.SPMDTrainStep(mesh=None)`` with Adam (lr
+   1e-4) under ``MXTPU_FLASH_BWD=fused``: ``run_steps`` for one warm-up
+   step, 10 timed steps and one profiled step (device time split into fp32
+   products, K1, K6, element-wise kernels and the Adam update); the loss
+   must be finite and fall, K6 launch twice per step and K2 never.
 
 Phase 3 also checks K4 and K5's two kernels against their plain versions
 (fp32 and bf16, with and without the BatchNorm prologue, at ResNet-50's
@@ -119,6 +133,13 @@ RESNET_LOSS_RTOL, RESNET_GRAD_RTOL = 1e-5, 1e-4
 # bias is applied and cancelled, cuDNN sums in its own order), so 1e-4
 # relative for the loss
 UNFUSED_LOSS_RTOL = 1e-4
+# meta-llama/Meta-Llama-3-8B config.json (the repo's
+# _LLAMA_CONFIGS["llama3_8b"]): vocab 128256, hidden 4096, intermediate
+# 14336, 32 heads over 8 kv heads, rope theta 500000, context 8192; cut to
+# 2 of its 32 decoder layers so that fp32 Adam fits one card, trained on
+# one sequence of 8192 tokens (the longest K6's cap admits)
+LLAMA_LAYERS, LLAMA_SEQ, LLAMA_PARAMS = 2, 8192, 1486901248
+LLAMA_ADAM_LR = 1e-4
 # decode vs dense logits, relative to max |logit|: float32 reorderings
 # over 24 layers stay near 1e-6; the same check in bfloat16 is off by
 # ~1e-2 (printed below), so 1e-4 tells the two apart
@@ -148,6 +169,19 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sdpa_bwd_ms(qs, ks, vs, g, causal, iters):
+    """Mean device milliseconds of SDPA's backward alone: one forward
+    outside the timed calls, then ``torch.autograd.grad`` of its output
+    over the kept graph."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    o = sdpa(qs, ks, vs, is_causal=causal)
+    ms = cuda_ms(lambda: torch.autograd.grad(o, (qs, ks, vs), g,
+                                             retain_graph=True), iters)
+    del o
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +316,7 @@ FLASH_CASES = {
                                 True),
     "ragged": (2, 4, 4, 1000, 1000, 64, False, 0, False),
     "causal_cross": (4, 4, 4, 128, 512, 64, True, 0, False),
+    "llama3_8b_causal": (1, 32, 8, 8192, 8192, 128, True, 0, False),
 }
 
 
@@ -297,7 +332,7 @@ def visible_pairs(T, S, causal, window):
 
 def flash_work(B, H, KVH, T, S, D, causal, window, item):
     """Operations and bytes (each input read once, each output written
-    once) of K1, K2's dq kernel and K2's dk/dv kernel."""
+    once) of K1, K2's dq kernel, K2's dk/dv kernel and K6."""
     pairs = B * H * visible_pairs(T, S, causal, window)
     q_b, kv_b, rows_b = B * H * T * D * item, B * KVH * S * D * item, \
         B * H * T * 4
@@ -305,6 +340,8 @@ def flash_work(B, H, KVH, T, S, D, causal, window, item):
         "flash_fwd": (4 * pairs * D, 2 * q_b + 2 * kv_b + rows_b),
         "flash_bwd_dq": (6 * pairs * D, 3 * q_b + 2 * kv_b + 2 * rows_b),
         "flash_bwd_dkv": (8 * pairs * D, 2 * q_b + 4 * kv_b + 2 * rows_b),
+        # Q, dO, O and dq; K, V, dK and dV; LSE and delta
+        "flash_bwd_fused": (10 * pairs * D, 4 * q_b + 4 * kv_b + 2 * rows_b),
     }
 
 
@@ -319,13 +356,17 @@ def flash_inputs(gen, dev, B, H, KVH, T, S, D, dtype):
 def flash_kernel_phase(dev, gen):
     """Every case in fp32 and bf16: O and the gradients through the
     public autograd op (K1 forward, K2 backward), the LSE from K1 itself,
-    all against the plain versions on the same tensors. Then, at the
-    training shape in fp32, each kernel timed beside its bound, its plain
-    version and scaled_dot_product_attention (never used by the port)."""
+    and K6's gradients (fed the plain forward's O and LSE), all against
+    the plain versions on the same tensors. Then, at the training shape
+    in fp32, each kernel timed beside its bound, its plain version and
+    scaled_dot_product_attention (never used by the port; the K2 rows
+    take its backward alone, timed after one forward). Returns the
+    rows of K1 and K2 and the errors of every case."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from mxnet_tpu_torch.ops.flash_attention import (
         _cuda_flash_bwd,
+        _cuda_flash_bwd_fused,
         _cuda_flash_fwd,
         _torch_flash_bwd,
         _torch_flash_fwd,
@@ -347,6 +388,9 @@ def flash_kernel_phase(dev, gen):
                                                 window)
             want = _torch_flash_bwd(q, k, v, want_o, want_lse, g, D ** -0.5,
                                     causal, window)
+            k6 = _cuda_flash_bwd_fused(q, k, v, want_o, want_lse, g,
+                                       D ** -0.5, causal, window)
+            torch.cuda.synchronize()
             tol = FLASH_TOL[dtype]
             facts = {}
             for what, got, ref, lim in (
@@ -354,7 +398,10 @@ def flash_kernel_phase(dev, gen):
                     ("lse", lse, want_lse, FLASH_TOL[torch.float32]),
                     ("dq", leaves[0].grad, want[0], tol),
                     ("dk", leaves[1].grad, want[1], tol),
-                    ("dv", leaves[2].grad, want[2], tol)):
+                    ("dv", leaves[2].grad, want[2], tol),
+                    ("k6_dq", k6[0], want[0], tol),
+                    ("k6_dk", k6[1], want[1], tol),
+                    ("k6_dv", k6[2], want[2], tol)):
                 diff = float((got.detach().float() - ref.float()).abs().max())
                 rel = diff / max(float(ref.float().abs().max()), 1e-30)
                 check(got.dtype == ref.dtype and got.shape == ref.shape,
@@ -369,7 +416,8 @@ def flash_kernel_phase(dev, gen):
                 native_gqa=native, rel_err=",".join(
                     f"{k}:{v}" for k, v in facts.items()),
                 tol_rel=tol, ok=True)
-            del q, k, v, g, leaves, out, want
+            del q, k, v, g, leaves, out, want, k6, want_o, want_lse, lse
+        torch.cuda.empty_cache()
 
     # timing at BERT-base's training shape, fp32 (the training type)
     B, H, KVH, T, S, D, causal, window, _ = FLASH_CASES["bert_base"]
@@ -405,7 +453,8 @@ def flash_kernel_phase(dev, gen):
     }
     plain_bwd = cuda_ms(lambda: _torch_flash_bwd(
         q, k, v, plain_o, plain_lse, g, scale, causal, window), 20)
-    lib_bwd = cuda_ms(lib_fwd_bwd, 20)
+    lib_fwd_bwd_ms = cuda_ms(lib_fwd_bwd, 20)
+    lib_bwd = sdpa_bwd_ms(qs, ks, vs, g, causal, 20)
     times["flash_bwd_dq"] = (cuda_ms(dq_only, 50), plain_bwd, lib_bwd)
     times["flash_bwd_dkv"] = (cuda_ms(dkv_only, 50), plain_bwd, lib_bwd)
     both = cuda_ms(lambda: _cuda_flash_bwd(q, k, v, out, lse, g, scale,
@@ -443,8 +492,81 @@ def flash_kernel_phase(dev, gen):
             bound_by=row["bound_by"], tflops=f"{ops / ms / 1e9:.2f}",
             bound_share=f"{row['bound_ms'] / ms:.4f}")
     say("kernel-time", kernel="flash_bwd_dq+dkv", ms=f"{both:.4f}",
+        sdpa_fwd_bwd_ms=f"{lib_fwd_bwd_ms:.4f}",
         note='"plain_ms/library_ms of each K2 row are the whole backward"')
-    return rows
+    return rows, errs
+
+
+# K6 is timed at these FLASH_CASES shapes (BERT-base's and Llama-3-8B's);
+# the kernels line gets the last, where the llama phases run it
+K6_TIME_CASES = ("bert_base", "llama3_8b_causal")
+
+
+def fused_bwd_time_phase(dev, gen, errs):
+    """K6 timed with CUDA events beside K2 (its dq and dk/dv kernels
+    together) at the same shapes in fp32, with K6's bound, the plain
+    backward, SDPA's backward alone (the row's ``library_ms``) and SDPA
+    forward + backward (kv heads repeated before the timed calls: SDPA's
+    fused kernels take no grouped heads). Each time is
+    a whole backward wrapper call: delta, the outputs (K6's zeroed dq
+    workspace) and the launch(es). Returns K6's row at the last case."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    row = None
+    for case in K6_TIME_CASES:
+        B, H, KVH, T, S, D, causal, window, _ = FLASH_CASES[case]
+        q, k, v, g = flash_inputs(gen, dev, B, H, KVH, T, S, D,
+                                  torch.float32)
+        scale = D ** -0.5
+        out, lse = fa._cuda_flash_fwd(q, k, v, scale, causal, window)
+        qs, ks, vs = (t.clone().requires_grad_() for t in (
+            q, k.repeat_interleave(H // KVH, 1),
+            v.repeat_interleave(H // KVH, 1)))
+
+        def lib_fwd_bwd():
+            o = sdpa(qs, ks, vs, is_causal=causal)
+            torch.autograd.grad(o, (qs, ks, vs), g)
+
+        iters = 50 if T <= 1024 else 5
+        args = (q, k, v, out, lse, g, scale, causal, window)
+        ms = cuda_ms(lambda: fa._cuda_flash_bwd_fused(*args), iters)
+        k2_ms = cuda_ms(lambda: fa._cuda_flash_bwd(*args), iters)
+        plain_ms = cuda_ms(lambda: fa._torch_flash_bwd(*args),
+                           max(2, iters // 3))
+        lib_fwd_bwd_ms = cuda_ms(lib_fwd_bwd, max(2, iters // 3))
+        lib_ms = sdpa_bwd_ms(qs, ks, vs, g, causal, max(2, iters // 3))
+        ops, nbytes = flash_work(B, H, KVH, T, S, D, causal, window,
+                                 4)["flash_bwd_fused"]
+        t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {
+            "name": "flash_bwd_fused",
+            "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_bwd_fused.cu",
+            "replaces": "mxnet_tpu/ops/flash_attention.py:263",
+            "launches": None,  # filled from the llama training phase
+            "max_abs_err": max(errs[(case, torch.float32, w)]
+                               for w in ("k6_dq", "k6_dk", "k6_dv")),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms,
+        }
+        say("kernel-time", kernel="flash_bwd_fused",
+            shape=f"B{B}_H{H}_KVH{KVH}_T{T}_D{D}_causal{int(causal)}_fp32",
+            ms=f"{ms:.4f}", k2_dq_dkv_ms=f"{k2_ms:.4f}",
+            k6_over_k2=f"{ms / k2_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{lib_ms:.4f}", sdpa_fwd_bwd_ms=f"{lib_fwd_bwd_ms:.4f}",
+            k6_over_library=f"{ms / lib_ms:.4f}",
+            bound_ms=f"{row['bound_ms']:.5f}",
+            bound_by=row["bound_by"], tflops=f"{ops / ms / 1e9:.2f}",
+            bound_share=f"{row['bound_ms'] / ms:.4f}")
+        del q, k, v, g, out, lse, qs, ks, vs
+        torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1380,6 +1502,191 @@ def resnet_train_phase(net, fused, x, y, marked, launches, steps=10):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 10 and 11: Llama-3-8B widths through SPMDTrainStep(mesh=None)
+# ---------------------------------------------------------------------------
+
+def llama_setup(ctx, layers=LLAMA_LAYERS, seq=LLAMA_SEQ, **cut):
+    """Llama-3-8B's widths with ``layers`` decoder layers (``cut``
+    overrides widths for a rehearsal on the host), Normal(0.02) weights
+    from seed SEED, and one sequence from numpy seed SEED: x = ids[:, :-1],
+    y = ids[:, 1:] of a (1, seq + 1) draw. Deferred shapes are resolved by
+    one predict-mode forward."""
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    net = mx.models.llama3_8b(num_layers=layers, **cut)
+    net.initialize(init=mx.initializer.Normal(0.02, seed=SEED), ctx=ctx)
+    vocab = net._cfg["vocab_size"]
+    ids = np.random.RandomState(SEED).randint(0, vocab, (1, seq + 1))
+    x = mx.nd.array(ids[:, :-1], dtype="int32", ctx=ctx)
+    y = mx.nd.array(ids[:, 1:].astype(np.float32), ctx=ctx)
+    net(x)
+    mx.nd.waitall()
+    n_params = sum(p.data().size for p in net.collect_params().values())
+    if not cut:
+        check(n_params == LLAMA_PARAMS and layers == LLAMA_LAYERS,
+              f"Llama-3-8B cut to {layers} layers has {n_params} parameters")
+    say("llama-model", config=f"Llama-3-8B widths, {layers} of 32 layers",
+        params=n_params, batch=1, seq=seq, dtype="float32",
+        init_s=f"{time.perf_counter() - t0:.2f}", ctx=ctx)
+    return net, x, y
+
+
+def llama_lm_loss(mx):
+    """The reference's ``test_llama_tiny_train`` loss: softmax
+    cross-entropy over the flattened logits."""
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def lm_loss(logits, labels):
+        return sce(logits.reshape((-1, logits.shape[-1])),
+                   labels.reshape((-1,)))
+
+    return lm_loss
+
+
+def llama_parity_phase(net, x, y, launches):
+    """One forward + backward through the Gluon loop with
+    ``MXTPU_FLASH_BWD=fused`` (K6), then with ``split`` (K2), on the same
+    weights: the forward is the same K1 launches, so the loss must be
+    equal; every gradient must agree within TRAIN_GRAD_RTOL of its own
+    largest |grad| (Llama has no bias whose exact gradient is zero)."""
+    import mxnet_tpu_torch as mx
+
+    lm_loss = llama_lm_loss(mx)
+    params = net.collect_params()
+
+    def fwd_bwd(route):
+        os.environ["MXTPU_FLASH_BWD"] = route
+        launches.clear()
+        with mx.autograd.record():
+            loss = mx.nd.mean(lm_loss(net(x), y))
+        loss.backward()
+        value = float(loss.asnumpy())
+        got = {k: v for k, v in launches.items() if v}
+        return value, got
+
+    try:
+        loss_f, got_f = fwd_bwd("fused")
+        grads_f = _grads(params)
+        loss_s, got_s = fwd_bwd("split")
+    finally:
+        os.environ.pop("MXTPU_FLASH_BWD", None)
+    n = net._cfg["num_layers"]
+    check(got_f == {"flash_fwd": n, "flash_bwd_fused": n},
+          f"the fused run launched {got_f}")
+    check(got_s == {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n},
+          f"the split run launched {got_s}")
+    worst, worst_name = _grad_errors(grads_f, _grads(params))
+    say("llama-parity", loss_k6=f"{loss_f:.7f}", loss_k2=f"{loss_s:.7f}",
+        worst_grad_rel=f"{worst:.3e}", worst_param=worst_name,
+        tol_rel=TRAIN_GRAD_RTOL, params=len(grads_f),
+        launches_k6_run=got_f, launches_k2_run=got_s)
+    check(np.isfinite(loss_f) and loss_f == loss_s,
+          "the same forward gave another loss")
+    check(worst <= TRAIN_GRAD_RTOL, f"{worst_name} gradient with K6 "
+          f"disagrees with K2's: {worst}")
+    del grads_f
+
+
+def llama_group(name):
+    """The kind of a kernel in a Llama forward + backward's device
+    time."""
+    n = name.lower()
+    if "flash_fwd_kernel" in n:
+        return "k1"
+    if "flash_bwd_fused_kernel" in n:
+        return "k6"
+    if "flash_bwd" in n:
+        return "k2"
+    if "gemm" in n or "gemv" in n:
+        return "fp32_products"
+    return "elementwise"
+
+
+def llama_train_phase(net, x, y, launches, steps=10):
+    """``SPMDTrainStep(mesh=None)`` with Adam under
+    ``MXTPU_FLASH_BWD=fused``: ``run_steps`` for one warm-up step (its
+    first call also copies the weights into the step and resolves shapes
+    with one predict-mode forward), ``steps`` timed steps (host clock
+    around synchronised work) and one profiled step, whose loss and
+    gradients and whose Adam update run in two profiler windows. The
+    launch counts are read over exactly these steps."""
+    import mxnet_tpu_torch as mx
+    from torch.profiler import ProfilerActivity, profile
+
+    os.environ["MXTPU_FLASH_BWD"] = "fused"
+    try:
+        step = mx.parallel.SPMDTrainStep(net, llama_lm_loss(mx), "adam", {},
+                                         mesh=None)
+        launches.clear()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [step.run_steps(x, y, 1, lr=LLAMA_ADAM_LR)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step.run_steps(x, y, steps, lr=LLAMA_ADAM_LR))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / steps
+        raw_x, raw_y, lr = step._prepare(x, y, LLAMA_ADAM_LR)
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof_fb:
+            t1 = time.perf_counter()
+            loss, grads = step._loss_and_grads(raw_x, raw_y)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t1) * 1e6
+        with profile(activities=acts) as prof_upd:
+            t1 = time.perf_counter()
+            step._apply(grads, lr)
+            torch.cuda.synchronize()
+            window_us += (time.perf_counter() - t1) * 1e6
+        losses.append(loss)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        os.environ.pop("MXTPU_FLASH_BWD", None)
+    counts = dict(launches)
+    n_steps = steps + 2
+    losses = [float(v) for v in losses]
+    by_name = _device_us(prof_fb)
+    adam_us = sum(_device_us(prof_upd).values())
+    busy = sum(by_name.values()) + adam_us
+    check(busy > 0, "the profiler saw no device time")
+    groups = {"adam_update": adam_us}
+    for name, us in by_name.items():
+        g = llama_group(name)
+        groups[g] = groups.get(g, 0.0) + us
+    seq = x.shape[0] * x.shape[1]
+    layers = net._cfg["num_layers"]
+    say("llama-train", device_steps=n_steps, step_ms=f"{step_s * 1e3:.3f}",
+        tokens_per_s=f"{seq / step_s:.2f}", loss_first=f"{losses[0]:.5f}",
+        loss_after_timed=f"{losses[1]:.5f}", loss_last=f"{losses[-1]:.5f}",
+        peak_mem_gb=f"{peak_gb:.2f}", profiled_busy_ms=f"{busy / 1e3:.3f}",
+        profiled_idle_share=f"{1 - busy / window_us:.4f}",
+        flash_fwd=counts.get("flash_fwd", 0),
+        flash_bwd_fused=counts.get("flash_bwd_fused", 0),
+        flash_bwd_dq=counts.get("flash_bwd_dq", 0),
+        flash_bwd_dkv=counts.get("flash_bwd_dkv", 0))
+    say("llama-step-split", **{g: f"{us / 1e3:.3f}ms/{us / busy:.4f}"
+                               for g, us in sorted(groups.items(),
+                                                   key=lambda kv: -kv[1])})
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        say("llama-step-kernel", ms_per_step=f"{us / 1e3:.4f}",
+            share=f"{us / busy:.4f}", name=f'"{name[:90]}"')
+    check(all(np.isfinite(losses)), f"non-finite training loss {losses}")
+    # one sequence is memorised: after the timed steps the loss is near 0,
+    # where Adam's steps move it up and down
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(counts.get("flash_bwd_fused", 0) == layers * n_steps,
+          f"K6 launched {counts.get('flash_bwd_fused', 0)} times in "
+          f"{n_steps} train steps of {layers} layers")
+    check(counts.get("flash_bwd_dq", 0) == 0
+          and counts.get("flash_bwd_dkv", 0) == 0,
+          f"K2 launched under MXTPU_FLASH_BWD=fused: {counts}")
+    # one predict-mode forward resolves the step's state on its first call
+    check(counts.get("flash_fwd", 0) == layers * (n_steps + 1),
+          f"K1 launched {counts.get('flash_fwd', 0)} times")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAILED: no CUDA device visible")
@@ -1410,7 +1717,8 @@ def main():
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     row, pools = kernel_phase(dev, gen)
-    flash_rows = flash_kernel_phase(dev, gen)
+    flash_rows, flash_errs = flash_kernel_phase(dev, gen)
+    k6_row = fused_bwd_time_phase(dev, gen, flash_errs)
     fused_rows = fused_time_phase(dev, gen, fused_kernel_phase(dev, gen))
     torch.cuda.empty_cache()
 
@@ -1444,8 +1752,17 @@ def main():
     counts = resnet_train_phase(net, fused, x, y, marked, _kernels.LAUNCHES)
     for r in fused_rows:
         r["launches"] = counts[r["name"]]
+    del net, fused, x, y, marked, build
+    torch.cuda.empty_cache()
+
+    llama, x, y = llama_setup(mx.gpu(0))
+    llama_parity_phase(llama, x, y, _kernels.LAUNCHES)
+    torch.cuda.empty_cache()
+    counts = llama_train_phase(llama, x, y, _kernels.LAUNCHES)
+    k6_row["launches"] = counts["flash_bwd_fused"]
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
-    print(json.dumps({"kernels": [row] + flash_rows + fused_rows}))
+    print(json.dumps({"kernels": [row] + flash_rows + fused_rows
+                      + [k6_row]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

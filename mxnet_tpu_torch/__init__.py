@@ -21,6 +21,11 @@ Import as::
     loss.backward()
     trainer.step(batch_size)
 
+    net = mx.models.llama3_8b(num_layers=2)                # one-step harness
+    net.initialize(init=mx.initializer.Normal(0.02))
+    step = mx.parallel.SPMDTrainStep(net, lm_loss, "adam", {}, mesh=None)
+    loss = step.run_steps(x, y, 10, lr=1e-4)
+
     net = mx.serving.TransformerDecoderLM(vocab_size=64)   # serving
     eng = mx.serving.GenerationEngine(net, [8, 16], slots=4, chunk=4)
 """
@@ -45,4 +50,5 @@ from . import initializer  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import gluon  # noqa: F401
 from . import models  # noqa: F401
+from . import parallel  # noqa: F401
 from . import serving  # noqa: F401

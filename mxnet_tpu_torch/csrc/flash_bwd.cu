@@ -17,11 +17,12 @@
 // - dq: one CUDA block per (batch * head, 64 query rows). It keeps Q and dO
 //   in shared memory and walks the visible key tiles (kv_tiles()), holding
 //   its 64 x kD dq accumulator in registers (4 rows x kD / 16 dims a thread).
-// - dk/dv: one CUDA block per (batch * kv head, 64 key rows). It keeps K and
-//   V in shared memory and walks, for each query head of its group in turn,
-//   the query tiles that see its keys (q_tiles()). The group's sum of
-//   dk and dv therefore happens in registers, in a fixed order, with no
-//   atomics: the result is deterministic, and K/V are never repeated.
+// - dk/dv: one CUDA block per (batch * kv head, 64 key rows), the body in
+//   flash_bwd_kv.cuh. It keeps K and V in shared memory and walks, for each
+//   query head of its group in turn, the query tiles that see its keys
+//   (q_tiles()). The group's sum of dk and dv therefore happens in
+//   registers, in a fixed order, with no atomics: the result is
+//   deterministic, and K/V are never repeated.
 // In both, a thread computes 4 x 4 entries of the score tile and of dp, and
 // p (and ds) go through shared memory for the second product.
 //
@@ -34,7 +35,7 @@
 // version runs on the CUDA cores in fp32 for both types (no wgmma, no TMA),
 // so it stays well below either bound; the times are in PERF.md.
 
-#include "flash_common.cuh"
+#include "flash_bwd_kv.cuh"
 
 namespace mxtpu_flash {
 namespace {
@@ -42,30 +43,6 @@ namespace {
 template <int kD>
 constexpr size_t dq_smem_bytes() {
   return sizeof(float) * (2 * (kBQ + kBK) * (kD + 1) + kBQ * kLdP);
-}
-
-template <int kD>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) *
-         (2 * (kBQ + kBK) * (kD + 1) + 2 * kBQ * kLdP + 2 * kBQ);
-}
-
-// s = Q K^T and dp = dO V^T for the thread's 4 x 4 entries, both tiles of
-// pitch kD + 1.
-template <int kD>
-__device__ __forceinline__ void score_and_dp(float (&s)[4][4],
-                                             float (&dp)[4][4],
-                                             const float* q_t,
-                                             const float* g_t,
-                                             const float* k_t,
-                                             const float* v_t, int ty,
-                                             int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-  tile_dot<kD>(s, q_t, k_t, ty, tx);
-  tile_dot<kD>(dp, g_t, v_t, ty, tx);
 }
 
 template <typename T, int kD>
@@ -163,6 +140,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The dk/dv kernel: the key-tile body of flash_bwd_kv.cuh without dq.
 template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -170,113 +148,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, Dims d) {
-  constexpr int kLd = kD + 1;
-  constexpr int kDPer = kD / 16;
-  extern __shared__ float smem[];
-  float* k_t = smem;               // kBK x kLd
-  float* v_t = k_t + kBK * kLd;    // kBK x kLd
-  float* q_t = v_t + kBK * kLd;    // kBQ x kLd
-  float* g_t = q_t + kBQ * kLd;    // kBQ x kLd (dO)
-  float* p_t = g_t + kBQ * kLd;    // kBQ x kLdP
-  float* ds_t = p_t + kBQ * kLdP;  // kBQ x kLdP
-  float* lse_t = ds_t + kBQ * kLdP;  // kBQ
-  float* delta_t = lse_t + kBQ;      // kBQ
-
-  const int bkvh = blockIdx.y;
-  const int b = bkvh / d.KVH;
-  const int kvh = bkvh - b * d.KVH;
-  const int group = d.H / d.KVH;
-  const int c0 = blockIdx.x * kBK;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  load_tile<kD>(k_t, k + b * d.k_s[0] + kvh * d.k_s[1], d.k_s[2], c0, kBK,
-                d.S, d.D);
-  load_tile<kD>(v_t, v + b * d.v_s[0] + kvh * d.v_s[1], d.v_s[2], c0, kBK,
-                d.S, d.D);
-
-  // the thread's key rows ty + 16 jj and dims tx + 16 e
-  float dk_acc[4][kDPer], dv_acc[4][kDPer];
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-    for (int e = 0; e < kDPer; ++e) dk_acc[jj][e] = dv_acc[jj][e] = 0.f;
-
-  int lo, hi;
-  q_tiles(d, c0, min(c0 + kBK, d.S), &lo, &hi);
-  for (int hg = 0; hg < group; ++hg) {
-    const int h = kvh * group + hg;
-    const long long bh = (long long)b * d.H + h;
-    const T* qb = q + b * d.q_s[0] + h * d.q_s[1];
-    const T* gb = g + b * d.g_s[0] + h * d.g_s[1];
-    for (int qt = lo; qt < hi; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();
-      load_tile<kD>(q_t, qb, d.q_s[2], q0, kBQ, d.T, d.D);
-      load_tile<kD>(g_t, gb, d.g_s[2], q0, kBQ, d.T, d.D);
-      for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-        const bool ok = q0 + r < d.T;
-        lse_t[r] = ok ? lse[bh * d.T + q0 + r] : 0.f;
-        delta_t[r] = ok ? delta[bh * d.T + q0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      float s[4][4], dp[4][4];
-      score_and_dp<kD>(s, dp, q_t, g_t, k_t, v_t, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        const int row = q0 + r;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = c0 + tx + 16 * j;
-          float p =
-              expf(masked_score(d, row, col, s[i][j] * d.scale) - lse_t[r]);
-          if (row >= d.T) p = 0.f;
-          p_t[r * kLdP + tx + 16 * j] = p;
-          ds_t[r * kLdP + tx + 16 * j] = p * (dp[i][j] - delta_t[r]) * d.scale;
-        }
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int i = 0; i < kBQ; ++i) {
-        float p[4], ds[4], gg[kDPer], qq[kDPer];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          p[jj] = p_t[i * kLdP + ty + 16 * jj];
-          ds[jj] = ds_t[i * kLdP + ty + 16 * jj];
-        }
-#pragma unroll
-        for (int e = 0; e < kDPer; ++e) {
-          gg[e] = g_t[i * kLd + tx + 16 * e];
-          qq[e] = q_t[i * kLd + tx + 16 * e];
-        }
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int e = 0; e < kDPer; ++e) {
-            dv_acc[jj][e] += p[jj] * gg[e];
-            dk_acc[jj][e] += ds[jj] * qq[e];
-          }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-    const int row = c0 + ty + 16 * jj;
-    if (row >= d.S) continue;
-    const long long off = ((long long)bkvh * d.S + row) * d.D;
-#pragma unroll
-    for (int e = 0; e < kDPer; ++e) {
-      const int c = tx + 16 * e;
-      if (c < d.D) {
-        store(dk + off + c, dk_acc[jj][e]);
-        store(dv + off + c, dv_acc[jj][e]);
-      }
-    }
-  }
+  bwd_kv_block<T, kD, false>(q, k, v, g, lse, delta, nullptr, dk, dv, d);
 }
 
 template <typename T, int kD>
@@ -300,7 +172,7 @@ template <typename T, int kD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* g,
                const float* lse, const float* delta, void* dk, void* dv,
                const Dims& d, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<kD>();
+  constexpr size_t smem = kv_smem_bytes<kD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, kD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,6 +1,7 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the problem geometry, the mask, the tile ranges a block walks, tile loads
-// into shared memory and the thread layout of a 64 x 64 score tile.
+// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_bwd_fused.cu): the problem geometry, the mask, the tile ranges a
+// block walks, tile loads into shared memory and the thread layout of a
+// 64 x 64 score tile, and the score and dp tiles the backward kernels share.
 //
 // Layouts. q and dO are (B, H, T, D), k and v (B, KVH, S, D), each with its
 // own element strides for batch, head and row and a contiguous last dim;
@@ -125,6 +126,24 @@ __device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* A,
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
   }
+}
+
+// s = Q K^T and dp = dO V^T for the thread's 4 x 4 entries, both tiles of
+// pitch kD + 1.
+template <int kD>
+__device__ __forceinline__ void score_and_dp(float (&s)[4][4],
+                                             float (&dp)[4][4],
+                                             const float* q_t,
+                                             const float* g_t,
+                                             const float* k_t,
+                                             const float* v_t, int ty,
+                                             int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+  tile_dot<kD>(s, q_t, k_t, ty, tx);
+  tile_dot<kD>(dp, g_t, v_t, ty, tx);
 }
 
 // Reductions over the 16 lanes (tx) that share a row; a warp holds two rows.

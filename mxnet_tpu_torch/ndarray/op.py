@@ -50,6 +50,7 @@ Pooling = _wrapped(_nn.pooling, "Pooling")
 flatten = _wrapped(_shape.flatten, "flatten")
 Flatten = flatten
 relu = _wrapped(torch.relu, "relu")
+sigmoid = _wrapped(torch.sigmoid, "sigmoid")
 maximum = _wrapped(torch.maximum, "maximum")
 zeros_like = _wrapped(torch.zeros_like, "zeros_like")
 _contrib_fused_matmul_stats = _wrapped(_fcbn.matmul_stats,
@@ -101,5 +102,5 @@ __all__ = ["Activation", "BatchNorm", "Convolution", "Dropout",
            "LeakyReLU", "Pooling", "broadcast_mul", "cast", "expand_dims",
            "flash_attention", "flatten", "identity", "log_softmax",
            "logsumexp", "maximum", "mean", "pick", "relu", "reshape",
-           "reshape_like", "slice_axis", "sum", "take", "transpose",
-           "zeros_like"]
+           "reshape_like", "sigmoid", "slice_axis", "sum", "take",
+           "transpose", "zeros_like"]

@@ -10,11 +10,14 @@ kernel launches or the call raises.
 - :func:`flash_attention` is a ``torch.autograd.Function``: its forward
   launches ``csrc/flash_fwd.cu`` (the port of the TPU kernel
   ``_flash_fwd_kernel``) and saves O and the fp32 log-sum-exp; its
-  backward launches the two kernels of ``csrc/flash_bwd.cu`` (the ports of
-  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``). The plain
+  backward launches, by default, the two kernels of ``csrc/flash_bwd.cu``
+  (the ports of ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``)
+  and, with ``MXTPU_FLASH_BWD=fused`` up to ``_FUSED_BWD_MAX_T`` query
+  rows, the one kernel of ``csrc/flash_bwd_fused.cu`` (the port of
+  ``_flash_bwd_kernel``); :func:`_bwd_kernel_for` is the rule. The plain
   versions are :func:`_torch_flash_fwd` (the port of ``_jnp_flash_fwd``)
   and :func:`_torch_flash_bwd` (the port of the blockwise scan backward
-  in ``_flash_bwd_rule``).
+  in ``_flash_bwd_rule``, the plain version of both backwards).
 - :func:`paged_decode_attention` launches ``csrc/paged_decode.cu`` (the
   port of ``_paged_decode_kernel``); its plain version is
   :func:`_torch_paged_decode` (the port of ``_jnp_paged_decode``).
@@ -29,6 +32,7 @@ import ctypes
 
 import torch
 
+from ..base import getenv
 from . import _kernels
 
 _NEG_INF = -1e30
@@ -197,10 +201,11 @@ def _torch_flash_fwd(q, k, v, scale, causal, window=0):
 
 def _torch_flash_bwd(q, k, v, out, lse, g, scale, causal, window=0,
                      block_size=1024):
-    """Plain version of the backward: recompute p from the LSE one block
-    of ``block_size`` key rows at a time, all in fp32, accumulate dq over
-    the blocks; grouped kv heads are repeated and their dk/dv summed over
-    each group."""
+    """Plain version of the backward, of the split kernels (K2) and of the
+    fused one (K6) alike: recompute p from the LSE one block of
+    ``block_size`` key rows at a time, all in fp32, accumulate dq over the
+    blocks; grouped kv heads are repeated and their dk/dv summed over each
+    group."""
     B, H, T, D = q.shape
     KVH, S = k.shape[1], k.shape[2]
     kf, vf = _repeat_kv(q, k, v)
@@ -243,6 +248,8 @@ def _flash_lib(stem):
     dims = [i32] * 8 + [ctypes.c_float, ptr, ptr]
     if stem == "flash_fwd":
         fns = {"mxtpu_flash_fwd": [i32] + [ptr] * 5 + dims}
+    elif stem == "flash_bwd_fused":
+        fns = {"mxtpu_flash_bwd_fused": [i32] + [ptr] * 9 + dims}
     else:
         fns = {"mxtpu_flash_bwd_dq": [i32] + [ptr] * 7 + dims,
                "mxtpu_flash_bwd_dkv": [i32] + [ptr] * 8 + dims}
@@ -347,9 +354,52 @@ def _cuda_flash_bwd(q, k, v, out, lse, g, scale, causal, window):
     return dq, dk, dv
 
 
+def _cuda_flash_bwd_fused(q, k, v, out, lse, g, scale, causal, window):
+    """Launch K6 on the current stream: one kernel emits dk and dv in the
+    storage type and adds dq into a zeroed fp32 workspace (atomics, so dq
+    is not bit-for-bit repeatable), rounded afterwards for bf16."""
+    q, k, v, g, lse, delta, strides = _bwd_operands(q, k, v, out, lse, g)
+    B, H, T, D = q.shape
+    KVH, S = k.shape[1], k.shape[2]
+    dq = torch.zeros((B, H, T, D), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, KVH, S, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.to(q.dtype), dk.zero_(), dv.zero_()
+    lib = _flash_lib("flash_bwd_fused")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mxtpu_flash_bwd_fused(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, KVH, T, S, D, int(causal),
+            int(window), float(scale), strides, stream)
+    _kernels.check(lib, err, "flash_bwd_fused launch")
+    _kernels.LAUNCHES["flash_bwd_fused"] += 1
+    return dq.to(q.dtype), dk, dv
+
+
+# The JAX package's cap on its fused backward (``_PALLAS_BWD_MAX_T``), kept
+# so that both packages send the same shapes to the same kernel. The TPU
+# kernel needs it for its full-T dq scratch in VMEM; K6 here adds dq into
+# a workspace in device memory and could run past it, which is left for
+# later work.
+_FUSED_BWD_MAX_T = 8192
+
+
+def _bwd_kernel_for(T, fused):
+    """``"fused"`` (K6) or ``"split"`` (K2) for a backward of ``T`` query
+    rows, ``fused`` being ``MXTPU_FLASH_BWD == "fused"``. The JAX
+    package's routing (``_flash_bwd_rule``) comes down to this rule
+    whatever ``native_gqa`` says: over its cap, native GQA repeats kv and
+    the repeated grad runs the fused kernel while ``T`` itself fits."""
+    return "fused" if fused and T <= _FUSED_BWD_MAX_T else "split"
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Forward K1 / backward K2 on CUDA tensors; the plain versions on
-    CPU tensors. Saves q, k, v, O and the fp32 LSE."""
+    """Forward K1 on CUDA tensors; backward K2, or K6 where
+    :func:`_bwd_kernel_for` says so; the plain versions on CPU tensors.
+    Saves q, k, v, O and the fp32 LSE."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window):
@@ -368,7 +418,12 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         if q.device.type == "cuda":
-            grads = _cuda_flash_bwd(q, k, v, out, lse, g, *ctx.args)
+            # read at backward time, as the JAX package does
+            fused = getenv("MXTPU_FLASH_BWD", "split") == "fused"
+            bwd = _cuda_flash_bwd_fused \
+                if _bwd_kernel_for(q.shape[2], fused) == "fused" \
+                else _cuda_flash_bwd
+            grads = bwd(q, k, v, out, lse, g, *ctx.args)
         else:
             grads = _torch_flash_bwd(q, k, v, out, lse, g, *ctx.args)
         return (*grads, None, None, None)
@@ -387,8 +442,10 @@ def flash_attention(query, key, value, scale=None, causal=False,
 
     CUDA tensors run the Hopper kernels (float32 or bfloat16, ``D <=
     128``; anything else raises), counted in ``_kernels.LAUNCHES``
-    ``["flash_fwd"]``, ``["flash_bwd_dq"]`` and ``["flash_bwd_dkv"]``;
-    CPU tensors run the plain versions. ``block_size`` and
+    ``["flash_fwd"]``, then ``["flash_bwd_dq"]`` and ``["flash_bwd_dkv"]``
+    (the split backward, the default) or ``["flash_bwd_fused"]``
+    (``MXTPU_FLASH_BWD=fused`` and ``T <= 8192``, read when the backward
+    runs); CPU tensors run the plain versions. ``block_size`` and
     ``native_gqa`` are accepted for parity with the JAX package: the
     kernels pick their own tiles and always read grouped kv heads
     unrepeated, so both values compute the same function."""
