@@ -10,6 +10,9 @@ Phases (each prints one line of facts; any failure exits non-zero):
 1. environment — card name and power limit (``nvidia-smi``), compute
    capability (must be 9.0), TF32 turned off for float32 parity;
 2. build — every CUDA kernel of the port from ``mxnet_tpu_torch/csrc``;
+   then, for each backward kernel (K2's two, K6) at each storage type and
+   head-dim bucket, the registers, shared memory and blocks per SM the
+   runtime reports (``[kernel-resources]``);
 3. kernels — each kernel against its plain PyTorch version on the card,
    in float32 and bfloat16: paged decode (K3) at the serving path's
    shapes; flash attention forward (K1), its split backward (K2: the dq
@@ -19,7 +22,8 @@ Phases (each prints one line of facts; any failure exits non-zero):
    shape (T = 8192), a ragged and a causal cross shape; then each timed
    with CUDA events beside its bound, its plain version's time and one
    PyTorch library call computing the same function (K6 beside K2 at
-   BERT-base's and Llama-3-8B's shapes);
+   BERT-base's and Llama-3-8B's shapes, where K2's gradients and K6's dk
+   and dv must also repeat bit for bit over two calls, ``[determinism]``);
 4. serving parity — a StarCoderBase-1B-width decoder (random weights from
    a seed): prefill + 32 paged decode steps, each step's logits against
    the dense forward's logits at that position; then one full-width
@@ -92,6 +96,9 @@ BLOCK = 16
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the flash backward kernels (K2, K6) multiply fp32 on the tensor cores as
+# 3xTF32: three TF32 products (495 TFLOP/s dense) per product
+TF32_TC_OPS, TF32X3 = 495e12, 3
 # kernel vs plain: fp32 differs by summation order only (outputs are
 # convex mixes of V rows, |out| < ~5, so ~1e-6); bf16 rounds the output
 # once on both sides, so they may differ by one bf16 step (2^-8 relative)
@@ -345,6 +352,12 @@ def flash_work(B, H, KVH, T, S, D, causal, window, item):
     }
 
 
+def bwd_ops_ms(ops):
+    """The operations bound of K2 and K6 in ms: 3xTF32 runs each product
+    as three TF32 products on the tensor cores."""
+    return TF32X3 * ops / TF32_TC_OPS * 1e3
+
+
 def flash_inputs(gen, dev, B, H, KVH, T, S, D, dtype):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -468,7 +481,8 @@ def flash_kernel_phase(dev, gen):
     rows = []
     for name, (ms, plain_ms, lib_ms) in times.items():
         ops, nbytes = work[name]
-        t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+        t_cores = ops / PEAK_OPS[torch.float32] * 1e3
+        t_ops = t_cores if name == "flash_fwd" else bwd_ops_ms(ops)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         row = {
             "name": name,
@@ -490,11 +504,52 @@ def flash_kernel_phase(dev, gen):
             ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             library_ms=f"{lib_ms:.4f}", bound_ms=f"{row['bound_ms']:.5f}",
             bound_by=row["bound_by"], tflops=f"{ops / ms / 1e9:.2f}",
-            bound_share=f"{row['bound_ms'] / ms:.4f}")
+            bound_share=f"{row['bound_ms'] / ms:.4f}",
+            bound_cuda_cores_ms=f"{t_cores:.5f}")
     say("kernel-time", kernel="flash_bwd_dq+dkv", ms=f"{both:.4f}",
+        library_ms=f"{lib_bwd:.4f}", over_library=f"{both / lib_bwd:.4f}",
         sdpa_fwd_bwd_ms=f"{lib_fwd_bwd_ms:.4f}",
         note='"plain_ms/library_ms of each K2 row are the whole backward"')
     return rows, errs
+
+
+def determinism_check(case, args):
+    """K2's dq, dk and dv and K6's dk and dv must repeat bit for bit over
+    two calls on the same tensors; K6's dq (reductions that land in any
+    order) may not, and its spread is printed."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    k2 = [fa._cuda_flash_bwd(*args) for _ in range(2)]
+    k6 = [fa._cuda_flash_bwd_fused(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = {f"k2_{w}": torch.equal(a, b)
+            for w, a, b in zip(("dq", "dk", "dv"), *k2)}
+    same.update({f"k6_{w}": torch.equal(a, b)
+                 for w, a, b in zip(("dk", "dv"), k6[0][1:], k6[1][1:])})
+    spread = float((k6[0][0] - k6[1][0]).abs().max()
+                   / k6[1][0].abs().max().clamp_min(1e-30))
+    check(all(same.values()), f"flash backward at {case} not repeatable: "
+          f"{same}")
+    say("determinism", case=case, **{k: "equal" for k in same},
+        k6_dq_rel_spread=f"{spread:.3e}")
+
+
+def kernel_resources_phase():
+    """What the runtime reports for each rewritten backward kernel at each
+    storage type and head-dim bucket (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, through each source's
+    mxtpu_flash_bwd_resources)."""
+    from mxnet_tpu_torch.ops.flash_attention import _bwd_kernel_resources
+
+    for kernel in ("dq", "dkv", "fused"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for bucket in (32, 64, 128):
+                r = _bwd_kernel_resources(kernel, dtype, bucket)
+                check(r["blocks_per_sm"] >= 1, f"flash_bwd_{kernel} "
+                      f"{dtype} D{bucket} fits no SM: {r}")
+                say("kernel-resources", kernel=f"flash_bwd_{kernel}",
+                    dtype=str(dtype).split(".")[1], d_bucket=bucket, **r,
+                    warps_per_sm=8 * r["blocks_per_sm"])
 
 
 # K6 is timed at these FLASH_CASES shapes (BERT-base's and Llama-3-8B's);
@@ -531,6 +586,7 @@ def fused_bwd_time_phase(dev, gen, errs):
 
         iters = 50 if T <= 1024 else 5
         args = (q, k, v, out, lse, g, scale, causal, window)
+        determinism_check(case, args)
         ms = cuda_ms(lambda: fa._cuda_flash_bwd_fused(*args), iters)
         k2_ms = cuda_ms(lambda: fa._cuda_flash_bwd(*args), iters)
         plain_ms = cuda_ms(lambda: fa._torch_flash_bwd(*args),
@@ -539,7 +595,7 @@ def fused_bwd_time_phase(dev, gen, errs):
         lib_ms = sdpa_bwd_ms(qs, ks, vs, g, causal, max(2, iters // 3))
         ops, nbytes = flash_work(B, H, KVH, T, S, D, causal, window,
                                  4)["flash_bwd_fused"]
-        t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+        t_ops = bwd_ops_ms(ops)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         row = {
             "name": "flash_bwd_fused",
@@ -558,12 +614,14 @@ def fused_bwd_time_phase(dev, gen, errs):
         say("kernel-time", kernel="flash_bwd_fused",
             shape=f"B{B}_H{H}_KVH{KVH}_T{T}_D{D}_causal{int(causal)}_fp32",
             ms=f"{ms:.4f}", k2_dq_dkv_ms=f"{k2_ms:.4f}",
-            k6_over_k2=f"{ms / k2_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            k6_over_k2=f"{ms / k2_ms:.4f}",
+            k2_over_library=f"{k2_ms / lib_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             library_ms=f"{lib_ms:.4f}", sdpa_fwd_bwd_ms=f"{lib_fwd_bwd_ms:.4f}",
             k6_over_library=f"{ms / lib_ms:.4f}",
             bound_ms=f"{row['bound_ms']:.5f}",
             bound_by=row["bound_by"], tflops=f"{ops / ms / 1e9:.2f}",
-            bound_share=f"{row['bound_ms'] / ms:.4f}")
+            bound_share=f"{row['bound_ms'] / ms:.4f}",
+            bound_cuda_cores_ms=f"{ops / PEAK_OPS[torch.float32] * 1e3:.5f}")
         del q, k, v, g, out, lse, qs, ks, vs
         torch.cuda.empty_cache()
     return row
@@ -1714,6 +1772,7 @@ def main():
     libs = _kernels.build_all()
     say("build", kernels=sorted(libs),
         seconds=f"{time.perf_counter() - t0:.2f}")
+    kernel_resources_phase()
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     row, pools = kernel_phase(dev, gen)

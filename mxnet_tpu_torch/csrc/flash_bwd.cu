@@ -3,37 +3,46 @@
 // recomputing the probabilities from the forward's saved fp32 LSE.
 //
 // Replaces the TPU kernels mxnet_tpu/ops/flash_attention.py::
-// _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel (driven by
-// _pallas_flash_bwd_split). Same function as the oracle's scan backward in
-// _flash_bwd_rule: with p = exp(scale * q.k - lse), dp = dO.v and
-// ds = p * (dp - delta) * scale, where delta = rowsum(dO * O) in fp32 is
+// _flash_bwd_dq_kernel (:457) and _flash_bwd_dkv_kernel (:505), driven by
+// _pallas_flash_bwd_split (:555). Same function as the oracle's scan
+// backward in _flash_bwd_rule: with p = exp(scale * q.k - lse), dp = dO.v
+// and ds = p * (dp - delta) * scale, where delta = rowsum(dO * O) in fp32 is
 // computed by the wrapper,
 //   dq = sum_k ds K,   dk = sum_q ds^T Q,   dv = sum_q p^T dO.
 // Masks, layouts and grouped-query heads as in flash_common.cuh. Storage
-// float32 or bfloat16; every product and sum in fp32, one rounding at the
-// store.
-//
-// Design.
-// - dq: one CUDA block per (batch * head, 64 query rows). It keeps Q and dO
-//   in shared memory and walks the visible key tiles (kv_tiles()), holding
-//   its 64 x kD dq accumulator in registers (4 rows x kD / 16 dims a thread).
-// - dk/dv: one CUDA block per (batch * kv head, 64 key rows), the body in
-//   flash_bwd_kv.cuh. It keeps K and V in shared memory and walks, for each
-//   query head of its group in turn, the query tiles that see its keys
-//   (q_tiles()). The group's sum of dk and dv therefore happens in
-//   registers, in a fixed order, with no atomics: the result is
-//   deterministic, and K/V are never repeated.
-// In both, a thread computes 4 x 4 entries of the score tile and of dp, and
-// p (and ds) go through shared memory for the second product.
+// float32 or bfloat16; every product in fp32 accuracy (3xTF32), every sum
+// in fp32, one rounding at the store.
 //
 // Bound on this card: 6 * T * S' * D operations in dq and 8 * T * S' * D in
 // dk/dv per (batch, head), S' the visible keys, against reading Q, K, V, dO,
-// LSE, delta once and writing the gradients. In fp32 operations bound both
-// kernels (67 TFLOP/s) at the training slice's T = S = 128; in bf16 the
-// bytes would at that length (below the tensor cores' ridge of 295 flops per
-// byte) and the operations (989 TFLOP/s) at long sequences. This first
-// version runs on the CUDA cores in fp32 for both types (no wgmma, no TMA),
-// so it stays well below either bound; the times are in PERF.md.
+// LSE, delta once and writing the gradients. The products run on the
+// tensor cores as 3xTF32 (flash_mma.cuh), three TF32 products each, so the
+// operations bound is 3 * ops over 495 TFLOP/s. At BERT-base's T = S = 128,
+// D = 64 in fp32 the bytes (3.35 TB/s) bound both kernels; at long
+// sequences the operations do.
+//
+// Design.
+// - dq: one block of 8 warps per (64 query rows, batch * head). It keeps Q
+//   and dO in shared memory and walks the visible key tiles (kv_tiles())
+//   through a two-stage cp.async ring of K and V. Per tile each warp forms
+//   a 16 x 32 corner of s and dp in mma C fragments, writes its ds to
+//   shared memory, and after one barrier multiplies ds K for its 16 rows x
+//   kD / 2 dims into a C-fragment accumulator: every dq value has one
+//   owner, summed in a fixed order.
+// - dk/dv: one block of 8 warps per (64 key rows, batch * kv head), the
+//   body in flash_bwd_kv.cuh. It keeps K and V in shared memory and walks,
+//   for each query head of its group in turn, the query tiles that see its
+//   keys (q_tiles()) through the same ring. The group's sum of dk and dv
+//   happens in registers, in a fixed order, with no atomics: the result is
+//   deterministic, and K/V are never repeated.
+// - Blocks are numbered tile-major over a 1-D grid with the tiles that walk
+//   the most partners first (the last query tile for dq, key tile 0 for
+//   dk/dv under a causal mask), so the short ones fill the tail.
+// - Shared memory, fp32 (bfloat16 tiles are converted while stored): dq
+//   212,992 bytes at kD = 128 (1 block, 8 warps per SM), 114,688 at 64 and
+//   65,536 at 32 (2 blocks, 16 warps); dk/dv as in flash_bwd_kv.cuh (1
+//   block at 128 and 64, 2 at 32). mxtpu_flash_bwd_resources reports the
+//   figures the runtime gives.
 
 #include "flash_bwd_kv.cuh"
 
@@ -42,113 +51,106 @@ namespace {
 
 template <int kD>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (2 * (kBQ + kBK) * (kD + 1) + kBQ * kLdP);
+  return sizeof(float) * (6 * kBQ * kD + kBQ * kPd);
 }
 
 template <typename T, int kD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, blocks_for(dq_smem_bytes<kD>()))
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ g,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     Dims d) {
-  constexpr int kLd = kD + 1;
-  constexpr int kDPer = kD / 16;
-  extern __shared__ float smem[];
-  float* q_t = smem;               // kBQ x kLd
-  float* g_t = q_t + kBQ * kLd;    // kBQ x kLd (dO)
-  float* k_t = g_t + kBQ * kLd;    // kBK x kLd
-  float* v_t = k_t + kBK * kLd;    // kBK x kLd
-  float* ds_t = v_t + kBK * kLd;   // kBQ x kLdP
+  constexpr int kN = kD / 16;
+  constexpr bool kSmall = sizeof(T) == 4;
+  extern __shared__ __align__(16) float smem[];
+  float* q_t = smem;                 // kBQ x kD
+  float* g_t = q_t + kBQ * kD;       // kBQ x kD (dO)
+  float* ring = g_t + kBQ * kD;      // 2 x (K, V): kBK x kD each
+  float* ds_t = ring + 4 * kBK * kD; // kBQ x kPd
 
-  const int bh = blockIdx.y;
+  const int nbh = d.B * d.H;
+  const int n_qt = (d.T + kBQ - 1) / kBQ;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / nbh);
+  const int bh = (int)(blockIdx.x % nbh);
   const int b = bh / d.H;
   const int h = bh - b * d.H;
   const int kvh = h / (d.H / d.KVH);
-  const int q0 = blockIdx.x * kBQ;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const int q0 = qt * kBQ;
+  const int tid = threadIdx.x;
+  const int w = tid >> 5;
+  const int g8 = (tid & 31) >> 2;
+  const int tq = tid & 3;
 
-  load_tile<kD>(q_t, q + b * d.q_s[0] + h * d.q_s[1], d.q_s[2], q0, kBQ, d.T,
-                d.D);
-  load_tile<kD>(g_t, g + b * d.g_s[0] + h * d.g_s[1], d.g_s[2], q0, kBQ, d.T,
-                d.D);
+  load_tile_async<kD, kThreads>(q_t, q + b * d.q_s[0] + h * d.q_s[1],
+                                d.q_s[2], q0, kBQ, d.T, d.D, tid);
+  load_tile_async<kD, kThreads>(g_t, g + b * d.g_s[0] + h * d.g_s[1],
+                                d.g_s[2], q0, kBQ, d.T, d.D, tid);
   const T* kb = k + b * d.k_s[0] + kvh * d.k_s[1];
   const T* vb = v + b * d.v_s[0] + kvh * d.v_s[1];
 
-  float lse_r[4], delta_r[4], acc[4][kDPer];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    const bool ok = row < d.T;
-    lse_r[i] = ok ? lse[(long long)bh * d.T + row] : 0.f;
-    delta_r[i] = ok ? delta[(long long)bh * d.T + row] : 0.f;
-#pragma unroll
-    for (int e = 0; e < kDPer; ++e) acc[i][e] = 0.f;
-  }
-
   int lo, hi;
   kv_tiles(d, q0, min(q0 + kBQ, d.T), &lo, &hi);
+  auto issue = [&](int kt, int st) {
+    float* k_s = ring + 2 * st * kBK * kD;
+    load_tile_async<kD, kThreads>(k_s, kb, d.k_s[2], kt * kBK, kBK, d.S,
+                                  d.D, tid);
+    load_tile_async<kD, kThreads>(k_s + kBK * kD, vb, d.v_s[2], kt * kBK,
+                                  kBK, d.S, d.D, tid);
+  };
+  if (lo < hi) issue(lo, 0);
+  cp_async_commit();
+
+  const int m0 = 16 * (w & 3);         // the warp's query rows
+  const int n0 = 32 * (w >> 2);        // its keys in s and dp
+  const int nd = (kD / 2) * (w >> 2);  // its dims in dq
+  float l[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + m0 + g8 + 8 * i;
+    const bool ok = row < d.T;
+    l[i] = ok ? lse[(long long)bh * d.T + row] : 0.f;
+    dl[i] = ok ? delta[(long long)bh * d.T + row] : 0.f;
+  }
+  float sum[kN][4], acc[kN][4];
+  zero_frags<kN>(sum);
+
   for (int kt = lo; kt < hi; ++kt) {
-    const int c0 = kt * kBK;
-    __syncthreads();
-    load_tile<kD>(k_t, kb, d.k_s[2], c0, kBK, d.S, d.D);
-    load_tile<kD>(v_t, vb, d.v_s[2], c0, kBK, d.S, d.D);
-    __syncthreads();
+    const int st = (kt - lo) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt landed; tile kt - 1 fully consumed
+    if (kt + 1 < hi) issue(kt + 1, st ^ 1);
+    cp_async_commit();
+    const float* k_s = ring + 2 * st * kBK * kD;
+    const float* v_s = k_s + kBK * kD;
 
     float s[4][4], dp[4][4];
-    score_and_dp<kD>(s, dp, q_t, g_t, k_t, v_t, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx + 16 * j;
-        float p =
-            expf(masked_score(d, row, col, s[i][j] * d.scale) - lse_r[i]);
-        if (row >= d.T) p = 0.f;
-        ds_t[(ty + 16 * i) * kLdP + tx + 16 * j] =
-            p * (dp[i][j] - delta_r[i]) * d.scale;
-      }
-    }
+    score_and_dp_mma<kD, kSmall>(s, dp, q_t, g_t, k_s, v_s, m0, n0,
+                                 tid & 31);
+    probs_to_smem<false, false>(d, s, dp, l, dl, nullptr, ds_t, q0, kt * kBK,
+                                m0, n0, g8, tq);
     __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float ds[4], kk[kDPer];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = ds_t[(ty + 16 * i) * kLdP + j];
-#pragma unroll
-      for (int e = 0; e < kDPer; ++e) kk[e] = k_t[j * kLd + tx + 16 * e];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < kDPer; ++e) acc[i][e] += ds[i] * kk[e];
-    }
+    pd_b_mma<kD, kN, kSmall, false>(acc, ds_t, k_s, m0, nd, g8, tq);
+    add_into<kN>(sum, acc);
   }
+  cp_async_wait_all();
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= d.T) continue;
-    T* out = dq + ((long long)bh * d.T + row) * d.D;
-#pragma unroll
-    for (int e = 0; e < kDPer; ++e) {
-      const int c = tx + 16 * e;
-      if (c < d.D) store(out + c, acc[i][e]);
-    }
-  }
+  store_frags<kN>(dq + (long long)bh * d.T * d.D, sum, q0 + m0, d.T, d.D,
+                  nd, g8, tq);
 }
 
 // The dk/dv kernel: the key-tile body of flash_bwd_kv.cuh without dq.
 template <typename T, int kD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, blocks_for(kv_smem_bytes<kD>()))
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ g,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, Dims d) {
-  bwd_kv_block<T, kD, false>(q, k, v, g, lse, delta, nullptr, dk, dv, d);
+  const int nbh = d.B * d.KVH;
+  bwd_kv_block<T, kD, false>(q, k, v, g, lse, delta, nullptr, dk, dv, d,
+                             (int)(blockIdx.x / nbh),
+                             (int)(blockIdx.x % nbh));
 }
 
 template <typename T, int kD>
@@ -160,7 +162,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g,
       flash_bwd_dq_kernel<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((d.T + kBQ - 1) / kBQ, d.B * d.H);
+  const unsigned grid = (unsigned)((d.T + kBQ - 1) / kBQ) * d.B * d.H;
   flash_bwd_dq_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
@@ -177,7 +179,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
       flash_bwd_dkv_kernel<T, kD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((d.S + kBK - 1) / kBK, d.B * d.KVH);
+  const unsigned grid = (unsigned)((d.S + kBK - 1) / kBK) * d.B * d.KVH;
   flash_bwd_dkv_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
@@ -205,6 +207,23 @@ int dispatch_dkv(const void* q, const void* k, const void* v, const void* g,
     return launch_dkv<T, 64>(q, k, v, g, lse, delta, dk, dv, d, s);
   if (d.D <= 128)
     return launch_dkv<T, 128>(q, k, v, g, lse, delta, dk, dv, d, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int kD>
+int resources_of(int kernel, int* out) {
+  if (kernel == 0)
+    return kernel_resources(flash_bwd_dq_kernel<T, kD>, dq_smem_bytes<kD>(),
+                            out);
+  return kernel_resources(flash_bwd_dkv_kernel<T, kD>, kv_smem_bytes<kD>(),
+                          out);
+}
+
+template <typename T>
+int resources_for(int kernel, int d_bucket, int* out) {
+  if (d_bucket == 32) return resources_of<T, 32>(kernel, out);
+  if (d_bucket == 64) return resources_of<T, 64>(kernel, out);
+  if (d_bucket == 128) return resources_of<T, 128>(kernel, out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -248,6 +267,16 @@ int mxtpu_flash_bwd_dkv(int dtype, const void* q, const void* k,
     return dispatch_dkv<float>(q, k, v, g, l, dl, dk, dv, d, s);
   if (dtype == 1)
     return dispatch_dkv<__nv_bfloat16>(q, k, v, g, l, dl, dk, dv, d, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// kernel: 0 = dq, 1 = dk/dv; dtype as above; d_bucket: 32, 64 or 128. out:
+// registers per thread, static and dynamic shared bytes per block, blocks
+// per SM at that dynamic size, local (spill) bytes per thread.
+int mxtpu_flash_bwd_resources(int kernel, int dtype, int d_bucket, int* out) {
+  using namespace mxtpu_flash;
+  if (dtype == 0) return resources_for<float>(kernel, d_bucket, out);
+  if (dtype == 1) return resources_for<__nv_bfloat16>(kernel, d_bucket, out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,40 +4,48 @@
 // (MXTPU_FLASH_BWD=fused).
 //
 // Replaces the TPU kernel mxnet_tpu/ops/flash_attention.py::
-// _flash_bwd_kernel (driven by _pallas_flash_bwd). Same function as the
-// oracle's scan backward in _flash_bwd_rule and as flash_bwd.cu: with
-// p = exp(scale * q.k - lse), dp = dO.v and ds = p * (dp - delta) * scale,
-// where delta = rowsum(dO * O) in fp32 is computed by the wrapper,
+// _flash_bwd_kernel (:263), driven by _pallas_flash_bwd (:356). Same
+// function as the oracle's scan backward in _flash_bwd_rule and as
+// flash_bwd.cu: with p = exp(scale * q.k - lse), dp = dO.v and
+// ds = p * (dp - delta) * scale, where delta = rowsum(dO * O) in fp32 is
+// computed by the wrapper,
 //   dq = sum_k ds K,   dk = sum_q ds^T Q,   dv = sum_q p^T dO.
 // Masks, layouts and grouped-query heads as in flash_common.cuh. Storage
-// float32 or bfloat16; every product and sum in fp32.
+// float32 or bfloat16; every product in fp32 accuracy (3xTF32,
+// flash_mma.cuh), every sum in fp32.
 //
-// Design. One CUDA block per (batch * kv head, 64 key rows), the body the
-// dk/dv kernel of flash_bwd.cu runs (flash_bwd_kv.cuh): it keeps K and V in
-// shared memory and walks, for each query head of its group in turn, the
-// query tiles that see its keys (q_tiles(): causal and window tiles are
-// skipped whole). Per tile it forms s and dp, then p and ds in shared
+// Design. One block of 8 warps per (64 key rows, batch * kv head), the
+// body the dk/dv kernel of flash_bwd.cu runs (flash_bwd_kv.cuh): it keeps K
+// and V in shared memory and walks, for each query head of its group in
+// turn, the query tiles that see its keys (q_tiles(): causal and window
+// tiles are skipped whole) through a two-stage cp.async ring. Per tile it
+// forms s and dp on the tensor cores, writes p and ds once to shared
 // memory, and runs the three products that consume them: dv += p^T dO and
-// dk += ds^T Q into registers (summed over the group in a fixed order,
-// stored once), and the tile's dq contribution ds K, added with atomicAdd
-// into a zeroed fp32 (B, H, T, D) workspace the wrapper allocates. That
-// workspace takes the place of the TPU kernel's full-T VMEM scratch, which
-// needs an ordered grid: here the blocks that share query rows run in
-// parallel, in no order. For float32 storage the workspace is dq itself;
-// for bfloat16 the wrapper rounds it.
+// dk += ds^T Q into C fragments in registers (summed over the group in a
+// fixed order, stored once), and the tile's dq contribution ds K, added
+// into a zeroed fp32 (B, H, T, D) workspace the wrapper allocates. Each
+// lane trades two values with its neighbour so that it holds four adjacent
+// dq columns and adds them with one vector reduction (atomicAdd on a
+// float4, sm_90): 64 * kD / 4 = 2,048 per tile pair at kD = 128, a
+// quarter of one per value. That workspace takes the place of
+// the TPU kernel's full-T VMEM scratch, which needs an ordered grid: here
+// the blocks that share query rows run in parallel, in no order. For
+// float32 storage the workspace is dq itself; for bfloat16 the wrapper
+// rounds it. Blocks are numbered tile-major over a 1-D grid, key tile 0
+// first: under a causal mask it walks the most query tiles (at T = 8192,
+// 128 against the last tile's 1), so the short blocks fill the tail.
 //
 // Determinism. dk and dv repeat bit for bit, like every other kernel of the
-// port. dq does not: the order in which the key blocks' atomic adds land
+// port. dq does not: the order in which the key blocks' reductions land
 // changes from run to run, so dq moves by fp32 rounding between runs.
 //
 // Bound on this card: 10 * T * S' * D operations per (batch, head), S' the
 // visible keys (five products where flash_bwd.cu does 6 + 8), against
 // reading Q, K, V, dO, O, LSE and delta once and writing the three
-// gradients once. In fp32 on the CUDA cores (67 TFLOP/s) the operations
-// bound it at every training shape the port runs (above ~20 flops per byte;
-// at T = S = 8192, D = 128 over 1000). This first version runs on the CUDA
-// cores in fp32 for both storage types (no wgmma, no TMA); its times are in
-// PERF.md.
+// gradients once. On the tensor cores as 3xTF32 that is 3 * 10 * T * S' * D
+// over 495 TFLOP/s; at T = S = 8192, D = 128 the operations bound it (over
+// 1000 flops per byte). Shared memory as in flash_bwd_kv.cuh: 230,400 bytes
+// at kD = 128, one block of 8 warps per SM.
 
 #include "flash_bwd_kv.cuh"
 
@@ -46,14 +54,16 @@ namespace {
 
 // K6: the key-tile body of flash_bwd_kv.cuh with dq.
 template <typename T, int kD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, blocks_for(kv_smem_bytes<kD>()))
 flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ g,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
                        float* __restrict__ dq, T* __restrict__ dk,
                        T* __restrict__ dv, Dims d) {
-  bwd_kv_block<T, kD, true>(q, k, v, g, lse, delta, dq, dk, dv, d);
+  const int nbh = d.B * d.KVH;
+  bwd_kv_block<T, kD, true>(q, k, v, g, lse, delta, dq, dk, dv, d,
+                            (int)(blockIdx.x / nbh), (int)(blockIdx.x % nbh));
 }
 
 template <typename T, int kD>
@@ -65,7 +75,7 @@ int launch_fused(const void* q, const void* k, const void* v, const void* g,
       flash_bwd_fused_kernel<T, kD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((d.S + kBK - 1) / kBK, d.B * d.KVH);
+  const unsigned grid = (unsigned)((d.S + kBK - 1) / kBK) * d.B * d.KVH;
   flash_bwd_fused_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g), lse, delta, dq,
@@ -84,6 +94,20 @@ int dispatch_fused(const void* q, const void* k, const void* v,
     return launch_fused<T, 64>(q, k, v, g, lse, delta, dq, dk, dv, d, s);
   if (d.D <= 128)
     return launch_fused<T, 128>(q, k, v, g, lse, delta, dq, dk, dv, d, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int resources_for(int d_bucket, int* out) {
+  if (d_bucket == 32)
+    return kernel_resources(flash_bwd_fused_kernel<T, 32>,
+                            kv_smem_bytes<32>(), out);
+  if (d_bucket == 64)
+    return kernel_resources(flash_bwd_fused_kernel<T, 64>,
+                            kv_smem_bytes<64>(), out);
+  if (d_bucket == 128)
+    return kernel_resources(flash_bwd_fused_kernel<T, 128>,
+                            kv_smem_bytes<128>(), out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -114,6 +138,17 @@ int mxtpu_flash_bwd_fused(int dtype, const void* q, const void* k,
   if (dtype == 1)
     return dispatch_fused<__nv_bfloat16>(q, k, v, g, l, dl, dqf, dk, dv, d,
                                          s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// kernel: 0, the one kernel; dtype 0 = float32, 1 = bfloat16; d_bucket: 32,
+// 64 or 128. out: registers per thread, static and dynamic shared bytes per
+// block, blocks per SM at that dynamic size, local (spill) bytes per thread.
+int mxtpu_flash_bwd_resources(int kernel, int dtype, int d_bucket, int* out) {
+  using namespace mxtpu_flash;
+  if (kernel != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return resources_for<float>(d_bucket, out);
+  if (dtype == 1) return resources_for<__nv_bfloat16>(d_bucket, out);
   return (int)cudaErrorInvalidValue;
 }
 

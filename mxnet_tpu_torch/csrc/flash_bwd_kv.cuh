@@ -1,179 +1,377 @@
 // The body of the backward kernels that own a tile of 64 key rows: the
 // dk/dv kernel of the split backward (K2, flash_bwd.cu) and the fused
 // backward (K6, flash_bwd_fused.cu), which also adds each tile's dq
-// contribution into an fp32 workspace.
+// contribution into an fp32 workspace; and the pieces K2's dq kernel
+// shares with them.
 //
-// A block of (batch * kv head, 64 key rows) keeps K and V in shared memory
+// A block of (64 key rows, batch * kv head) keeps K and V in shared memory
 // and walks, for each query head of its group in turn, the query tiles that
-// see its keys (q_tiles(): causal and window tiles are skipped whole). Per
-// tile it forms s and dp, then p and ds in shared memory, and runs the
-// products that consume them: dv += p^T dO and dk += ds^T Q into registers,
-// so the group's sum happens in a fixed order with no atomics and K/V are
-// never repeated; with kDq, also the tile's ds K, added with atomicAdd into
-// dq rows that other blocks add into too.
+// see its keys (q_tiles(): causal and window tiles are skipped whole). The
+// walked tiles (Q, dO, LSE and delta) come through a two-stage ring of
+// cp.async copies: the next tile's copy is in flight while the current one
+// is multiplied. Per tile, 8 warps each form a 16 x 32 corner of s = Q K^T
+// and dp = dO V^T in mma C fragments (3xTF32, flash_mma.cuh), turn them
+// into p and ds, and write both once to shared memory; then each warp runs
+// dv += p^T dO and dk += ds^T Q for its 16 keys x kD / 2 dims into C
+// fragments in registers, so the group's sum happens in a fixed order with
+// no atomics and K/V are never repeated; with kDq, also the tile's ds K for
+// its 16 query rows x kD / 2 dims, added into dq rows that other blocks add
+// into too, four adjacent columns per vector reduction: 64 * kD / 4 of
+// them per tile pair.
+//
+// Shared memory, fp32: K, V, two stages of Q and dO (64 x kD each), p and
+// ds (64 x 64 each), two stages of LSE and delta: 230,400 bytes at
+// kD = 128 (one block, 8 warps per SM) and 82,944 at 32 (two blocks). At
+// kD = 64 p and ds take one buffer in turn, 115,712 bytes instead of
+// 132,096, which lets two blocks share an SM (the budget is 232,448 a
+// block, 233,472 an SM with 1,024 reserved a block): two more barriers a
+// tile, and dk/dv faster at BERT-base's shape on an H100.
 
 #pragma once
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace mxtpu_flash {
 
+// blocks of this many dynamic shared bytes that fit one SM's 228 KB (each
+// block also holds 1 KB the runtime reserves), at most 2: the minimum the
+// kernels ask the register allocator for
+__host__ __device__ constexpr int blocks_for(size_t smem) {
+  return (233472 / (smem + 1024)) >= 2 ? 2 : 1;
+}
+
+// K, V, two stages of Q and dO, two stages of LSE and delta, and p and ds
+// (n_pd of them: 2, or 1 when one buffer takes both in turn)
 template <int kD>
-constexpr size_t kv_smem_bytes() {
-  return sizeof(float) *
-         (2 * (kBQ + kBK) * (kD + 1) + 2 * kBQ * kLdP + 2 * kBQ);
+__host__ __device__ constexpr size_t kv_smem_bytes(int n_pd) {
+  return sizeof(float) * (6 * kBQ * kD + n_pd * kBQ * kPd + 4 * kBQ);
+}
+// p and ds share one buffer (two more barriers a tile) where that lets one
+// more block onto an SM: at kD = 64, 132,096 bytes become 115,712
+template <int kD>
+__host__ __device__ constexpr bool kv_share_pd() {
+  return blocks_for(kv_smem_bytes<kD>(1)) > blocks_for(kv_smem_bytes<kD>(2));
+}
+template <int kD>
+__host__ __device__ constexpr size_t kv_smem_bytes() {
+  return kv_smem_bytes<kD>(kv_share_pd<kD>() ? 1 : 2);
+}
+
+// s = Q K^T and dp = dO V^T for the warp's query rows m0..m0+15 and keys
+// n0..n0+31 (four C fragments each), both tiles swizzled rows x kD.
+template <int kD, bool kSmall>
+__device__ __forceinline__ void score_and_dp_mma(
+    float (&s)[4][4], float (&dp)[4][4], const float* q_t, const float* g_t,
+    const float* k_t, const float* v_t, int m0, int n0, int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < kD; k0 += 8) {
+    FragA aq, ag;
+    load_a<kD>(aq, q_t, m0, k0, lane);
+    load_a<kD>(ag, g_t, m0, k0, lane);
+#pragma unroll
+    for (int j = 0; j < 4; j += 2) {
+      FragB bk[2], bv[2];
+      load_b_t2<kD>(bk[0], bk[1], k_t, n0 + 8 * j, k0, lane);
+      load_b_t2<kD>(bv[0], bv[1], v_t, n0 + 8 * j, k0, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mma_3xtf32<kSmall, kSmall>(s[j + h], aq, bk[h]);
+        mma_3xtf32<kSmall, kSmall>(dp[j + h], ag, bv[h]);
+      }
+    }
+  }
+}
+
+// p = exp(scale * s - lse) and ds = p * (dp - delta) * scale from the C
+// fragments of score_and_dp_mma: p into p_t (with kP), ds into ds_t, or
+// with kDsInRegs in place of dp (for frags_to_pd later). The 64 x 64 tiles'
+// rows m0 + g8 (+ 8) are query rows q0 + those, columns n0 + .. key columns
+// c0 + those. lse and delta of the lane's two rows.
+template <bool kP, bool kDsInRegs>
+__device__ __forceinline__ void probs_to_smem(
+    const Dims& d, const float (&s)[4][4], float (&dp)[4][4],
+    const float (&l)[2], const float (&dl)[2], float* p_t, float* ds_t,
+    int q0, int c0, int m0, int n0, int g8, int tq) {
+  constexpr float kLog2e = 1.4426950408889634f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = m0 + g8 + 8 * i;
+    const int row = q0 + r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = n0 + 8 * j + 2 * tq + e;
+        float p = exp2f((masked_score(d, row, c0 + cl,
+                                      s[j][2 * i + e] * d.scale) - l[i]) *
+                        kLog2e);
+        if (row >= d.T) p = 0.f;
+        if constexpr (kP) p_t[pd_idx(r, cl)] = p;
+        const float ds = p * (dp[j][2 * i + e] - dl[i]) * d.scale;
+        if constexpr (kDsInRegs)
+          dp[j][2 * i + e] = ds;
+        else
+          ds_t[pd_idx(r, cl)] = ds;
+      }
+  }
+}
+
+// the C fragments x of a warp's 16 x 32 corner (rows m0.., columns n0..)
+// into a 64 x 64 tile
+__device__ __forceinline__ void frags_to_pd(const float (&x)[4][4], float* t,
+                                            int m0, int n0, int g8, int tq) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        t[pd_idx(m0 + g8 + 8 * i, n0 + 8 * j + 2 * tq + e)] = x[j][2 * i + e];
+}
+
+// The tensor cores add into an fp32 accumulator with truncation, so a sum
+// chained through mma over thousands of rows drifts toward zero: past 1e-5
+// of the largest dk over a group of 4 heads of 2048 rows, in the model of
+// tests/test_torch_flash_tf32x3.py. Each tile's product therefore starts
+// from zero and is added to the running sum with an ordinary
+// (round-to-nearest) fp32 add.
+template <int kN>
+__device__ __forceinline__ void zero_frags(float (&acc)[kN][4]) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+template <int kN>
+__device__ __forceinline__ void add_into(float (&sum)[kN][4],
+                                         const float (&acc)[kN][4]) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[j][e] += acc[j][e];
+}
+
+// acc = (64 x 64 tile, read as A by load) x (B tile read paired, rows k)
+// for the warp's 16 rows m0.. and dims nd.., over the tile's 64 columns:
+// ds K (load_a_pd), p^T dO and ds^T Q (load_a_pd_t)
+template <int kD, int kN, bool kSmall, bool kTransposeA>
+__device__ __forceinline__ void pd_b_mma(float (&acc)[kN][4],
+                                         const float* a_t, const float* b_t,
+                                         int m0, int nd, int g8, int tq) {
+  zero_frags<kN>(acc);
+#pragma unroll
+  for (int k0 = 0; k0 < kPd; k0 += 8) {
+    FragA a;
+    if constexpr (kTransposeA)
+      load_a_pd_t(a, a_t, m0, k0, g8, tq);
+    else
+      load_a_pd(a, a_t, m0, k0, g8, tq);
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      FragB b;
+      load_b_paired<kD>(b, b_t, nd + 8 * j, k0, g8, tq);
+      mma_3xtf32<true, kSmall>(acc[j], a, b);
+    }
+  }
+}
+
+// Store C fragments acc (rows r0 + g8 (+ 8), columns nd + 8 j + 2 tq (+ 1))
+// into a row-major (rows_total, D) matrix in the storage type.
+template <int kN, typename T>
+__device__ __forceinline__ void store_frags(T* out, const float (&acc)[kN][4],
+                                            int r0, int rows_total, int D,
+                                            int nd, int g8, int tq) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g8 + 8 * i;
+    if (row >= rows_total) continue;
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = nd + 8 * j + 2 * tq + e;
+        if (c < D) store(out + (long long)row * D + c, acc[j][2 * i + e]);
+      }
+  }
+}
+
+// Add C fragments acc (rows r0 + g8 (+ 8), columns nd + 8 j + 2 tq (+ 1))
+// into the fp32 (rows_total, D) workspace dq. Lanes t and t ^ 1 trade two
+// values so that each holds four adjacent columns of one row, added by one
+// vector reduction (red.global.add.v4.f32, sm_90) when D % 4 == 0, else
+// one scalar reduction per value.
+template <int kN>
+__device__ __forceinline__ void add_frags(float* dq, const float (&acc)[kN][4],
+                                          int r0, int rows_total, int D,
+                                          int nd, int g8, int tq) {
+  const bool odd = tq & 1;
+  const int row = r0 + g8 + (odd ? 8 : 0);
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const float r0v = __shfl_xor_sync(0xffffffffu,
+                                      odd ? acc[j][0] : acc[j][2], 1);
+    const float r1v = __shfl_xor_sync(0xffffffffu,
+                                      odd ? acc[j][1] : acc[j][3], 1);
+    const float4 x = odd ? make_float4(r0v, r1v, acc[j][2], acc[j][3])
+                         : make_float4(acc[j][0], acc[j][1], r0v, r1v);
+    const int c = nd + 8 * j + 2 * (tq & 2);
+    if (row >= rows_total || c >= D) continue;
+    float* out = dq + (long long)row * D + c;
+    if ((D & 3) == 0) {
+      atomicAdd(reinterpret_cast<float4*>(out), x);
+    } else {
+      atomicAdd(out, x.x);
+      if (c + 1 < D) atomicAdd(out + 1, x.y);
+      if (c + 2 < D) atomicAdd(out + 2, x.z);
+      if (c + 3 < D) atomicAdd(out + 3, x.w);
+    }
+  }
 }
 
 // dq: a zeroed fp32 (B, H, T, D) workspace when kDq, unused otherwise; dk and
-// dv: (B, KVH, S, D) in the storage type.
+// dv: (B, KVH, S, D) in the storage type. The block's key tile is kt, its
+// batch * kv head bkvh.
 template <typename T, int kD, bool kDq>
 __device__ __forceinline__ void bwd_kv_block(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ g, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq,
-    T* __restrict__ dk, T* __restrict__ dv, const Dims& d) {
-  constexpr int kLd = kD + 1;
-  constexpr int kDPer = kD / 16;
-  extern __shared__ float smem[];
-  float* k_t = smem;                 // kBK x kLd
-  float* v_t = k_t + kBK * kLd;      // kBK x kLd
-  float* q_t = v_t + kBK * kLd;      // kBQ x kLd
-  float* g_t = q_t + kBQ * kLd;      // kBQ x kLd (dO)
-  float* p_t = g_t + kBQ * kLd;      // kBQ x kLdP
-  float* ds_t = p_t + kBQ * kLdP;    // kBQ x kLdP
-  float* lse_t = ds_t + kBQ * kLdP;  // kBQ
-  float* delta_t = lse_t + kBQ;      // kBQ
+    T* __restrict__ dk, T* __restrict__ dv, const Dims& d, int kt,
+    int bkvh) {
+  constexpr int kN = kD / 16;  // 8-dim fragments in a warp's kD / 2 dims
+  constexpr bool kSmall = sizeof(T) == 4;  // bf16 storage is exact in TF32
+  extern __shared__ __align__(16) float smem[];
+  float* k_t = smem;                          // kBK x kD
+  float* v_t = k_t + kBK * kD;                // kBK x kD
+  float* ring = v_t + kBK * kD;               // 2 x (Q, dO): kBQ x kD each
+  constexpr bool kShare = kv_share_pd<kD>();
+  float* p_t = ring + 4 * kBQ * kD;           // kBQ x kPd
+  float* ds_t = kShare ? p_t : p_t + kBQ * kPd;  // kBQ x kPd
+  float* rows_t = ds_t + kBQ * kPd;           // 2 x (LSE, delta): kBQ each
 
-  const int bkvh = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int w = tid >> 5;
+  const int g8 = (tid & 31) >> 2;
+  const int tq = tid & 3;
   const int b = bkvh / d.KVH;
   const int kvh = bkvh - b * d.KVH;
   const int group = d.H / d.KVH;
-  const int c0 = blockIdx.x * kBK;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const int c0 = kt * kBK;
 
-  load_tile<kD>(k_t, k + b * d.k_s[0] + kvh * d.k_s[1], d.k_s[2], c0, kBK,
-                d.S, d.D);
-  load_tile<kD>(v_t, v + b * d.v_s[0] + kvh * d.v_s[1], d.v_s[2], c0, kBK,
-                d.S, d.D);
-
-  // the thread's key rows ty + 16 jj and dims tx + 16 e
-  float dk_acc[4][kDPer], dv_acc[4][kDPer];
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-    for (int e = 0; e < kDPer; ++e) dk_acc[jj][e] = dv_acc[jj][e] = 0.f;
+  load_tile_async<kD, kThreads>(k_t, k + b * d.k_s[0] + kvh * d.k_s[1],
+                                d.k_s[2], c0, kBK, d.S, d.D, tid);
+  load_tile_async<kD, kThreads>(v_t, v + b * d.v_s[0] + kvh * d.v_s[1],
+                                d.v_s[2], c0, kBK, d.S, d.D, tid);
 
   int lo, hi;
   q_tiles(d, c0, min(c0 + kBK, d.S), &lo, &hi);
-  for (int hg = 0; hg < group; ++hg) {
+  const int per = hi - lo;
+  const int n = group * per;
+
+  // walked tile it (query head hg of the group, query tile lo + ...) into
+  // ring stage st
+  auto issue = [&](int it, int st) {
+    const int hg = it / per;
+    const int q0 = (lo + it - hg * per) * kBQ;
     const int h = kvh * group + hg;
     const long long bh = (long long)b * d.H + h;
-    const T* qb = q + b * d.q_s[0] + h * d.q_s[1];
-    const T* gb = g + b * d.g_s[0] + h * d.g_s[1];
-    float* dqb = kDq ? dq + bh * d.T * d.D : nullptr;
-    for (int qt = lo; qt < hi; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();
-      load_tile<kD>(q_t, qb, d.q_s[2], q0, kBQ, d.T, d.D);
-      load_tile<kD>(g_t, gb, d.g_s[2], q0, kBQ, d.T, d.D);
-      for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-        const bool ok = q0 + r < d.T;
-        lse_t[r] = ok ? lse[bh * d.T + q0 + r] : 0.f;
-        delta_t[r] = ok ? delta[bh * d.T + q0 + r] : 0.f;
-      }
-      __syncthreads();
+    float* q_s = ring + 2 * st * kBQ * kD;
+    load_tile_async<kD, kThreads>(q_s, q + b * d.q_s[0] + h * d.q_s[1],
+                                  d.q_s[2], q0, kBQ, d.T, d.D, tid);
+    load_tile_async<kD, kThreads>(q_s + kBQ * kD,
+                                  g + b * d.g_s[0] + h * d.g_s[1], d.g_s[2],
+                                  q0, kBQ, d.T, d.D, tid);
+    float* r_s = rows_t + 2 * st * kBQ;
+    const int valid = min(kBQ, d.T - q0);
+    load_vec_async(r_s, lse + bh * d.T + q0, kBQ, valid, tid, kThreads);
+    load_vec_async(r_s + kBQ, delta + bh * d.T + q0, kBQ, valid, tid,
+                   kThreads);
+  };
+  if (n > 0) issue(0, 0);
+  cp_async_commit();
 
-      // s and p once per tile, for every gradient
-      float s[4][4], dp[4][4];
-      score_and_dp<kD>(s, dp, q_t, g_t, k_t, v_t, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        const int row = q0 + r;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = c0 + tx + 16 * j;
-          float p =
-              expf(masked_score(d, row, col, s[i][j] * d.scale) - lse_t[r]);
-          if (row >= d.T) p = 0.f;
-          p_t[r * kLdP + tx + 16 * j] = p;
-          ds_t[r * kLdP + tx + 16 * j] = p * (dp[i][j] - delta_t[r]) * d.scale;
-        }
-      }
+  // S/dP and dq: query rows m0 (+ 16 per warp pair); dv/dk: key rows m0
+  const int m0 = 16 * (w & 3);
+  const int n0 = 32 * (w >> 2);      // the warp's keys in s and dp
+  const int nd = (kD / 2) * (w >> 2);  // the warp's dims in dk, dv and dq
+  float dk_acc[kN][4], dv_acc[kN][4], acc[kN][4];
+  zero_frags<kN>(dk_acc);
+  zero_frags<kN>(dv_acc);
+
+  for (int it = 0; it < n; ++it) {
+    const int st = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile it landed; tile it - 1 fully consumed
+    if (it + 1 < n) issue(it + 1, st ^ 1);
+    cp_async_commit();
+
+    const int hg = it / per;
+    const int q0 = (lo + it - hg * per) * kBQ;
+    const float* q_s = ring + 2 * st * kBQ * kD;
+    const float* g_s = q_s + kBQ * kD;
+    const float* r_s = rows_t + 2 * st * kBQ;
+
+    // s and p once per tile, for every gradient
+    float s[4][4], dp[4][4];
+    score_and_dp_mma<kD, kSmall>(s, dp, q_s, g_s, k_t, v_t, m0, n0,
+                                 tid & 31);
+    const float l[2] = {r_s[m0 + g8], r_s[m0 + g8 + 8]};
+    const float dl[2] = {r_s[kBQ + m0 + g8], r_s[kBQ + m0 + g8 + 8]};
+    probs_to_smem<true, kShare>(d, s, dp, l, dl, p_t, ds_t, q0, c0, m0, n0,
+                                g8, tq);
+    __syncthreads();
+
+    // dv += p^T dO and dk += ds^T Q: the warp's keys m0.., dims nd..
+    pd_b_mma<kD, kN, kSmall, true>(acc, p_t, g_s, m0, nd, g8, tq);
+    add_into<kN>(dv_acc, acc);
+    if constexpr (kShare) {
+      __syncthreads();  // every warp is done with p
+      frags_to_pd(dp, ds_t, m0, n0, g8, tq);
       __syncthreads();
+    }
+    pd_b_mma<kD, kN, kSmall, true>(acc, ds_t, q_s, m0, nd, g8, tq);
+    add_into<kN>(dk_acc, acc);
 
-      // dv += p^T dO and dk += ds^T Q: the thread's key rows ty + 16 jj
-#pragma unroll 4
-      for (int i = 0; i < kBQ; ++i) {
-        float p[4], ds[4], gg[kDPer], qq[kDPer];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          p[jj] = p_t[i * kLdP + ty + 16 * jj];
-          ds[jj] = ds_t[i * kLdP + ty + 16 * jj];
-        }
-#pragma unroll
-        for (int e = 0; e < kDPer; ++e) {
-          gg[e] = g_t[i * kLd + tx + 16 * e];
-          qq[e] = q_t[i * kLd + tx + 16 * e];
-        }
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int e = 0; e < kDPer; ++e) {
-            dv_acc[jj][e] += p[jj] * gg[e];
-            dk_acc[jj][e] += ds[jj] * qq[e];
-          }
-      }
-
-      if constexpr (kDq) {
-        // dq[rows] += ds K: the thread's query rows ty + 16 i
-        float dq_acc[4][kDPer];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < kDPer; ++e) dq_acc[i][e] = 0.f;
-#pragma unroll 4
-        for (int j = 0; j < kBK; ++j) {
-          float ds[4], kk[kDPer];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) ds[i] = ds_t[(ty + 16 * i) * kLdP + j];
-#pragma unroll
-          for (int e = 0; e < kDPer; ++e) kk[e] = k_t[j * kLd + tx + 16 * e];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < kDPer; ++e) dq_acc[i][e] += ds[i] * kk[e];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = q0 + ty + 16 * i;
-          if (row >= d.T) continue;
-          float* out = dqb + (long long)row * d.D;
-#pragma unroll
-          for (int e = 0; e < kDPer; ++e) {
-            const int c = tx + 16 * e;
-            if (c < d.D) atomicAdd(out + c, dq_acc[i][e]);
-          }
-        }
-      }
+    if constexpr (kDq) {
+      // dq[rows] += ds K: the warp's query rows m0.., dims nd..
+      pd_b_mma<kD, kN, kSmall, false>(acc, ds_t, k_t, m0, nd, g8, tq);
+      const long long bh = (long long)b * d.H + kvh * group + hg;
+      add_frags<kN>(dq + bh * d.T * d.D, acc, q0 + m0, d.T, d.D, nd, g8, tq);
     }
   }
+  cp_async_wait_all();
 
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-    const int row = c0 + ty + 16 * jj;
-    if (row >= d.S) continue;
-    const long long off = ((long long)bkvh * d.S + row) * d.D;
-#pragma unroll
-    for (int e = 0; e < kDPer; ++e) {
-      const int c = tx + 16 * e;
-      if (c < d.D) {
-        store(dk + off + c, dk_acc[jj][e]);
-        store(dv + off + c, dv_acc[jj][e]);
-      }
-    }
-  }
+  const long long off = (long long)bkvh * d.S * d.D;
+  store_frags<kN>(dk + off, dk_acc, c0 + m0, d.S, d.D, nd, g8, tq);
+  store_frags<kN>(dv + off, dv_acc, c0 + m0, d.S, d.D, nd, g8, tq);
+}
+
+// Registers, static and dynamic shared memory, blocks per SM and local
+// (spill) bytes of one kernel at its launch configuration, into out[0..4].
+template <typename K>
+int kernel_resources(K* kernel, size_t smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  out[4] = (int)a.localSizeBytes;
+  return 0;
 }
 
 }  // namespace mxtpu_flash

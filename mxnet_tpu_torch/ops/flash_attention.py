@@ -22,8 +22,11 @@ kernel launches or the call raises.
   port of ``_paged_decode_kernel``); its plain version is
   :func:`_torch_paged_decode` (the port of ``_jnp_paged_decode``).
 
-Each kernel's bound on an H100 SXM, and why the first versions stay far
-from it, is in the note at the top of its CUDA source.
+Each kernel's bound on an H100 SXM, and what its design does about it,
+is in the note at the top of its CUDA source. The backward kernels (K2,
+K6) multiply on the tensor cores in fp32 accuracy (3xTF32,
+``csrc/flash_mma.cuh``); :func:`_bwd_kernel_resources` reports their
+registers, shared memory and blocks per SM.
 """
 
 from __future__ import annotations
@@ -259,6 +262,24 @@ def _flash_lib(stem):
         fn.argtypes = argtypes
     lib._mxtpu_typed = True
     return lib
+
+
+def _bwd_kernel_resources(kernel, dtype, head_dim):
+    """What the runtime reports for a backward kernel (``"dq"``,
+    ``"dkv"`` or ``"fused"``) at a storage type and a head-dim bucket
+    (32, 64 or 128): registers per thread, static and dynamic shared bytes
+    per block, blocks per SM and local (spill) bytes per thread."""
+    stem = "flash_bwd_fused" if kernel == "fused" else "flash_bwd"
+    lib = _flash_lib(stem)
+    fn = lib.mxtpu_flash_bwd_resources
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 5)()
+    err = fn({"dq": 0, "dkv": 1, "fused": 0}[kernel], _DTYPE_CODES[dtype],
+             head_dim, out)
+    _kernels.check(lib, err, f"flash_bwd_{kernel} resources")
+    return dict(zip(("regs", "static_smem", "dynamic_smem", "blocks_per_sm",
+                     "local_bytes"), out))
 
 
 def _kernel_operands(q, k, v, g=None):

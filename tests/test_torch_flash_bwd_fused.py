@@ -161,6 +161,8 @@ CUDA_CASES = {
     "causal_cross_d64": (1, 2, 1, 70, 200, 64, True, 0),
     "causal_t_gt_s_d64": (1, 2, 2, 100, 40, 64, True, 0),
     "dense_cross_d16": (2, 2, 2, 5, 77, 16, False, 0),
+    # a long walk through the kernels' two-stage tile ring, ending ragged
+    "causal_gqa4_long_d128": (1, 8, 2, 1030, 1030, 128, True, 0),
 }
 
 
