@@ -10,20 +10,25 @@ Phases (each prints one line of facts; any failure exits non-zero):
 1. environment — card name and power limit (``nvidia-smi``), compute
    capability (must be 9.0), TF32 turned off for float32 parity;
 2. build — every CUDA kernel of the port from ``mxnet_tpu_torch/csrc``;
-   then, for each backward kernel (K2's two, K6) at each storage type and
-   head-dim bucket, the registers, shared memory and blocks per SM the
-   runtime reports (``[kernel-resources]``);
+   the TF32 tensor-core instructions in each flash library's SASS
+   (``[sass]``); then, for each flash kernel (K1, K2's two, K6) at each
+   storage type and head-dim bucket, the registers, shared memory and
+   blocks per SM the runtime reports (``[kernel-resources]``);
 3. kernels — each kernel against its plain PyTorch version on the card,
-   in float32 and bfloat16: paged decode (K3) at the serving path's
-   shapes; flash attention forward (K1), its split backward (K2: the dq
-   kernel and the dk/dv kernel) and its fused backward (K6) at BERT-base's
-   training shape, ``bench_flash_attention``'s causal shape, llama3-8B's
-   head layout with a sliding window and at its full causal training
-   shape (T = 8192), a ragged and a causal cross shape; then each timed
+   in float32, bfloat16 and float16: paged decode (K3) at the serving
+   path's shapes; flash attention forward (K1), its split backward (K2:
+   the dq kernel, which also forms delta, and the dk/dv kernel) and its
+   fused backward (K6) at BERT-base's training shape,
+   ``bench_flash_attention``'s causal shape, llama3-8B's head layout with
+   a sliding window and at its full causal training shape (T = 8192), a
+   ragged and a causal cross shape; head dim 160, which both packages
+   compute with their plain versions (``flash_plain_*`` and
+   ``paged_decode_plain`` counts, no kernel launched); then each timed
    with CUDA events beside its bound, its plain version's time and one
-   PyTorch library call computing the same function (K6 beside K2 at
-   BERT-base's and Llama-3-8B's shapes, where K2's gradients and K6's dk
-   and dv must also repeat bit for bit over two calls, ``[determinism]``);
+   PyTorch library call computing the same function (K1 and K6 beside
+   SDPA and K2 at BERT-base's and Llama-3-8B's shapes, where K1's O and
+   LSE, K2's gradients and K6's dk and dv must also repeat bit for bit
+   over two calls, ``[determinism]``);
 4. serving parity — a StarCoderBase-1B-width decoder (random weights from
    a seed): prefill + 32 paged decode steps, each step's logits against
    the dense forward's logits at that position; then one full-width
@@ -66,7 +71,7 @@ Phases (each prints one line of facts; any failure exits non-zero):
    must be finite and fall, K6 launch twice per step and K2 never.
 
 Phase 3 also checks K4 and K5's two kernels against their plain versions
-(fp32 and bf16, with and without the BatchNorm prologue, at ResNet-50's
+(fp32, bf16 and fp16, with and without the BatchNorm prologue, at ResNet-50's
 stage shapes and two ragged ones) and times them at each of ResNet-50's
 nine 1x1 shapes beside their bounds, their plain versions and
 ``torch.matmul`` of the bare product.
@@ -96,18 +101,23 @@ BLOCK = 16
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-# the flash backward kernels (K2, K6) multiply fp32 on the tensor cores as
+# the flash kernels (K1, K2, K6) multiply fp32 on the tensor cores as
 # 3xTF32: three TF32 products (495 TFLOP/s dense) per product
 TF32_TC_OPS, TF32X3 = 495e12, 3
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # kernel vs plain: fp32 differs by summation order only (outputs are
-# convex mixes of V rows, |out| < ~5, so ~1e-6); bf16 rounds the output
-# once on both sides, so they may differ by one bf16 step (2^-8 relative)
-KERNEL_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
+# convex mixes of V rows, |out| < ~5, so ~1e-6); bf16 and fp16 round the
+# output once on both sides, so they may differ by one step of the type
+# (2^-8 relative in bf16, at most 2^-10 of |value| in fp16)
+KERNEL_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2),
+              torch.float16: (2.0 ** -10, 2.0 ** -10)}
 # flash attention kernels vs plain, relative to the largest |value|: fp32
-# differs by summation order only (~3e-6 at T = 2048 measured); bf16 O and
-# gradients are rounded once on both sides, so they may differ by one bf16
-# step (2^-7 of the largest value); the LSE is fp32 on both sides
-FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# differs by summation order only (~3e-6 at T = 2048 measured); bf16 and
+# fp16 O and gradients are rounded once on both sides, so they may differ
+# by one step of the type (2^-7 of the largest value in bf16, 2^-10 in
+# fp16); the LSE is fp32 on both sides
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7,
+             torch.float16: 2.0 ** -10}
 # bench_bert on an accelerator: bert_base(dropout=0, no pooler/classifier)
 BERT_BATCH, BERT_SEQ, BERT_VOCAB, BERT_LAYERS = 64, 128, 30522, 12
 # kernels vs plain attention over a full BERT-base forward + backward in
@@ -127,11 +137,13 @@ RESNET_1X1 = ((401408, 64, 64, 1), (401408, 64, 256, 4),
               (6272, 2048, 512, 2))
 # K4/K5 vs plain, relative to the largest |value| of each output, as
 # (storage-type outputs y/dx/dw, fp32 statistics): fp32 differs by
-# summation order only (~1e-6 measured over 401408 rows); in bf16 y, dx and
-# dw are rounded once on both sides (one bf16 step, 2^-7 of the largest
-# value) while the statistics stay fp32 (order only; 1e-4 leaves room for
-# one bf16 operand rounded the other way)
-FUSED_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
+# summation order only (~1e-6 measured over 401408 rows); in bf16 and fp16
+# y, dx and dw are rounded once on both sides (one step of the type, 2^-7
+# of the largest value in bf16, 2^-10 in fp16) while the statistics stay
+# fp32 (order only; 1e-4 leaves room for one 16-bit operand rounded the
+# other way)
+FUSED_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-4),
+             torch.float16: (2.0 ** -10, 1e-4)}
 # ResNet-50 with K4/K5 vs with their plain versions (see
 # resnet_parity_phase): loss within 1e-5 relative, each weight's gradient
 # within 1e-4 of its own largest |grad|
@@ -232,6 +244,7 @@ def paged_work(q, k_pool, tables, lens):
 
 
 def kernel_phase(dev, gen):
+    from mxnet_tpu_torch.ops import _kernels
     from mxnet_tpu_torch.ops.flash_attention import (
         _torch_paged_decode,
         paged_decode_attention,
@@ -249,7 +262,7 @@ def kernel_phase(dev, gen):
     }
     errs = {}
     for name, kw in cases.items():
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             q, kp, vp, tables, lens = paged_inputs(gen, dev, dtype=dtype,
                                                    **kw)
             scale = 1.0 / q.shape[-1] ** 0.5
@@ -265,6 +278,20 @@ def kernel_phase(dev, gen):
                 max_abs_err=f"{err:.3e}", atol=atol, rtol=rtol, ok=ok)
             check(ok, f"paged_decode {name} {dtype} disagrees with plain")
             check(bool((got[lens == 0] == 0).all()), "ctx 0 must give zeros")
+
+    # head dim 160: past the kernel's 128 the JAX package runs its jnp
+    # path, and the port its plain version on the card, chosen by shape
+    q, kp, vp, tables, lens = paged_inputs(gen, dev, dtype=torch.float32,
+                                           head_dim=160, **cases["gqa"])
+    before = dict(_kernels.LAUNCHES)
+    got = paged_decode_attention(q, kp[0], vp[0], tables, lens)
+    counts = {k: _kernels.LAUNCHES[k] - before.get(k, 0)
+              for k in ("paged_decode", "paged_decode_plain")}
+    same = torch.equal(got, _torch_paged_decode(q, kp[0], vp[0], tables,
+                                                lens, 160 ** -0.5))
+    say("kernel", case="gqa_d160_plain_route", launches=counts, equal=same)
+    check(counts == {"paged_decode": 0, "paged_decode_plain": 1} and same,
+          f"paged decode at head dim 160: {counts}, equal {same}")
 
     # timing at the serving shape, float32 (the engine's pool type), one
     # pool per layer of the model so every call finds L2 cold as it does
@@ -352,9 +379,9 @@ def flash_work(B, H, KVH, T, S, D, causal, window, item):
     }
 
 
-def bwd_ops_ms(ops):
-    """The operations bound of K2 and K6 in ms: 3xTF32 runs each product
-    as three TF32 products on the tensor cores."""
+def tf32x3_ms(ops):
+    """The operations bound of K1, K2 and K6 in ms: 3xTF32 runs each
+    product as three TF32 products on the tensor cores."""
     return TF32X3 * ops / TF32_TC_OPS * 1e3
 
 
@@ -367,14 +394,16 @@ def flash_inputs(gen, dev, B, H, KVH, T, S, D, dtype):
 
 
 def flash_kernel_phase(dev, gen):
-    """Every case in fp32 and bf16: O and the gradients through the
+    """Every case in fp32, bf16 and fp16: O and the gradients through the
     public autograd op (K1 forward, K2 backward), the LSE from K1 itself,
     and K6's gradients (fed the plain forward's O and LSE), all against
-    the plain versions on the same tensors. Then, at the training shape
-    in fp32, each kernel timed beside its bound, its plain version and
-    scaled_dot_product_attention (never used by the port; the K2 rows
-    take its backward alone, timed after one forward). Returns the
-    rows of K1 and K2 and the errors of every case."""
+    the plain versions on the same tensors; head dim 160 through the
+    plain route. Then, at the training shape in fp32, each kernel timed
+    beside its bound, its plain version and scaled_dot_product_attention
+    (never used by the port; the K2 rows take its backward alone, timed
+    after one forward), and the delta K2's dq kernel wrote held against
+    the torch expression. Returns the rows of K1 and K2 and the errors
+    of every case."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from mxnet_tpu_torch.ops.flash_attention import (
@@ -386,10 +415,13 @@ def flash_kernel_phase(dev, gen):
         flash_attention,
     )
 
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
     errs = {}
     for name, (B, H, KVH, T, S, D, causal, window, native) in \
             FLASH_CASES.items():
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             q, k, v, g = flash_inputs(gen, dev, B, H, KVH, T, S, D, dtype)
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             out = flash_attention(*leaves, causal=causal, window=window,
@@ -432,6 +464,32 @@ def flash_kernel_phase(dev, gen):
             del q, k, v, g, leaves, out, want, k6, want_o, want_lse, lse
         torch.cuda.empty_cache()
 
+    # head dim 160: past the kernels' 128 the JAX package runs its jnp
+    # path, and the port its plain versions on the card, chosen by shape
+    B, H, KVH, T, S, D = 2, 4, 2, 256, 256, 160
+    q, k, v, g = flash_inputs(gen, dev, B, H, KVH, T, S, D, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(_kernels.LAUNCHES)
+    out = flash_attention(*leaves, causal=True)
+    out.backward(g)
+    counts = {n: _kernels.LAUNCHES[n] - before.get(n, 0) for n in (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused",
+        "flash_plain_fwd", "flash_plain_bwd")}
+    want_o, want_lse = _torch_flash_fwd(q, k, v, 1.0 / D ** 0.5, True)
+    want = _torch_flash_bwd(q, k, v, want_o, want_lse, g, 1.0 / D ** 0.5,
+                            True)
+    rel = max(float((a.detach() - b).abs().max() / b.abs().max())
+              for a, b in zip([out] + [t.grad for t in leaves],
+                              [want_o, *want]))
+    say("kernel", case="flash_gqa2_d160_plain_route",
+        shape=f"B{B}_H{H}_KVH{KVH}_T{T}_S{S}_D{D}", launches=counts,
+        rel_err=f"{rel:.2e}", tol_rel=FLASH_TOL[torch.float32])
+    check(rel <= FLASH_TOL[torch.float32] and counts == {
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "flash_bwd_fused": 0, "flash_plain_fwd": 1, "flash_plain_bwd": 1},
+        f"flash attention at head dim 160: {counts}, rel {rel:.3e}")
+    del q, k, v, g, leaves, out, want, want_o, want_lse
+
     # timing at BERT-base's training shape, fp32 (the training type)
     B, H, KVH, T, S, D, causal, window, _ = FLASH_CASES["bert_base"]
     q, k, v, g = flash_inputs(gen, dev, B, H, KVH, T, S, D, torch.float32)
@@ -444,18 +502,20 @@ def flash_kernel_phase(dev, gen):
         o = sdpa(qs, ks, vs)
         torch.autograd.grad(o, (qs, ks, vs), g)
 
-    from mxnet_tpu_torch.ops import flash_attention as fa
-
+    # the dk/dv kernel reads the delta the dq kernel wrote (dq is timed
+    # first, and every dq call writes it)
     bwd_args = fa._bwd_operands(q, k, v, out, lse, g)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
 
     def dq_only():
-        fa._launch_flash_bwd("dq", *bwd_args, (dq,), scale, causal, window)
+        fa._launch_flash_bwd("dq", *bwd_args[:-1], delta, bwd_args[-1],
+                             (dq,), scale, causal, window)
 
     def dkv_only():
-        fa._launch_flash_bwd("dkv", *bwd_args, (dk, dv), scale, causal,
-                             window)
+        fa._launch_flash_bwd("dkv", *bwd_args[:-1], delta, bwd_args[-1],
+                             (dk, dv), scale, causal, window)
 
     times = {
         "flash_fwd": (cuda_ms(lambda: _cuda_flash_fwd(
@@ -470,6 +530,13 @@ def flash_kernel_phase(dev, gen):
     lib_bwd = sdpa_bwd_ms(qs, ks, vs, g, causal, 20)
     times["flash_bwd_dq"] = (cuda_ms(dq_only, 50), plain_bwd, lib_bwd)
     times["flash_bwd_dkv"] = (cuda_ms(dkv_only, 50), plain_bwd, lib_bwd)
+    want_delta = (g.float() * out.float()).sum(dim=-1)
+    delta_rel = float((delta - want_delta).abs().max()
+                      / want_delta.abs().max())
+    say("kernel", case="flash_bwd_dq_delta", rel_err=f"{delta_rel:.2e}",
+        tol_rel=FLASH_TOL[torch.float32])
+    check(delta_rel <= FLASH_TOL[torch.float32],
+          f"the delta K2's dq kernel wrote is off by {delta_rel:.3e}")
     both = cuda_ms(lambda: _cuda_flash_bwd(q, k, v, out, lse, g, scale,
                                            causal, window), 50)
     work = flash_work(B, H, KVH, T, S, D, causal, window, 4)
@@ -482,7 +549,7 @@ def flash_kernel_phase(dev, gen):
     for name, (ms, plain_ms, lib_ms) in times.items():
         ops, nbytes = work[name]
         t_cores = ops / PEAK_OPS[torch.float32] * 1e3
-        t_ops = t_cores if name == "flash_fwd" else bwd_ops_ms(ops)
+        t_ops = tf32x3_ms(ops)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         row = {
             "name": name,
@@ -514,16 +581,21 @@ def flash_kernel_phase(dev, gen):
 
 
 def determinism_check(case, args):
-    """K2's dq, dk and dv and K6's dk and dv must repeat bit for bit over
-    two calls on the same tensors; K6's dq (reductions that land in any
-    order) may not, and its spread is printed."""
+    """K1's O and LSE, K2's dq, dk and dv and K6's dk and dv must repeat
+    bit for bit over two calls on the same tensors; K6's dq (reductions
+    that land in any order) may not, and its spread is printed."""
     from mxnet_tpu_torch.ops import flash_attention as fa
 
+    q, k, v, _, _, _, scale, causal, window = args
+    k1 = [fa._cuda_flash_fwd(q, k, v, scale, causal, window)
+          for _ in range(2)]
     k2 = [fa._cuda_flash_bwd(*args) for _ in range(2)]
     k6 = [fa._cuda_flash_bwd_fused(*args) for _ in range(2)]
     torch.cuda.synchronize()
-    same = {f"k2_{w}": torch.equal(a, b)
-            for w, a, b in zip(("dq", "dk", "dv"), *k2)}
+    same = {f"k1_{w}": torch.equal(a, b)
+            for w, a, b in zip(("o", "lse"), *k1)}
+    same.update({f"k2_{w}": torch.equal(a, b)
+                 for w, a, b in zip(("dq", "dk", "dv"), *k2)})
     same.update({f"k6_{w}": torch.equal(a, b)
                  for w, a, b in zip(("dk", "dv"), k6[0][1:], k6[1][1:])})
     spread = float((k6[0][0] - k6[1][0]).abs().max()
@@ -534,26 +606,44 @@ def determinism_check(case, args):
         k6_dq_rel_spread=f"{spread:.3e}")
 
 
+def sass_phase(libs):
+    """The flash kernels multiply on the tensor cores: count the TF32
+    mma instructions in each library's SASS (``cuobjdump -sass``, beside
+    nvcc in the toolkit)."""
+    from mxnet_tpu_torch.ops import _kernels
+
+    tool = os.path.join(os.path.dirname(_kernels.nvcc_path()), "cuobjdump")
+    for stem in ("flash_fwd", "flash_bwd", "flash_bwd_fused"):
+        sass = subprocess.run([tool, "-sass", libs[stem]], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        n = sass.count("HMMA.1688.F32.TF32")
+        say("sass", library=stem, hmma_1688_f32_tf32=n)
+        check(n > 0, f"{stem} holds no HMMA.1688.F32.TF32")
+
+
 def kernel_resources_phase():
-    """What the runtime reports for each rewritten backward kernel at each
-    storage type and head-dim bucket (cudaFuncGetAttributes and
+    """What the runtime reports for each flash kernel at each storage type
+    and head-dim bucket (cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor, through each source's
-    mxtpu_flash_bwd_resources)."""
-    from mxnet_tpu_torch.ops.flash_attention import _bwd_kernel_resources
+    mxtpu_flash_fwd_resources / mxtpu_flash_bwd_resources)."""
+    from mxnet_tpu_torch.ops.flash_attention import _kernel_resources
 
-    for kernel in ("dq", "dkv", "fused"):
-        for dtype in (torch.float32, torch.bfloat16):
+    for kernel in ("fwd", "dq", "dkv", "fused"):
+        for dtype in DTYPES:
             for bucket in (32, 64, 128):
-                r = _bwd_kernel_resources(kernel, dtype, bucket)
-                check(r["blocks_per_sm"] >= 1, f"flash_bwd_{kernel} "
-                      f"{dtype} D{bucket} fits no SM: {r}")
-                say("kernel-resources", kernel=f"flash_bwd_{kernel}",
+                r = _kernel_resources(kernel, dtype, bucket)
+                name = "flash_fwd" if kernel == "fwd" \
+                    else f"flash_bwd_{kernel}"
+                check(r["blocks_per_sm"] >= 1, f"{name} {dtype} D{bucket} "
+                      f"fits no SM: {r}")
+                say("kernel-resources", kernel=name,
                     dtype=str(dtype).split(".")[1], d_bucket=bucket, **r,
-                    warps_per_sm=8 * r["blocks_per_sm"])
+                    warps_per_sm=r["threads"] // 32 * r["blocks_per_sm"])
 
 
-# K6 is timed at these FLASH_CASES shapes (BERT-base's and Llama-3-8B's);
-# the kernels line gets the last, where the llama phases run it
+# K6 (and K1 again) are timed at these FLASH_CASES shapes (BERT-base's and
+# Llama-3-8B's); the kernels line gets K6 at the last, where the llama
+# phases run it
 K6_TIME_CASES = ("bert_base", "llama3_8b_causal")
 
 
@@ -562,9 +652,10 @@ def fused_bwd_time_phase(dev, gen, errs):
     together) at the same shapes in fp32, with K6's bound, the plain
     backward, SDPA's backward alone (the row's ``library_ms``) and SDPA
     forward + backward (kv heads repeated before the timed calls: SDPA's
-    fused kernels take no grouped heads). Each time is
-    a whole backward wrapper call: delta, the outputs (K6's zeroed dq
-    workspace) and the launch(es). Returns K6's row at the last case."""
+    fused kernels take no grouped heads); and K1 beside its bound, the
+    plain forward and SDPA's forward. Each time is a whole wrapper call:
+    the outputs (K6's zeroed dq workspace and its torch delta), the
+    launch(es). Returns K6's row at the last case."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -587,6 +678,26 @@ def fused_bwd_time_phase(dev, gen, errs):
         iters = 50 if T <= 1024 else 5
         args = (q, k, v, out, lse, g, scale, causal, window)
         determinism_check(case, args)
+        k1_ms = cuda_ms(lambda: fa._cuda_flash_fwd(q, k, v, scale, causal,
+                                                   window), iters)
+        k1_plain_ms = cuda_ms(lambda: fa._torch_flash_fwd(
+            q, k, v, scale, causal, window), max(2, iters // 3))
+        with torch.no_grad():
+            lib_fwd_ms = cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=causal),
+                                 iters)
+        ops, nbytes = flash_work(B, H, KVH, T, S, D, causal, window,
+                                 4)["flash_fwd"]
+        t_ops, t_bytes = tf32x3_ms(ops), nbytes / HBM_BYTES_PER_S * 1e3
+        say("kernel-time", kernel="flash_fwd",
+            shape=f"B{B}_H{H}_KVH{KVH}_T{T}_D{D}_causal{int(causal)}_fp32",
+            ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}",
+            library_ms=f"{lib_fwd_ms:.4f}",
+            over_library=f"{k1_ms / lib_fwd_ms:.4f}",
+            bound_ms=f"{max(t_ops, t_bytes):.5f}",
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            tflops=f"{ops / k1_ms / 1e9:.2f}",
+            bound_share=f"{max(t_ops, t_bytes) / k1_ms:.4f}",
+            bound_cuda_cores_ms=f"{ops / PEAK_OPS[torch.float32] * 1e3:.5f}")
         ms = cuda_ms(lambda: fa._cuda_flash_bwd_fused(*args), iters)
         k2_ms = cuda_ms(lambda: fa._cuda_flash_bwd(*args), iters)
         plain_ms = cuda_ms(lambda: fa._torch_flash_bwd(*args),
@@ -595,7 +706,7 @@ def fused_bwd_time_phase(dev, gen, errs):
         lib_ms = sdpa_bwd_ms(qs, ks, vs, g, causal, max(2, iters // 3))
         ops, nbytes = flash_work(B, H, KVH, T, S, D, causal, window,
                                  4)["flash_bwd_fused"]
-        t_ops = bwd_ops_ms(ops)
+        t_ops = tf32x3_ms(ops)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         row = {
             "name": "flash_bwd_fused",
@@ -645,29 +756,38 @@ FUSED_MODES = {"plain": (False, False), "prologue": (True, False),
                "prologue_relu": (True, True)}
 
 
+# float16 holds values up to 65504: with a prologue, dW's sum over
+# 401408 rows of shift x dsum alone reaches ~2.5e5 with these inputs, so
+# float16 cases scale the cotangents (dy, dsum, dssq) by 2^-6 as a loss
+# scale would (a power of two: the same values, shifted in exponent)
+FP16_COTANGENT_SCALE = 2.0 ** -6
+
+
 def fused_inputs(gen, dev, M, K, N, dtype, prologue):
     """x, w, scale, shift (None without a prologue), y, dy, dsum, dssq."""
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
+    ct = FP16_COTANGENT_SCALE if dtype == torch.float16 else 1.0
     x, w = randn(M, K).to(dtype), randn(K, N, scale=K ** -0.5).to(dtype)
     s = torch.rand(K, generator=gen, device=dev) + 0.5 if prologue else None
     t = randn(K, scale=0.1) if prologue else None
-    return (x, w, s, t, randn(M, N).to(dtype), randn(M, N).to(dtype),
-            randn(N), randn(N, scale=0.01))
+    return (x, w, s, t, randn(M, N).to(dtype),
+            randn(M, N, scale=ct).to(dtype), randn(N, scale=ct),
+            randn(N, scale=0.01 * ct))
 
 
 def fused_kernel_phase(dev, gen):
     """K4 and K5's dW and dX kernels against their plain versions on the
-    same tensors, every case in fp32 and bf16, with no prologue and with
-    one (relu off and on). Returns the largest absolute error of each
+    same tensors, every case in fp32, bf16 and fp16, with no prologue and
+    with one (relu off and on). Returns the largest absolute error of each
     kernel over the fp32 ResNet-50 cases without a prologue (the path's
     variant)."""
     from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
 
     worst = {"fused_fwd": 0.0, "fused_dw": 0.0, "fused_dx": 0.0}
     for name, (M, K, N) in FUSED_CASES.items():
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             for mode, (pro, relu) in FUSED_MODES.items():
                 x, w, s, t, y, dy, ds, dq = fused_inputs(gen, dev, M, K, N,
                                                          dtype, pro)
@@ -1772,6 +1892,7 @@ def main():
     libs = _kernels.build_all()
     say("build", kernels=sorted(libs),
         seconds=f"{time.perf_counter() - t0:.2f}")
+    sass_phase(libs)
     kernel_resources_phase()
 
     gen = torch.Generator(device=dev).manual_seed(SEED)

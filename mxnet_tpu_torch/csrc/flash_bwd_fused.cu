@@ -11,7 +11,7 @@
 // computed by the wrapper,
 //   dq = sum_k ds K,   dk = sum_q ds^T Q,   dv = sum_q p^T dO.
 // Masks, layouts and grouped-query heads as in flash_common.cuh. Storage
-// float32 or bfloat16; every product in fp32 accuracy (3xTF32,
+// float32, bfloat16 or float16; every product in fp32 accuracy (3xTF32,
 // flash_mma.cuh), every sum in fp32.
 //
 // Design. One block of 8 warps per (64 key rows, batch * kv head), the
@@ -30,8 +30,8 @@
 // quarter of one per value. That workspace takes the place of
 // the TPU kernel's full-T VMEM scratch, which needs an ordered grid: here
 // the blocks that share query rows run in parallel, in no order. For
-// float32 storage the workspace is dq itself; for bfloat16 the wrapper
-// rounds it. Blocks are numbered tile-major over a 1-D grid, key tile 0
+// float32 storage the workspace is dq itself; for a 16-bit type the
+// wrapper rounds it. Blocks are numbered tile-major over a 1-D grid, key tile 0
 // first: under a causal mask it walks the most query tiles (at T = 8192,
 // 128 against the last tile's 1), so the short blocks fill the tail.
 //
@@ -101,13 +101,13 @@ template <typename T>
 int resources_for(int d_bucket, int* out) {
   if (d_bucket == 32)
     return kernel_resources(flash_bwd_fused_kernel<T, 32>,
-                            kv_smem_bytes<32>(), out);
+                            kv_smem_bytes<32>(), kThreads, out);
   if (d_bucket == 64)
     return kernel_resources(flash_bwd_fused_kernel<T, 64>,
-                            kv_smem_bytes<64>(), out);
+                            kv_smem_bytes<64>(), kThreads, out);
   if (d_bucket == 128)
     return kernel_resources(flash_bwd_fused_kernel<T, 128>,
-                            kv_smem_bytes<128>(), out);
+                            kv_smem_bytes<128>(), kThreads, out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -116,8 +116,8 @@ int resources_for(int d_bucket, int* out) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, (batch,
-// head, row) of q, k, v and dO. lse, delta: (B, H, T) fp32. dq: a ZEROED
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. strides: 12 element
+// strides, (batch, head, row) of q, k, v and dO. lse, delta: (B, H, T) fp32. dq: a ZEROED
 // fp32 (B, H, T, D) workspace the kernel adds into. dk and dv are
 // (B, KVH, S, D) in the storage type, contiguous, summed over each kv
 // head's group of query heads. Returns cudaGetLastError() after the launch.
@@ -133,23 +133,18 @@ int mxtpu_flash_bwd_fused(int dtype, const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   float* dqf = static_cast<float*>(dq);
-  if (dtype == 0)
-    return dispatch_fused<float>(q, k, v, g, l, dl, dqf, dk, dv, d, s);
-  if (dtype == 1)
-    return dispatch_fused<__nv_bfloat16>(q, k, v, g, l, dl, dqf, dk, dv, d,
-                                         s);
-  return (int)cudaErrorInvalidValue;
+  MXTPU_FLASH_DISPATCH(dispatch_fused, q, k, v, g, l, dl, dqf, dk, dv, d,
+                       s);
 }
 
-// kernel: 0, the one kernel; dtype 0 = float32, 1 = bfloat16; d_bucket: 32,
-// 64 or 128. out: registers per thread, static and dynamic shared bytes per
-// block, blocks per SM at that dynamic size, local (spill) bytes per thread.
+// kernel: 0, the one kernel; dtype as above; d_bucket: 32, 64 or 128.
+// out: registers per thread, static and dynamic shared bytes per block,
+// blocks per SM at that dynamic size, local (spill) bytes per thread,
+// threads per block.
 int mxtpu_flash_bwd_resources(int kernel, int dtype, int d_bucket, int* out) {
   using namespace mxtpu_flash;
   if (kernel != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return resources_for<float>(d_bucket, out);
-  if (dtype == 1) return resources_for<__nv_bfloat16>(d_bucket, out);
-  return (int)cudaErrorInvalidValue;
+  MXTPU_FLASH_DISPATCH(resources_for, d_bucket, out);
 }
 
 }  // extern "C"

@@ -34,13 +34,6 @@
 
 namespace mxtpu_flash {
 
-// blocks of this many dynamic shared bytes that fit one SM's 228 KB (each
-// block also holds 1 KB the runtime reserves), at most 2: the minimum the
-// kernels ask the register allocator for
-__host__ __device__ constexpr int blocks_for(size_t smem) {
-  return (233472 / (smem + 1024)) >= 2 ? 2 : 1;
-}
-
 // K, V, two stages of Q and dO, two stages of LSE and delta, and p and ds
 // (n_pd of them: 2, or 1 when one buffer takes both in turn)
 template <int kD>
@@ -134,28 +127,6 @@ __device__ __forceinline__ void frags_to_pd(const float (&x)[4][4], float* t,
         t[pd_idx(m0 + g8 + 8 * i, n0 + 8 * j + 2 * tq + e)] = x[j][2 * i + e];
 }
 
-// The tensor cores add into an fp32 accumulator with truncation, so a sum
-// chained through mma over thousands of rows drifts toward zero: past 1e-5
-// of the largest dk over a group of 4 heads of 2048 rows, in the model of
-// tests/test_torch_flash_tf32x3.py. Each tile's product therefore starts
-// from zero and is added to the running sum with an ordinary
-// (round-to-nearest) fp32 add.
-template <int kN>
-__device__ __forceinline__ void zero_frags(float (&acc)[kN][4]) {
-#pragma unroll
-  for (int j = 0; j < kN; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-}
-template <int kN>
-__device__ __forceinline__ void add_into(float (&sum)[kN][4],
-                                         const float (&acc)[kN][4]) {
-#pragma unroll
-  for (int j = 0; j < kN; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sum[j][e] += acc[j][e];
-}
-
 // acc = (64 x 64 tile, read as A by load) x (B tile read paired, rows k)
 // for the warp's 16 rows m0.. and dims nd.., over the tile's 64 columns:
 // ds K (load_a_pd), p^T dO and ds^T Q (load_a_pd_t)
@@ -177,26 +148,6 @@ __device__ __forceinline__ void pd_b_mma(float (&acc)[kN][4],
       load_b_paired<kD>(b, b_t, nd + 8 * j, k0, g8, tq);
       mma_3xtf32<true, kSmall>(acc[j], a, b);
     }
-  }
-}
-
-// Store C fragments acc (rows r0 + g8 (+ 8), columns nd + 8 j + 2 tq (+ 1))
-// into a row-major (rows_total, D) matrix in the storage type.
-template <int kN, typename T>
-__device__ __forceinline__ void store_frags(T* out, const float (&acc)[kN][4],
-                                            int r0, int rows_total, int D,
-                                            int nd, int g8, int tq) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + g8 + 8 * i;
-    if (row >= rows_total) continue;
-#pragma unroll
-    for (int j = 0; j < kN; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = nd + 8 * j + 2 * tq + e;
-        if (c < D) store(out + (long long)row * D + c, acc[j][2 * i + e]);
-      }
   }
 }
 
@@ -244,7 +195,7 @@ __device__ __forceinline__ void bwd_kv_block(
     T* __restrict__ dk, T* __restrict__ dv, const Dims& d, int kt,
     int bkvh) {
   constexpr int kN = kD / 16;  // 8-dim fragments in a warp's kD / 2 dims
-  constexpr bool kSmall = sizeof(T) == 4;  // bf16 storage is exact in TF32
+  constexpr bool kSmall = sizeof(T) == 4;  // 16-bit storage is exact in TF32
   extern __shared__ __align__(16) float smem[];
   float* k_t = smem;                          // kBK x kD
   float* v_t = k_t + kBK * kD;                // kBK x kD
@@ -349,29 +300,6 @@ __device__ __forceinline__ void bwd_kv_block(
   const long long off = (long long)bkvh * d.S * d.D;
   store_frags<kN>(dk + off, dk_acc, c0 + m0, d.S, d.D, nd, g8, tq);
   store_frags<kN>(dv + off, dv_acc, c0 + m0, d.S, d.D, nd, g8, tq);
-}
-
-// Registers, static and dynamic shared memory, blocks per SM and local
-// (spill) bytes of one kernel at its launch configuration, into out[0..4].
-template <typename K>
-int kernel_resources(K* kernel, size_t smem, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = (int)smem;
-  out[3] = blocks;
-  out[4] = (int)a.localSizeBytes;
-  return 0;
 }
 
 }  // namespace mxtpu_flash

@@ -1,14 +1,14 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_bwd_fused.cu): the problem geometry, the mask and the tile ranges a
-// block walks; and, for the forward, tile loads into shared memory and the
-// CUDA-core thread layout of a 64 x 64 score tile (the backward kernels
-// multiply on the tensor cores, flash_mma.cuh).
+// flash_bwd_fused.cu): the problem geometry, the storage types, the mask
+// and the tile ranges a block walks. Every kernel multiplies on the tensor
+// cores through flash_mma.cuh.
 //
 // Layouts. q and dO are (B, H, T, D), k and v (B, KVH, S, D), each with its
 // own element strides for batch, head and row and a contiguous last dim;
 // outputs (O, dq, dk, dv) are contiguous; lse and delta are (B, H, T) fp32.
 // Query head h reads kv head h / (H / KVH), so grouped-query attention never
-// needs repeated K/V.
+// needs repeated K/V. Storage float32, bfloat16 or float16; every product
+// and sum in fp32.
 //
 // Mask (the JAX package's oracle, mxnet_tpu/ops/flash_attention.py
 // _jnp_flash_fwd): with off = S - T, query row q sees key column c when
@@ -19,6 +19,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -27,8 +28,7 @@ namespace mxtpu_flash {
 
 constexpr int kBQ = 64;        // query rows per tile
 constexpr int kBK = 64;        // key rows per tile
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
-constexpr int kLdP = kBK + 1;  // padded row of a score tile in shared memory
+constexpr int kThreads = 256;  // 8 warps: a backward block
 constexpr float kMasked = -1e30f;
 
 struct Dims {
@@ -46,9 +46,13 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // The score a (row q, column c) pair enters the softmax with, given its raw
@@ -92,53 +96,13 @@ __device__ __forceinline__ void q_tiles(const Dims& d, int c0, int c1,
   *hi = q_end > q_first ? (q_end + kBQ - 1) / kBQ : *lo;
 }
 
-// rows x kD tile starting at row0 of a (rows_total, D) matrix with the given
-// row stride, into shared memory as fp32 with row pitch kD + 1; rows past the
-// end and dims past D are zero.
-template <int kD, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long row_stride, int row0,
-                                          int rows, int rows_total, int D) {
-  for (int i = threadIdx.x; i < rows * kD; i += kThreads) {
-    const int r = i / kD;
-    const int c = i - r * kD;
-    float v = 0.f;
-    if (row0 + r < rows_total && c < D)
-      v = to_f(src[(long long)(row0 + r) * row_stride + c]);
-    dst[r * (kD + 1) + c] = v;
-  }
-}
-
-// acc[i][j] += sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over both tiles' rows
-// (pitch kD + 1): the 4 x 4 scores a thread owns. With the padded pitch the
-// 16 lanes reading B rows hit 16 different banks.
-template <int kD>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* A,
-                                         const float* B, int ty, int tx) {
-#pragma unroll 8
-  for (int d = 0; d < kD; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * (kD + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * (kD + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-  }
-}
-
-// Reductions over the 16 lanes (tx) that share a row; a warp holds two rows.
-__device__ __forceinline__ float row_max(float x) {
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+// Return FN<T>(...) for the storage type T that dtype names: 0 = float32,
+// 1 = bfloat16, 2 = float16 (the wrappers' dtype codes).
+#define MXTPU_FLASH_DISPATCH(FN, ...)                  \
+  if (dtype == 0) return FN<float>(__VA_ARGS__);       \
+  if (dtype == 1) return FN<__nv_bfloat16>(__VA_ARGS__); \
+  if (dtype == 2) return FN<__half>(__VA_ARGS__);      \
+  return (int)cudaErrorInvalidValue
 
 // The one routine every source exports for the wrapper's error messages.
 #define MXTPU_DEFINE_ERROR_STRING                                 \

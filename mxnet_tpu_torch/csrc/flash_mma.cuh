@@ -1,7 +1,7 @@
 // Tensor-core products in fp32 accuracy for Hopper (sm_90a), and the
-// shared-memory tiles that feed them: the pieces the flash-attention
-// backward kernels (flash_bwd.cu, flash_bwd_fused.cu through
-// flash_bwd_kv.cuh) are built from.
+// shared-memory tiles that feed them: the pieces every flash-attention
+// kernel is built from (flash_fwd.cu; flash_bwd.cu and flash_bwd_fused.cu
+// through flash_bwd_kv.cuh).
 //
 // 3xTF32. A warp-level mma.sync.m16n8k8 takes TF32 operands (fp32 with 10
 // explicit mantissa bits) and accumulates in fp32. Each fp32 operand x is
@@ -14,13 +14,15 @@
 // missing bits are about 2^-22 of each product: fp32 accuracy at a third of
 // the TF32 tensor-core rate (495 / 3 = 165 TFLOP/s dense on an H100 SXM)
 // instead of the CUDA cores' 67. An operand known to be exact in TF32 (a
-// bfloat16 value, 8 mantissa bits) has small == 0: its correction term is
+// bfloat16 value, 8 mantissa bits, or a float16 one, 10 bits with an
+// exponent inside fp32's range) has small == 0: its correction term is
 // skipped (kSmallA / kSmallB false), which changes no bit of the result.
 //
 // Why mma.sync and not wgmma: tf32 wgmma takes only K-major A and B, while
 // three of the backward's five products contract over the query or key axis
-// of row-major tiles (p^T dO, ds^T Q, ds K). mma.sync reads its fragments
-// from shared memory by hand, in either orientation.
+// of row-major tiles (p^T dO, ds^T Q, ds K), and so does the forward's P V.
+// mma.sync reads its fragments from shared memory by hand, in either
+// orientation, and takes A from registers (the forward's P).
 //
 // Fragment layout of m16n8k8 .tf32 (g = lane >> 2, t = lane & 3):
 //   A (16 x 8, row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
@@ -215,8 +217,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // row stride into a swizzled rows x kD fp32 tile; rows past rows_total and
 // columns past D are zero. A float32 chunk of 4 columns that lies whole
 // inside the matrix and is 16-byte aligned goes by cp.async (the caller
-// commits and waits); bfloat16, a chunk that straddles D or an unaligned
-// row is read and converted by the thread and stored directly.
+// commits and waits); a 16-bit type, a chunk that straddles D or an
+// unaligned row is read and converted by the thread and stored directly.
 template <int kD, int kThreadsPerTile, typename T>
 __device__ __forceinline__ void load_tile_async(float* dst, const T* src,
                                                 long long row_stride,
@@ -259,6 +261,84 @@ __device__ __forceinline__ void load_vec_async(float* dst, const float* src,
     else
       dst[i] = 0.f;
   }
+}
+
+// ---------------------------------------------------------------------------
+// C fragments, launch shapes
+// ---------------------------------------------------------------------------
+
+// blocks of this many dynamic shared bytes that fit one SM's 228 KB (each
+// block also holds 1 KB the runtime reserves), at most 2: the minimum the
+// kernels ask the register allocator for
+__host__ __device__ constexpr int blocks_for(size_t smem) {
+  return (233472 / (smem + 1024)) >= 2 ? 2 : 1;
+}
+
+// The tensor cores add into an fp32 accumulator with truncation, so a sum
+// chained through mma over thousands of rows drifts toward zero: past 1e-5
+// of the largest dk over a group of 4 heads of 2048 rows, in the model of
+// tests/test_torch_flash_tf32x3.py. Each tile's product therefore starts
+// from zero and is added to the running sum with an ordinary
+// (round-to-nearest) fp32 add.
+template <int kN>
+__device__ __forceinline__ void zero_frags(float (&acc)[kN][4]) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+template <int kN>
+__device__ __forceinline__ void add_into(float (&sum)[kN][4],
+                                         const float (&acc)[kN][4]) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[j][e] += acc[j][e];
+}
+
+// Store C fragments acc (rows r0 + g8 (+ 8), columns nd + 8 j + 2 tq (+ 1))
+// into a row-major (rows_total, D) matrix in the storage type.
+template <int kN, typename T>
+__device__ __forceinline__ void store_frags(T* out, const float (&acc)[kN][4],
+                                            int r0, int rows_total, int D,
+                                            int nd, int g8, int tq) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g8 + 8 * i;
+    if (row >= rows_total) continue;
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = nd + 8 * j + 2 * tq + e;
+        if (c < D) store(out + (long long)row * D + c, acc[j][2 * i + e]);
+      }
+  }
+}
+
+// Registers, static and dynamic shared memory, blocks per SM, local
+// (spill) bytes and threads of one kernel at its launch configuration,
+// into out[0..5].
+template <typename K>
+int kernel_resources(K* kernel, size_t smem, int threads, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  out[4] = (int)a.localSizeBytes;
+  out[5] = threads;
+  return 0;
 }
 
 }  // namespace mxtpu_flash

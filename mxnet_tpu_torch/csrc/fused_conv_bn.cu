@@ -17,7 +17,8 @@
 //            dx = round_mm(dxa * scale), dscale[k] = sum_m dxa * x,
 //            dbias[k] = sum_m dxa
 // x (M, K), w (K, N), y and dy (M, N), all row-major and contiguous, in
-// float32 or bfloat16; scale, shift, dsum, dssq and the statistics are fp32.
+// float32, bfloat16 or float16; scale, shift, dsum, dssq and the statistics
+// are fp32.
 // The prologue and dY are formed with __fmul_rn/__fadd_rn in the oracle's
 // order, so no FMA contraction makes them differ from the plain version
 // before the rounding to mm.
@@ -25,8 +26,8 @@
 // Design. One generic SIMT tile: a block of 256 threads owns a 128 x 64
 // output tile, each thread 8 rows x 4 columns of fp32 accumulators, and the
 // contraction advances 16 at a time through shared memory (operands stored
-// as fp32 after the prologue and the rounding to mm, so bf16 products are
-// exact and only the sums round). Loads past M, K or N are zeros; the
+// as fp32 after the prologue and the rounding to mm, so bf16 and fp16
+// products are exact and only the sums round). Loads past M, K or N are zeros; the
 // prologue is applied only in bounds, so padding rows add nothing to any
 // statistic. The TPU kernels carry the column statistics (and dW's
 // contraction over M) in VMEM scratch across a sequential grid; here blocks
@@ -52,6 +53,7 @@
 // pipeline) and stays below either bound; the times are in PERF.md.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,6 +73,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 // The value rounded to the storage type T (round to nearest even).
 template <typename T>
@@ -81,10 +84,17 @@ template <>
 __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
+template <>
+__device__ __forceinline__ float rnd<__half>(float x) {
+  return __half2float(__float2half_rn(x));
+}
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // x * scale + shift, relu, in the oracle's order (no FMA contraction).
@@ -453,7 +463,7 @@ int launch_dx(const void* dy, const void* y, const void* w, const float* ds,
 }
 
 // Pick the instantiation for (dtype, apply, relu); dtype 0 = float32,
-// 1 = bfloat16.
+// 1 = bfloat16, 2 = float16.
 #define MXTPU_FCBN_DISPATCH(FN, ...)                                   \
   if (dtype == 0) {                                                    \
     if (!apply) return FN<float, false, false>(__VA_ARGS__);           \
@@ -464,6 +474,11 @@ int launch_dx(const void* dy, const void* y, const void* w, const float* ds,
     if (!apply) return FN<__nv_bfloat16, false, false>(__VA_ARGS__);   \
     if (relu) return FN<__nv_bfloat16, true, true>(__VA_ARGS__);       \
     return FN<__nv_bfloat16, true, false>(__VA_ARGS__);                \
+  }                                                                    \
+  if (dtype == 2) {                                                    \
+    if (!apply) return FN<__half, false, false>(__VA_ARGS__);          \
+    if (relu) return FN<__half, true, true>(__VA_ARGS__);              \
+    return FN<__half, true, false>(__VA_ARGS__);                       \
   }                                                                    \
   return (int)cudaErrorInvalidValue
 

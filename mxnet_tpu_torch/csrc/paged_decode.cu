@@ -11,8 +11,8 @@
 //
 // Layouts (all contiguous): q, out (B, H, D); k_pool, v_pool
 // (num_blocks, block_size, KVH, D) -- one layer's slice; tables (B, max_blocks)
-// int32; lens (B,) int32. Storage type float32 or bfloat16 (the same for q and
-// the pools); all arithmetic in fp32.
+// int32; lens (B,) int32. Storage type float32, bfloat16 or float16 (the
+// same for q and the pools); all arithmetic in fp32.
 //
 // Design. One CUDA block per (sequence, kv head). It loads that head's
 // `group = H / KVH` query rows once into shared memory, then walks the
@@ -34,6 +34,7 @@
 // work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,9 +48,15 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) {
+  return __half2float(x);
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -220,7 +227,8 @@ size_t mxtpu_paged_decode_smem_bytes(int group, int D) {
   return smem_bytes(group, D);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns cudaGetLastError()
+// after launch.
 int mxtpu_paged_decode(int dtype, const void* q, const void* k_pool,
                        const void* v_pool, const void* tables,
                        const void* lens, void* out, int B, int H, int KVH,
@@ -235,6 +243,9 @@ int mxtpu_paged_decode(int dtype, const void* q, const void* k_pool,
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k_pool, v_pool, t, l, out, B, H, KVH, D,
                                  block_size, max_blocks, scale, s);
+  if (dtype == 2)
+    return launch<__half>(q, k_pool, v_pool, t, l, out, B, H, KVH, D,
+                          block_size, max_blocks, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,9 +3,13 @@ attention (serving).
 
 PyTorch counterpart of ``mxnet_tpu/ops/flash_attention.py``. On CUDA
 tensors each operator launches a hand-written Hopper kernel from
-``csrc/``; on CPU tensors it runs the plain PyTorch version of the same
-function beside it. A CUDA tensor never takes the plain version: the
-kernel launches or the call raises.
+``csrc/`` (float32, bfloat16 or float16 storage); on CPU tensors it runs
+the plain PyTorch version of the same function beside it. A CUDA tensor
+takes the plain version only where the JAX package's routing does
+(``_use_pallas``): head_dim > 128, chosen by shape before any launch and
+counted in ``_kernels.LAUNCHES["flash_plain_fwd"]``,
+``["flash_plain_bwd"]`` and ``["paged_decode_plain"]``. A kernel that
+fails to build or launch raises; nothing falls back.
 
 - :func:`flash_attention` is a ``torch.autograd.Function``: its forward
   launches ``csrc/flash_fwd.cu`` (the port of the TPU kernel
@@ -23,9 +27,9 @@ kernel launches or the call raises.
   :func:`_torch_paged_decode` (the port of ``_jnp_paged_decode``).
 
 Each kernel's bound on an H100 SXM, and what its design does about it,
-is in the note at the top of its CUDA source. The backward kernels (K2,
+is in the note at the top of its CUDA source. The flash kernels (K1, K2,
 K6) multiply on the tensor cores in fp32 accuracy (3xTF32,
-``csrc/flash_mma.cuh``); :func:`_bwd_kernel_resources` reports their
+``csrc/flash_mma.cuh``); :func:`_kernel_resources` reports their
 registers, shared memory and blocks per SM.
 """
 
@@ -39,7 +43,9 @@ from ..base import getenv
 from . import _kernels
 
 _NEG_INF = -1e30
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the kernels' largest head dim; past it the JAX package runs its jnp path
+# (``_use_pallas``), and so does the port its plain versions
 _MAX_HEAD_DIM = 128
 _MAX_SMEM_BYTES = 232448  # per-block dynamic shared memory on Hopper
 
@@ -83,20 +89,18 @@ def _lib():
 
 
 def _cuda_paged_decode(q, k_pool, v_pool, tables, lens, scale):
-    """Validate, then launch the Hopper kernel on the current stream."""
+    """Validate, then launch the Hopper kernel on the current stream; past
+    ``_MAX_HEAD_DIM`` run the plain version on the card instead."""
     B, H, D = q.shape
     nb, bs, KVH, Dk = k_pool.shape
     if q.dtype not in _DTYPE_CODES or k_pool.dtype != q.dtype \
             or v_pool.dtype != q.dtype:
-        raise TypeError("paged decode kernel takes float32 or bfloat16, the "
-                        f"same for q and both pools; got {q.dtype}, "
-                        f"{k_pool.dtype}, {v_pool.dtype}")
+        raise TypeError("paged decode takes float32, bfloat16 or float16, "
+                        "the same for q and both pools; got "
+                        f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
     if Dk != D or tuple(v_pool.shape) != tuple(k_pool.shape):
         raise ValueError(f"pool shapes {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
-    if D > _MAX_HEAD_DIM:
-        raise ValueError(f"paged decode kernel takes head_dim <= "
-                         f"{_MAX_HEAD_DIM}; got {D}")
     if tables.dim() != 2 or tables.shape[0] != B or tuple(lens.shape) != (B,):
         raise ValueError(f"tables {tuple(tables.shape)} / lens "
                          f"{tuple(lens.shape)} do not match batch {B}")
@@ -110,6 +114,9 @@ def _cuda_paged_decode(q, k_pool, v_pool, tables, lens, scale):
         raise ValueError("paged decode kernel needs contiguous q and pools")
     tables = tables.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()
+    if D > _MAX_HEAD_DIM:
+        _kernels.LAUNCHES["paged_decode_plain"] += 1
+        return _torch_paged_decode(q, k_pool, v_pool, tables, lens, scale)
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -140,8 +147,9 @@ def paged_decode_attention(query, k_pool, v_pool, block_tables,
     with ``context_lens == 0`` return zeros.
 
     CUDA tensors go through the Hopper kernel (counted in
-    ``_kernels.LAUNCHES["paged_decode"]``); CPU tensors through the
-    plain version."""
+    ``_kernels.LAUNCHES["paged_decode"]``), or past head_dim 128 through
+    the plain version on the card (``["paged_decode_plain"]``), as the JAX
+    package routes them; CPU tensors through the plain version."""
     if scale is None:
         scale = 1.0 / (query.shape[-1] ** 0.5)
     if query.shape[1] % k_pool.shape[2] != 0:
@@ -250,12 +258,15 @@ def _flash_lib(stem):
     # B, H, KVH, T, S, D, causal, window; scale; strides; stream
     dims = [i32] * 8 + [ctypes.c_float, ptr, ptr]
     if stem == "flash_fwd":
-        fns = {"mxtpu_flash_fwd": [i32] + [ptr] * 5 + dims}
+        fns = {"mxtpu_flash_fwd": [i32] + [ptr] * 5 + dims,
+               "mxtpu_flash_fwd_resources": [i32] * 2 + [ptr]}
     elif stem == "flash_bwd_fused":
-        fns = {"mxtpu_flash_bwd_fused": [i32] + [ptr] * 9 + dims}
+        fns = {"mxtpu_flash_bwd_fused": [i32] + [ptr] * 9 + dims,
+               "mxtpu_flash_bwd_resources": [i32] * 3 + [ptr]}
     else:
-        fns = {"mxtpu_flash_bwd_dq": [i32] + [ptr] * 7 + dims,
-               "mxtpu_flash_bwd_dkv": [i32] + [ptr] * 8 + dims}
+        fns = {"mxtpu_flash_bwd_dq": [i32] + [ptr] * 8 + dims,
+               "mxtpu_flash_bwd_dkv": [i32] + [ptr] * 8 + dims,
+               "mxtpu_flash_bwd_resources": [i32] * 3 + [ptr]}
     for name, argtypes in fns.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -264,37 +275,38 @@ def _flash_lib(stem):
     return lib
 
 
-def _bwd_kernel_resources(kernel, dtype, head_dim):
-    """What the runtime reports for a backward kernel (``"dq"``,
-    ``"dkv"`` or ``"fused"``) at a storage type and a head-dim bucket
-    (32, 64 or 128): registers per thread, static and dynamic shared bytes
-    per block, blocks per SM and local (spill) bytes per thread."""
-    stem = "flash_bwd_fused" if kernel == "fused" else "flash_bwd"
-    lib = _flash_lib(stem)
-    fn = lib.mxtpu_flash_bwd_resources
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    out = (ctypes.c_int * 5)()
-    err = fn({"dq": 0, "dkv": 1, "fused": 0}[kernel], _DTYPE_CODES[dtype],
-             head_dim, out)
-    _kernels.check(lib, err, f"flash_bwd_{kernel} resources")
+def _kernel_resources(kernel, dtype, head_dim):
+    """What the runtime reports for a flash kernel (``"fwd"``, ``"dq"``,
+    ``"dkv"`` or ``"fused"``) at a storage type and a head-dim bucket (32,
+    64 or 128): registers per thread, static and dynamic shared bytes per
+    block, blocks per SM, local (spill) bytes per thread and threads per
+    block."""
+    out = (ctypes.c_int * 6)()
+    if kernel == "fwd":
+        lib = _flash_lib("flash_fwd")
+        err = lib.mxtpu_flash_fwd_resources(_DTYPE_CODES[dtype], head_dim,
+                                            out)
+    else:
+        lib = _flash_lib("flash_bwd_fused" if kernel == "fused"
+                         else "flash_bwd")
+        err = lib.mxtpu_flash_bwd_resources(
+            {"dq": 0, "dkv": 1, "fused": 0}[kernel], _DTYPE_CODES[dtype],
+            head_dim, out)
+    _kernels.check(lib, err, f"flash_{kernel} resources")
     return dict(zip(("regs", "static_smem", "dynamic_smem", "blocks_per_sm",
-                     "local_bytes"), out))
+                     "local_bytes", "threads"), out))
 
 
-def _kernel_operands(q, k, v, g=None):
-    """Check what the kernels take and return the tensors (last dim made
-    contiguous) with their (batch, head, row) element strides, 12 int64s
-    (dO's three are zeros when there is no dO)."""
+def _check_operands(q, k, v, g=None):
+    """Refuse what neither route takes: q, k, v (and dO) in mixed or
+    unsupported types, shapes that do not match, tensors on other
+    devices."""
     B, H, T, D = q.shape
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype or (g is not None and g.dtype != q.dtype):
-        raise TypeError("flash attention kernels take float32 or bfloat16, "
-                        f"the same for q, k, v (and dO); got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
-    if D > _MAX_HEAD_DIM:
-        raise ValueError(f"flash attention kernels take head_dim <= "
-                         f"{_MAX_HEAD_DIM}; got {D}")
+        raise TypeError("flash attention takes float32, bfloat16 or "
+                        "float16, the same for q, k, v (and dO); got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D \
             or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
@@ -302,6 +314,16 @@ def _kernel_operands(q, k, v, g=None):
     for name, t in (("key", k), ("value", v), ("grad", g)):
         if t is not None and t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, query on {q.device}")
+
+
+def _kernel_operands(q, k, v, g=None):
+    """Check what the kernels take and return the tensors (last dim made
+    contiguous) with their (batch, head, row) element strides, 12 int64s
+    (dO's three are zeros when there is no dO)."""
+    _check_operands(q, k, v, g)
+    if q.shape[-1] > _MAX_HEAD_DIM:
+        raise ValueError(f"flash attention kernels take head_dim <= "
+                         f"{_MAX_HEAD_DIM}; got {q.shape[-1]}")
     ts = [t if t.stride(-1) == 1 else t.contiguous()
           for t in (q, k, v, g if g is not None else q)]
     strides = [s for t in ts for s in t.stride()[:3]]
@@ -332,36 +354,42 @@ def _cuda_flash_fwd(q, k, v, scale, causal, window):
 
 
 def _bwd_operands(q, k, v, out, lse, g):
-    """Checked backward operands, plus delta = rowsum(dO * O) in fp32 (one
-    torch expression, as in the JAX package) and the strides."""
+    """Checked backward operands (O contiguous in q's type and shape) and
+    the strides."""
     (q, k, v, g), strides = _kernel_operands(q, k, v, g)
-    delta = (g.float() * out.float()).sum(dim=-1)
-    return q, k, v, g, lse.contiguous(), delta, strides
+    if out.dtype != q.dtype or tuple(out.shape) != tuple(q.shape) \
+            or out.device != q.device:
+        raise ValueError(f"O {out.dtype} {tuple(out.shape)} on "
+                         f"{out.device} does not match q")
+    return q, k, v, g, out.contiguous(), lse.contiguous(), strides
 
 
-def _launch_flash_bwd(kernel, q, k, v, g, lse, delta, strides, outs, scale,
-                      causal, window):
+def _launch_flash_bwd(kernel, q, k, v, g, out, lse, delta, strides, outs,
+                      scale, causal, window):
     """Launch one kernel of K2 on the current stream: ``"dq"`` writes
-    ``outs = (dq,)``, ``"dkv"`` writes ``outs = (dk, dv)``."""
+    ``outs = (dq,)`` and ``delta`` = rowsum(dO * O) (fp32, (B, H, T)) from
+    O; ``"dkv"`` reads that ``delta`` and writes ``outs = (dk, dv)``."""
     B, H, T, D = q.shape
     KVH, S = k.shape[1], k.shape[2]
     lib = _flash_lib("flash_bwd")
-    fn = lib.mxtpu_flash_bwd_dq if kernel == "dq" else lib.mxtpu_flash_bwd_dkv
+    if kernel == "dq":
+        fn, ptrs = lib.mxtpu_flash_bwd_dq, (out.data_ptr(), lse.data_ptr())
+    else:
+        fn, ptrs = lib.mxtpu_flash_bwd_dkv, (lse.data_ptr(),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), *(o.data_ptr() for o in outs), B, H, KVH,
-                 T, S, D, int(causal), int(window), float(scale), strides,
-                 stream)
+                 v.data_ptr(), g.data_ptr(), *ptrs, delta.data_ptr(),
+                 *(o.data_ptr() for o in outs), B, H, KVH, T, S, D,
+                 int(causal), int(window), float(scale), strides, stream)
     _kernels.check(lib, err, f"flash_bwd_{kernel} launch")
     _kernels.LAUNCHES[f"flash_bwd_{kernel}"] += 1
 
 
 def _cuda_flash_bwd(q, k, v, out, lse, g, scale, causal, window):
-    """Launch K2 (the dq kernel, then the dk/dv kernel) on the current
-    stream."""
-    q, k, v, g, lse, delta, strides = _bwd_operands(q, k, v, out, lse, g)
+    """Launch K2 on the current stream: the dq kernel (which also forms
+    delta), then the dk/dv kernel."""
+    q, k, v, g, out, lse, strides = _bwd_operands(q, k, v, out, lse, g)
     B, H, T, D = q.shape
     KVH, S = k.shape[1], k.shape[2]
     dq = torch.empty((B, H, T, D), dtype=q.dtype, device=q.device)
@@ -369,7 +397,8 @@ def _cuda_flash_bwd(q, k, v, out, lse, g, scale, causal, window):
     dv = torch.empty_like(dk)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    args = (q, k, v, g, lse, delta, strides)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    args = (q, k, v, g, out, lse, delta, strides)
     _launch_flash_bwd("dq", *args, (dq,), scale, causal, window)
     _launch_flash_bwd("dkv", *args, (dk, dv), scale, causal, window)
     return dq, dk, dv
@@ -378,8 +407,10 @@ def _cuda_flash_bwd(q, k, v, out, lse, g, scale, causal, window):
 def _cuda_flash_bwd_fused(q, k, v, out, lse, g, scale, causal, window):
     """Launch K6 on the current stream: one kernel emits dk and dv in the
     storage type and adds dq into a zeroed fp32 workspace (atomics, so dq
-    is not bit-for-bit repeatable), rounded afterwards for bf16."""
-    q, k, v, g, lse, delta, strides = _bwd_operands(q, k, v, out, lse, g)
+    is not bit-for-bit repeatable), rounded afterwards for a 16-bit type.
+    delta = rowsum(dO * O) in fp32 is one torch expression beforehand, as
+    in the JAX package."""
+    q, k, v, g, out, lse, strides = _bwd_operands(q, k, v, out, lse, g)
     B, H, T, D = q.shape
     KVH, S = k.shape[1], k.shape[2]
     dq = torch.zeros((B, H, T, D), dtype=torch.float32, device=q.device)
@@ -387,6 +418,7 @@ def _cuda_flash_bwd_fused(q, k, v, out, lse, g, scale, causal, window):
     dv = torch.empty_like(dk)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.to(q.dtype), dk.zero_(), dv.zero_()
+    delta = (g.float() * out.float()).sum(dim=-1)
     lib = _flash_lib("flash_bwd_fused")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -398,6 +430,22 @@ def _cuda_flash_bwd_fused(q, k, v, out, lse, g, scale, causal, window):
     _kernels.check(lib, err, "flash_bwd_fused launch")
     _kernels.LAUNCHES["flash_bwd_fused"] += 1
     return dq.to(q.dtype), dk, dv
+
+
+def _plain_flash_fwd_on_cuda(q, k, v, scale, causal, window):
+    """The plain forward on CUDA tensors, where the JAX package runs its
+    jnp path (head_dim > 128); counted as ``flash_plain_fwd``."""
+    _check_operands(q, k, v)
+    _kernels.LAUNCHES["flash_plain_fwd"] += 1
+    return _torch_flash_fwd(q, k, v, scale, causal, window)
+
+
+def _plain_flash_bwd_on_cuda(q, k, v, out, lse, g, scale, causal, window):
+    """The plain backward on CUDA tensors (head_dim > 128); counted as
+    ``flash_plain_bwd``."""
+    _check_operands(q, k, v, g)
+    _kernels.LAUNCHES["flash_plain_bwd"] += 1
+    return _torch_flash_bwd(q, k, v, out, lse, g, scale, causal, window)
 
 
 # The JAX package's cap on its fused backward (``_PALLAS_BWD_MAX_T``), kept
@@ -419,13 +467,16 @@ def _bwd_kernel_for(T, fused):
 
 class _FlashAttention(torch.autograd.Function):
     """Forward K1 on CUDA tensors; backward K2, or K6 where
-    :func:`_bwd_kernel_for` says so; the plain versions on CPU tensors.
-    Saves q, k, v, O and the fp32 LSE."""
+    :func:`_bwd_kernel_for` says so; the plain versions on CPU tensors
+    and, by shape, on CUDA tensors past ``_MAX_HEAD_DIM``. Saves q, k, v,
+    O and the fp32 LSE."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window):
         if q.device.type == "cuda":
-            out, lse = _cuda_flash_fwd(q, k, v, scale, causal, window)
+            fwd = _cuda_flash_fwd if q.shape[-1] <= _MAX_HEAD_DIM \
+                else _plain_flash_fwd_on_cuda
+            out, lse = fwd(q, k, v, scale, causal, window)
         elif q.device.type == "cpu":
             out, lse = _torch_flash_fwd(q, k, v, scale, causal, window)
         else:
@@ -438,16 +489,17 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        if q.device.type == "cuda":
+        if q.device.type != "cuda":
+            bwd = _torch_flash_bwd
+        elif q.shape[-1] > _MAX_HEAD_DIM:
+            bwd = _plain_flash_bwd_on_cuda
+        else:
             # read at backward time, as the JAX package does
             fused = getenv("MXTPU_FLASH_BWD", "split") == "fused"
             bwd = _cuda_flash_bwd_fused \
                 if _bwd_kernel_for(q.shape[2], fused) == "fused" \
                 else _cuda_flash_bwd
-            grads = bwd(q, k, v, out, lse, g, *ctx.args)
-        else:
-            grads = _torch_flash_bwd(q, k, v, out, lse, g, *ctx.args)
-        return (*grads, None, None, None)
+        return (*bwd(q, k, v, out, lse, g, *ctx.args), None, None, None)
 
 
 def flash_attention(query, key, value, scale=None, causal=False,
@@ -461,15 +513,17 @@ def flash_attention(query, key, value, scale=None, causal=False,
     ``t + S - T``); ``window > 0`` turns causal on and lets each position
     see only the last ``window`` positions, and needs ``T == S``.
 
-    CUDA tensors run the Hopper kernels (float32 or bfloat16, ``D <=
-    128``; anything else raises), counted in ``_kernels.LAUNCHES``
-    ``["flash_fwd"]``, then ``["flash_bwd_dq"]`` and ``["flash_bwd_dkv"]``
-    (the split backward, the default) or ``["flash_bwd_fused"]``
-    (``MXTPU_FLASH_BWD=fused`` and ``T <= 8192``, read when the backward
-    runs); CPU tensors run the plain versions. ``block_size`` and
-    ``native_gqa`` are accepted for parity with the JAX package: the
-    kernels pick their own tiles and always read grouped kv heads
-    unrepeated, so both values compute the same function."""
+    CUDA tensors (float32, bfloat16 or float16) run the Hopper kernels,
+    counted in ``_kernels.LAUNCHES["flash_fwd"]``, then
+    ``["flash_bwd_dq"]`` and ``["flash_bwd_dkv"]`` (the split backward,
+    the default) or ``["flash_bwd_fused"]`` (``MXTPU_FLASH_BWD=fused`` and
+    ``T <= 8192``, read when the backward runs); with ``D > 128`` they run
+    the plain versions on the card, as the JAX package runs its jnp path
+    there, counted in ``["flash_plain_fwd"]`` and ``["flash_plain_bwd"]``.
+    CPU tensors run the plain versions. ``block_size`` and ``native_gqa``
+    are accepted for parity with the JAX package: the kernels pick their
+    own tiles and always read grouped kv heads unrepeated, so both values
+    compute the same function."""
     del block_size, native_gqa
     if scale is None:
         scale = 1.0 / (query.shape[-1] ** 0.5)

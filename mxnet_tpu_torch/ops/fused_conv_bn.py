@@ -18,9 +18,10 @@ forms ``dY = dy + dsum + 2 y dssq`` as it reads ``dy`` and runs the two
 products dW and dX with that correction folded in.
 
 On CUDA tensors every call launches the hand-written Hopper kernels of
-``csrc/fused_conv_bn.cu`` (any M, K, N; float32 or bfloat16): the forward
-K4 (the port of ``_fwd_kernel``), then in the backward K5's dW kernel (the
-port of ``_dw_kernel``) and dX kernel (the port of ``_dx_kernel``),
+``csrc/fused_conv_bn.cu`` (any M, K, N; float32, bfloat16 or float16):
+the forward K4 (the port of ``_fwd_kernel``), then in the backward K5's
+dW kernel (the port of ``_dw_kernel``) and dX kernel (the port of
+``_dx_kernel``),
 counted in ``_kernels.LAUNCHES["fused_fwd"]``, ``["fused_dw"]`` and
 ``["fused_dx"]`` (one count per call of a launcher, which enqueues the
 tile kernel and its fixed-order reduction). On CPU tensors they run the
@@ -37,7 +38,7 @@ import torch
 
 from . import _kernels
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 # ---------------------------------------------------------------------------
@@ -150,8 +151,9 @@ def _operands(x, w, extra=()):
         raise ValueError(f"fused matmul takes x (M, K) and w (K, N); got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
-        raise TypeError("fused conv+BN kernels take float32 or bfloat16, "
-                        f"the same for x and w; got {x.dtype}, {w.dtype}")
+        raise TypeError("fused conv+BN kernels take float32, bfloat16 or "
+                        f"float16, the same for x and w; got {x.dtype}, "
+                        f"{w.dtype}")
     M, K = x.shape
     N = w.shape[1]
     for name, t in [("w", w)] + list(extra):

@@ -6,12 +6,17 @@ and its blockwise scan backward (``jax.grad`` through the custom VJP);
 the port runs its plain versions through ``torch.autograd``. Every mode
 the kernels take is covered: dense, causal, sliding window, grouped-query
 groups 2 and 4 with ``native_gqa`` both ways, ragged T, and causal
-cross-attention with T < S.
+cross-attention with T < S; and head dims 160 and 256, past the kernels'
+128, which both packages compute with their plain versions (on a card the
+port too, counted as ``flash_plain_fwd``/``flash_plain_bwd``).
 
 Tolerance (float32): 1e-5 absolute and relative on O and the gradients.
 Both sides compute a float32 softmax over at most 40 positions and three
 float32 products per gradient; they differ only in summation order,
-which moves values of order 1 by ~1e-6.
+which moves values of order 1 by ~1e-6. float16 storage: both sides
+compute in fp32 from the same float16 inputs and round each output once
+to float16, so they may differ by one float16 step, at most 2^-10 of the
+largest |value|.
 
 The Hopper kernels run only on a card: the ``*_on_cuda`` tests skip
 without one (run them there with ``-k on_cuda``).
@@ -46,7 +51,12 @@ MODES = {
     "ragged": (1, 2, 2, 37, 37, 12, True, 0, False),
     "causal_cross": (2, 2, 2, 12, 40, 16, True, 0, False),
     "dense_cross": (2, 2, 1, 9, 31, 16, False, 0, False),
+    "causal_d160": (1, 2, 2, 20, 20, 160, True, 0, False),
+    "dense_gqa2_d256": (1, 4, 2, 16, 16, 256, False, 0, False),
 }
+# float16 storage (the JAX package sums a GQA group's dk/dv after rounding
+# each head's to float16, the port before, so GQA modes stay in float32)
+FP16_MODES = ("dense", "causal", "window", "causal_cross", "causal_d160")
 
 
 def _inputs(seed, B, H, KVH, T, S, D):
@@ -74,7 +84,8 @@ def _torch_side(q, k, v, w, causal, window, native):
     o = flash_attention(*ts, causal=causal, window=window,
                         native_gqa=native)
     o.backward(torch.from_numpy(w))
-    return [o.detach().numpy()] + [t.grad.numpy() for t in ts]
+    return [o.detach().float().numpy()] + [t.grad.float().numpy()
+                                           for t in ts]
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -88,6 +99,20 @@ def test_forward_and_grads_match_jax(mode):
         assert g.shape == x.shape and g.dtype == np.float32, name
         np.testing.assert_allclose(g, x, rtol=TOL, atol=TOL, err_msg=name)
     assert not _kernels.LAUNCHES  # CPU tensors: plain versions only
+
+
+@pytest.mark.parametrize("mode", FP16_MODES)
+def test_float16_matches_jax(mode):
+    B, H, KVH, T, S, D, causal, window, native = MODES[mode]
+    arrs = [a.astype(np.float16) for a in _inputs(0, B, H, KVH, T, S, D)]
+    _kernels.LAUNCHES.clear()
+    got = _torch_side(*arrs, causal, window, native)
+    want = _jax_side(*arrs, causal, window, native)
+    for name, g, x in zip(("out", "dq", "dk", "dv"), got, want):
+        x = x.astype(np.float32)
+        assert g.shape == x.shape, name
+        assert np.abs(g - x).max() <= 2.0 ** -10 * np.abs(x).max(), name
+    assert not _kernels.LAUNCHES
 
 
 def test_lse_and_plain_backward_match_jax_internals():
@@ -161,14 +186,15 @@ def _rel_err(got, want):
                  / want.float().abs().max().clamp_min(1e-30))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", list(CUDA_CASES))
 def test_kernels_match_plain_on_cuda(case, dtype):
     """O, LSE, dq, dk and dv of the kernels against the plain versions on
     the same CUDA tensors, relative to the largest |value|: fp32 2e-5
-    (summation order over up to 200 keys); bf16 2^-7 for O and the
-    gradients (both sides compute in fp32 and round once to bf16, so they
-    may differ by one bf16 step) and 2e-5 for the fp32 LSE."""
+    (summation order over up to 200 keys); bf16 2^-7 and fp16 2^-10 for O
+    and the gradients (both sides compute in fp32 and round once to the
+    storage type, so they may differ by one step of it) and 2e-5 for the
+    fp32 LSE."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     B, H, KVH, T, S, D, causal, window = CUDA_CASES[case]
@@ -188,7 +214,8 @@ def test_kernels_match_plain_on_cuda(case, dtype):
     _, got_lse = _cuda_flash_fwd(q, k, v, scale, causal, window)
     want = _torch_flash_bwd(q, k, v, want_o, want_lse, w, scale, causal,
                             window)
-    tol = 2e-5 if dt == torch.float32 else 2.0 ** -7
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7,
+           torch.float16: 2.0 ** -10}[dt]
     assert _rel_err(got_lse, want_lse) <= 2e-5
     for name, g, x in zip(("out", "dq", "dk", "dv"),
                           (out, qr.grad, kr.grad, vr.grad),
@@ -197,12 +224,36 @@ def test_kernels_match_plain_on_cuda(case, dtype):
         assert _rel_err(g, x) <= tol, (name, _rel_err(g, x))
 
 
-def test_kernel_refuses_what_it_cannot_take_on_cuda():
+def test_head_dim_over_128_and_float16_compute_on_cuda():
+    """On the card the port computes what the JAX package computes: head
+    dim 160 through the plain versions (chosen by shape, counted as
+    ``flash_plain_fwd``/``flash_plain_bwd``, no kernel launched), equal to
+    them; float16 through the kernels, within one float16 step (2^-10 of
+    the largest |value|) of the plain versions. Mixed types and tensors
+    on two devices are still refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    q = torch.zeros(1, 1, 4, 160, device="cuda")
-    with pytest.raises(ValueError, match="head_dim <= 128"):
-        flash_attention(q, q, q)
-    q = torch.zeros(1, 1, 4, 16, device="cuda", dtype=torch.float16)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        flash_attention(q, q, q)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_plain_fwd",
+             "flash_plain_bwd")
+    for D, dt, plain in ((160, torch.float32, True),
+                         (16, torch.float16, False)):
+        q, _, _, w = (torch.from_numpy(a).cuda().to(dt)
+                      for a in _inputs(4, 1, 1, 1, 4, 4, D))
+        leaves = [q.clone().requires_grad_() for _ in range(3)]
+        n0 = dict(_kernels.LAUNCHES)
+        out = flash_attention(*leaves)
+        out.backward(w)
+        torch.cuda.synchronize()
+        got = [_kernels.LAUNCHES[k] - n0.get(k, 0) for k in names]
+        assert got == ([0, 0, 0, 1, 1] if plain else [1, 1, 1, 0, 0]), got
+        want_o, lse = _torch_flash_fwd(q, q, q, D ** -0.5, False)
+        want = _torch_flash_bwd(q, q, q, want_o, lse, w, D ** -0.5, False)
+        tol = 0.0 if plain else 2.0 ** -10
+        for g, x in zip([out] + [t.grad for t in leaves], [want_o, *want]):
+            assert g.dtype == dt and g.shape == x.shape
+            assert _rel_err(g, x) <= tol
+    q = torch.zeros(1, 1, 4, 16, device="cuda")
+    with pytest.raises(TypeError, match="the same for q, k, v"):
+        flash_attention(q, q.half(), q)
+    with pytest.raises(ValueError, match="is on cpu"):
+        flash_attention(q, q.cpu(), q)

@@ -153,38 +153,89 @@ def test_custom_backward_matches_autodiff(mode):
         _close(a, b, tol=1e-4, what=f"grad {i}")
 
 
-@pytest.mark.parametrize("mode", list(MODES))
-def test_bf16_plain_matches_jax(mode):
-    """bfloat16 storage: y, dx and dw are rounded to bfloat16 on both
-    sides after fp32 sums in another order, so they may differ by one
-    bfloat16 step (2^-7 of the largest value); the fp32 statistics by
-    summation order only."""
+def _low_precision_vs_jax(mode, jdt, tdt, lim):
+    """K4/K5's plain versions against the JAX reference in a 16-bit
+    storage type: y, dx and dw within ``lim`` of the largest |value|, the
+    fp32 statistics within 1e-4."""
     jx, jw, js, jt, relu = _args(mode, "jax")
-    jx, jw = jx.astype(jnp.bfloat16), jw.astype(jnp.bfloat16)
+    jx, jw = jx.astype(jdt), jw.astype(jdt)
     jy, jsum, jssq = J._fused_fwd_reference(jx, jw, js, jt, relu=relu)
     tx, tw, ts, tt, _ = _args(mode, "torch")
-    tx, tw = tx.bfloat16(), tw.bfloat16()
+    tx, tw = tx.to(tdt), tw.to(tdt)
     ty, tsum, tssq = F._torch_fused_fwd(tx, tw, ts, tt, relu=relu)
-    assert ty.dtype == torch.bfloat16 and tsum.dtype == torch.float32
+    assert ty.dtype == tdt and tsum.dtype == torch.float32
 
     def rel(g, w):
         g = g.float().numpy() if isinstance(g, torch.Tensor) else g
         w = np.asarray(w, np.float32)
         return np.abs(g - w).max() / np.abs(w).max()
 
-    assert rel(ty, jy) <= 2.0 ** -7
+    assert rel(ty, jy) <= lim
     assert rel(tsum, jsum) <= 1e-4 and rel(tssq, jssq) <= 1e-4
     cts = [DATA[k] for k in ("dy", "dsum", "dssq")]
-    jct = [jnp.asarray(cts[0]).astype(jnp.bfloat16)] + \
+    jct = [jnp.asarray(cts[0]).astype(jdt)] + \
         [jnp.asarray(c) for c in cts[1:]]
-    tct = [torch.from_numpy(cts[0]).bfloat16()] + \
+    tct = [torch.from_numpy(cts[0]).to(tdt)] + \
         [torch.from_numpy(c) for c in cts[1:]]
     want = J._fused_bwd_reference(jx, jw, jy, js, jt, *jct, relu=relu)
     got = F._torch_fused_bwd(tx, tw, ty, ts, tt, *tct, relu=relu)
     for name, g, w in zip(("dx", "dw", "dscale", "dbias"), got, want):
         if w is not None:
-            lim = 2.0 ** -7 if name in ("dx", "dw") else 1e-4
-            assert rel(g, w) <= lim, name
+            assert rel(g, w) <= (lim if name in ("dx", "dw") else 1e-4), name
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_bf16_plain_matches_jax(mode):
+    """bfloat16 storage: y, dx and dw are rounded to bfloat16 on both
+    sides after fp32 sums in another order, so they may differ by one
+    bfloat16 step (2^-7 of the largest value); the fp32 statistics by
+    summation order only."""
+    _low_precision_vs_jax(mode, jnp.bfloat16, torch.bfloat16, 2.0 ** -7)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_float16_plain_matches_jax(mode):
+    """float16 storage, as bfloat16: one float16 step (2^-10 of the
+    largest value) for y, dx and dw, summation order for the fp32
+    statistics."""
+    _low_precision_vs_jax(mode, jnp.float16, torch.float16, 2.0 ** -10)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_float16_autograd_ops_match_jax(mode):
+    """``matmul_stats`` / ``scaled_matmul_stats`` in float16 through
+    autograd against the JAX package's custom_vjp operators: the outputs
+    and the gradient of x, each within one float16 step of its largest
+    |value| (2^-10; the statistics, fp32 on both sides, 1e-4)."""
+    jx, jw, js, jt, relu = _args(mode, "jax")
+    jx, jw = jx.astype(jnp.float16), jw.astype(jnp.float16)
+    if js is None:
+        jfn = lambda x, w: J.matmul_stats(x, w)  # noqa: E731
+        jargs = (jx, jw)
+    else:
+        jfn = lambda x, s, t, w: J.scaled_matmul_stats(  # noqa: E731
+            x, s, t, w, relu)
+        jargs = (jx, js, jt, jw)
+    jouts = jfn(*jargs)
+    jdx = jax.grad(lambda *a: _stat_loss(
+        [o.astype(jnp.float32) for o in jfn(*a)], "jax"))(*jargs)
+
+    tx, tw, ts, tt, _ = _args(mode, "torch")
+    tx, tw = tx.half(), tw.half()
+    targs = [a.clone().requires_grad_() for a in
+             ((tx, tw) if ts is None else (tx, ts, tt, tw))]
+    touts = F.matmul_stats(*targs) if ts is None \
+        else F.scaled_matmul_stats(*targs, relu=relu)
+    assert touts[0].dtype == torch.float16
+    tdx = torch.autograd.grad(_stat_loss([o.float() for o in touts],
+                                         "torch"), targs[0])[0]
+    assert tdx.dtype == torch.float16
+    for lim, g, w in zip((2.0 ** -10, 1e-4, 1e-4), touts, jouts):
+        w = np.asarray(w, np.float32)
+        assert np.abs(g.detach().float().numpy() - w).max() \
+            <= lim * np.abs(w).max()
+    w = np.asarray(jdx, np.float32)
+    assert np.abs(tdx.float().numpy() - w).max() <= 2.0 ** -10 * np.abs(w).max()
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -225,16 +276,17 @@ def test_stats_compose_to_batch_norm():
 # ---------------------------------------------------------------------------
 
 # kernel vs plain on the card, relative to the largest |value| of each
-# output: fp32 differs by summation order only; bf16 y, dx, dw are rounded
-# once on both sides (one bf16 step, 2^-7 of the largest value) while the
-# statistics stay fp32 (order only, 1e-4 leaves room for one flipped
-# rounding of a bf16 operand)
-CUDA_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
+# output: fp32 differs by summation order only; bf16 and fp16 y, dx, dw are
+# rounded once on both sides (one step: 2^-7 of the largest value in bf16,
+# 2^-10 in fp16) while the statistics stay fp32 (order only, 1e-4 leaves
+# room for one flipped rounding of a 16-bit operand)
+CUDA_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-4),
+            torch.float16: (2.0 ** -10, 1e-4)}
 CUDA_SHAPES = {"small": (128, 64, 32), "ragged": (1000, 72, 40),
                "odd": (1000, 37, 23), "stage4": (6272, 2048, 512)}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("shape", list(CUDA_SHAPES))
 def test_kernels_match_plain_on_cuda(shape, mode, dtype):
@@ -290,12 +342,23 @@ def test_autograd_ops_launch_kernels_on_cuda():
         assert _kernels.LAUNCHES[k] == n0.get(k, 0) + 1
 
 
-def test_kernel_refuses_what_it_cannot_take_on_cuda():
+def test_kernel_takes_float16_and_refuses_bad_shapes_on_cuda():
+    """float16 goes through K4 (the JAX package computes it too) and
+    agrees with the plain version within one float16 step; shapes that do
+    not multiply are still refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    x = torch.randn(16, 8, device="cuda", dtype=torch.float16)
-    w = torch.randn(8, 4, device="cuda", dtype=torch.float16)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        F.matmul_stats(x, w)
+    rs = np.random.RandomState(5)
+    x = torch.from_numpy(rs.randn(16, 8).astype(np.float32)).cuda().half()
+    w = torch.from_numpy(rs.randn(8, 4).astype(np.float32)).cuda().half()
+    n0 = _kernels.LAUNCHES["fused_fwd"]
+    got = F.matmul_stats(x, w)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["fused_fwd"] == n0 + 1
+    want = F._torch_fused_fwd(x, w, None, None)
+    for lim, g, r in zip((2.0 ** -10, 1e-4, 1e-4), got, want):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= lim * float(r.float().abs().max())
     with pytest.raises(ValueError, match="x .M, K. and w .K, N."):
         F.matmul_stats(x.float(), w.float().t())

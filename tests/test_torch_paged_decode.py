@@ -4,7 +4,12 @@ on the CPU), on the same numpy inputs.
 
 Tolerance (float32): 1e-5 absolute and relative. Both sides compute a
 float32 softmax over at most a few dozen positions; they differ only in
-summation order, which moves the outputs (|out| <= ~3) by ~1e-7.
+summation order, which moves the outputs (|out| <= ~3) by ~1e-7. float16
+storage: both compute in fp32 from the same float16 values and round the
+output once, so they may differ by one float16 step, 2^-10 of the largest
+|value|. Head dims 160 and 256 lie past the kernel's 128: both packages
+compute them with their plain versions (on a card the port too, counted
+as ``paged_decode_plain``).
 
 The Hopper kernel itself runs only on a card: the ``*_on_cuda`` tests
 skip without one (run them there with ``-k on_cuda``).
@@ -37,11 +42,11 @@ LENS = {
 }
 
 
-def _inputs(seed, h, kvh, lens, shuffled=True):
+def _inputs(seed, h, kvh, lens, shuffled=True, d=D):
     rs = np.random.RandomState(seed)
-    q = rs.randn(B, h, D).astype(np.float32)
-    kp = rs.randn(NUM_BLOCKS, BS, kvh, D).astype(np.float32)
-    vp = rs.randn(NUM_BLOCKS, BS, kvh, D).astype(np.float32)
+    q = rs.randn(B, h, d).astype(np.float32)
+    kp = rs.randn(NUM_BLOCKS, BS, kvh, d).astype(np.float32)
+    vp = rs.randn(NUM_BLOCKS, BS, kvh, d).astype(np.float32)
     ids = np.arange(1, B * MAX_BLOCKS + 1)
     if shuffled:  # tables scattered across the pool, never block 0
         ids = rs.permutation(np.arange(1, NUM_BLOCKS))[:B * MAX_BLOCKS]
@@ -67,6 +72,28 @@ def test_matches_jax(h, kvh, lens):
         if n == 0:  # empty slots answer zeros, not uniform-weight noise
             assert not got[slot].any()
     assert _kernels.LAUNCHES["paged_decode"] == 0  # CPU: plain version
+
+
+@pytest.mark.parametrize("head_dim", [160, 256])
+def test_head_dim_over_128_matches_jax(head_dim):
+    _kernels.LAUNCHES.clear()
+    got, want = _both(*_inputs(5, 8, 2, LENS["ctx0"], d=head_dim))
+    assert got.shape == (B, 8, head_dim)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    assert not _kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("h,kvh", HEADS, ids=[f"g{h // k}" for h, k in HEADS])
+def test_float16_matches_jax(h, kvh):
+    q, kp, vp, tables, lens = _inputs(6, h, kvh, LENS["ragged"])
+    q, kp, vp = (a.astype(np.float16) for a in (q, kp, vp))
+    want = np.asarray(jax_paged_decode(q, kp, vp, tables, lens),
+                      np.float32)
+    got = paged_decode_attention(*(torch.from_numpy(a) for a in
+                                   (q, kp, vp, tables, lens)))
+    assert got.dtype == torch.float16
+    assert np.abs(got.float().numpy() - want).max() \
+        <= 2.0 ** -10 * np.abs(want).max()
 
 
 def test_unshuffled_tables_and_explicit_scale():
@@ -95,17 +122,19 @@ def test_heads_must_divide():
                                torch.from_numpy(lens))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("h,kvh", HEADS, ids=[f"g{h // k}" for h, k in HEADS])
 def test_kernel_matches_plain_on_cuda(h, kvh, dtype):
     """On the card: the Hopper kernel against the plain version on the
-    same CUDA tensors. fp32: 1e-5 (summation order). bf16: both read the
-    same bf16 values and compute in fp32, then round once to bf16, so
-    they may differ by one bf16 step of the output: 1e-2 abs + rel."""
+    same CUDA tensors. fp32: 1e-5 (summation order). bf16 and fp16: both
+    read the same 16-bit values and compute in fp32, then round once to
+    the storage type, so they may differ by one step of it in the output:
+    1e-2 abs + rel in bf16, 2^-10 in fp16."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dt = getattr(torch, dtype)
-    tol = TOL if dt == torch.float32 else 1e-2
+    tol = {torch.float32: TOL, torch.bfloat16: 1e-2,
+           torch.float16: 2.0 ** -10}[dt]
     for lens in LENS.values():
         args = [torch.from_numpy(a).cuda()
                 for a in _inputs(3, h, kvh, lens)]
@@ -117,3 +146,21 @@ def test_kernel_matches_plain_on_cuda(h, kvh, dtype):
         want = _torch_paged_decode(*args, 1.0 / D ** 0.5)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+def test_head_dim_over_128_computes_on_cuda():
+    """On the card, head dim 160 runs the plain version (chosen by shape,
+    counted as ``paged_decode_plain``, no kernel launched), as the JAX
+    package runs its jnp path there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = [torch.from_numpy(a).cuda()
+            for a in _inputs(7, 8, 2, LENS["ctx0"], d=160)]
+    n0 = dict(_kernels.LAUNCHES)
+    got = paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["paged_decode_plain"] \
+        == n0.get("paged_decode_plain", 0) + 1
+    assert _kernels.LAUNCHES["paged_decode"] == n0.get("paged_decode", 0)
+    want = _torch_paged_decode(*args, 160 ** -0.5)
+    assert torch.equal(got, want)
