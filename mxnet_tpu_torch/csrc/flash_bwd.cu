@@ -175,7 +175,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, Dims d) {
   const int nbh = d.B * d.KVH;
-  bwd_kv_block<T, kD, false>(q, k, v, g, lse, delta, nullptr, dk, dv, d,
+  bwd_kv_block<T, kD, false>(q, k, v, g, lse, delta, nullptr, nullptr, dk,
+                             dv, d,
                              (int)(blockIdx.x / nbh),
                              (int)(blockIdx.x % nbh));
 }

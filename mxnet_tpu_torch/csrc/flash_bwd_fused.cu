@@ -16,28 +16,36 @@
 //
 // Design. One block of 8 warps per (64 key rows, batch * kv head), the
 // body the dk/dv kernel of flash_bwd.cu runs (flash_bwd_kv.cuh): it keeps K
-// and V in shared memory and walks, for each query head of its group in
-// turn, the query tiles that see its keys (q_tiles(): causal and window
-// tiles are skipped whole) through a two-stage cp.async ring. Per tile it
-// forms s and dp on the tensor cores, writes p and ds once to shared
-// memory, and runs the three products that consume them: dv += p^T dO and
-// dk += ds^T Q into C fragments in registers (summed over the group in a
-// fixed order, stored once), and the tile's dq contribution ds K, added
-// into a zeroed fp32 (B, H, T, D) workspace the wrapper allocates. Each
-// lane trades two values with its neighbour so that it holds four adjacent
-// dq columns and adds them with one vector reduction (atomicAdd on a
-// float4, sm_90): 64 * kD / 4 = 2,048 per tile pair at kD = 128, a
-// quarter of one per value. That workspace takes the place of
-// the TPU kernel's full-T VMEM scratch, which needs an ordered grid: here
-// the blocks that share query rows run in parallel, in no order. For
-// float32 storage the workspace is dq itself; for a 16-bit type the
-// wrapper rounds it. Blocks are numbered tile-major over a 1-D grid, key tile 0
-// first: under a causal mask it walks the most query tiles (at T = 8192,
-// 128 against the last tile's 1), so the short blocks fill the tail.
+// and V in shared memory and walks the query tiles that see its keys
+// (q_tiles(): causal and window tiles are skipped whole), from the last
+// down, every query head of its group at each, through a two-stage
+// cp.async ring. Per tile it forms s and dp on the tensor cores, writes p
+// and ds once to shared memory, and runs the three products that consume
+// them: dv += p^T dO and dk += ds^T Q into C fragments in registers (summed
+// over the walk in a fixed order, stored once), and the tile's dq
+// contribution ds K, added into a zeroed fp32 (B, H, T, D) workspace the
+// wrapper allocates. That workspace takes the place of the TPU kernel's
+// full-T VMEM scratch, which its sequential grid fills in ascending
+// key-block order; here the blocks that share query rows run in parallel.
+// For float32 storage the workspace is dq itself; for a 16-bit type the
+// wrapper rounds it. Blocks are numbered tile-major over a 1-D grid, key
+// tile 0 first: under a causal mask it walks the most query tiles (at
+// T = 8192, 128 against the last tile's 1), so the short blocks fill the
+// tail.
 //
 // Determinism. dk and dv repeat bit for bit, like every other kernel of the
-// port. dq does not: the order in which the key blocks' reductions land
-// changes from run to run, so dq moves by fp32 rounding between runs.
+// port, and so does dq: the blocks add into each query tile in ascending
+// key-tile order, the reference's order. A zeroed int32 (B * H, query
+// tiles) array the wrapper allocates counts, per query tile, the warps that
+// have added into it; a warp of key tile kt waits (an acquire load) until
+// the warps of the key tiles below kt that see the tile (its rank, from
+// q_tiles()) have counted themselves, adds its 16 rows x kD / 2 columns
+// with vector reductions (red.global.add.v4.f32), and counts itself with a
+// release reduction (add_frags_in_turn). A block only ever waits on blocks
+// of lower index, so the design relies on the card dispatching blocks in
+// index order. What the order costs is the count more than the wait: a
+// warp's release waits until its reductions are performed (PERF.md has
+// the kernel's time on an H100 before and after).
 //
 // Bound on this card: 10 * T * S' * D operations per (batch, head), S' the
 // visible keys (five products where flash_bwd.cu does 6 + 8), against
@@ -59,17 +67,17 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ g,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
-                       float* __restrict__ dq, T* __restrict__ dk,
-                       T* __restrict__ dv, Dims d) {
+                       float* __restrict__ dq, int* __restrict__ dq_turn,
+                       T* __restrict__ dk, T* __restrict__ dv, Dims d) {
   const int nbh = d.B * d.KVH;
-  bwd_kv_block<T, kD, true>(q, k, v, g, lse, delta, dq, dk, dv, d,
+  bwd_kv_block<T, kD, true>(q, k, v, g, lse, delta, dq, dq_turn, dk, dv, d,
                             (int)(blockIdx.x / nbh), (int)(blockIdx.x % nbh));
 }
 
 template <typename T, int kD>
 int launch_fused(const void* q, const void* k, const void* v, const void* g,
-                 const float* lse, const float* delta, float* dq, void* dk,
-                 void* dv, const Dims& d, cudaStream_t stream) {
+                 const float* lse, const float* delta, float* dq, int* turn,
+                 void* dk, void* dv, const Dims& d, cudaStream_t stream) {
   constexpr size_t smem = kv_smem_bytes<kD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_fused_kernel<T, kD>,
@@ -79,21 +87,24 @@ int launch_fused(const void* q, const void* k, const void* v, const void* g,
   flash_bwd_fused_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g), lse, delta, dq,
-      static_cast<T*>(dk), static_cast<T*>(dv), d);
+      turn, static_cast<T*>(dk), static_cast<T*>(dv), d);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_fused(const void* q, const void* k, const void* v,
                    const void* g, const float* lse, const float* delta,
-                   float* dq, void* dk, void* dv, const Dims& d,
+                   float* dq, int* turn, void* dk, void* dv, const Dims& d,
                    cudaStream_t s) {
   if (d.D <= 32)
-    return launch_fused<T, 32>(q, k, v, g, lse, delta, dq, dk, dv, d, s);
+    return launch_fused<T, 32>(q, k, v, g, lse, delta, dq, turn, dk, dv, d,
+                               s);
   if (d.D <= 64)
-    return launch_fused<T, 64>(q, k, v, g, lse, delta, dq, dk, dv, d, s);
+    return launch_fused<T, 64>(q, k, v, g, lse, delta, dq, turn, dk, dv, d,
+                               s);
   if (d.D <= 128)
-    return launch_fused<T, 128>(q, k, v, g, lse, delta, dq, dk, dv, d, s);
+    return launch_fused<T, 128>(q, k, v, g, lse, delta, dq, turn, dk, dv, d,
+                                s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -117,13 +128,15 @@ int resources_for(int d_bucket, int* out) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. strides: 12 element
-// strides, (batch, head, row) of q, k, v and dO. lse, delta: (B, H, T) fp32. dq: a ZEROED
-// fp32 (B, H, T, D) workspace the kernel adds into. dk and dv are
+// strides, (batch, head, row) of q, k, v and dO. lse, delta: (B, H, T) fp32.
+// dq: a ZEROED fp32 (B, H, T, D) workspace the kernel adds into; dq_turn: a
+// ZEROED int32 (B * H, ceil(T / 64)) array of turns. dk and dv are
 // (B, KVH, S, D) in the storage type, contiguous, summed over each kv
 // head's group of query heads. Returns cudaGetLastError() after the launch.
 int mxtpu_flash_bwd_fused(int dtype, const void* q, const void* k,
                           const void* v, const void* g, const void* lse,
-                          const void* delta, void* dq, void* dk, void* dv,
+                          const void* delta, void* dq, void* dq_turn,
+                          void* dk, void* dv,
                           int B, int H, int KVH, int T, int S, int D,
                           int causal, int window, float scale,
                           const long long* strides, void* stream) {
@@ -133,8 +146,9 @@ int mxtpu_flash_bwd_fused(int dtype, const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   float* dqf = static_cast<float*>(dq);
-  MXTPU_FLASH_DISPATCH(dispatch_fused, q, k, v, g, l, dl, dqf, dk, dv, d,
-                       s);
+  int* turn = static_cast<int*>(dq_turn);
+  MXTPU_FLASH_DISPATCH(dispatch_fused, q, k, v, g, l, dl, dqf, turn, dk, dv,
+                       d, s);
 }
 
 // kernel: 0, the one kernel; dtype as above; d_bucket: 32, 64 or 128.

@@ -1,12 +1,14 @@
 // The body of the backward kernels that own a tile of 64 key rows: the
 // dk/dv kernel of the split backward (K2, flash_bwd.cu) and the fused
 // backward (K6, flash_bwd_fused.cu), which also adds each tile's dq
-// contribution into an fp32 workspace; and the pieces K2's dq kernel
-// shares with them.
+// contribution into an fp32 workspace, in ascending key-tile order; and the
+// pieces K2's dq kernel shares with them.
 //
 // A block of (64 key rows, batch * kv head) keeps K and V in shared memory
-// and walks, for each query head of its group in turn, the query tiles that
-// see its keys (q_tiles(): causal and window tiles are skipped whole). The
+// and walks the query tiles that see its keys (q_tiles(): causal and window
+// tiles are skipped whole) for each query head of its group: K2 head by
+// head, each head's tiles ascending; K6 tile by tile from the last, every
+// head of the group at each tile (see bwd_kv_block on why). The
 // walked tiles (Q, dO, LSE and delta) come through a two-stage ring of
 // cp.async copies: the next tile's copy is in flight while the current one
 // is multiplied. Per tile, 8 warps each form a 16 x 32 corner of s = Q K^T
@@ -16,8 +18,8 @@
 // fragments in registers, so the group's sum happens in a fixed order with
 // no atomics and K/V are never repeated; with kDq, also the tile's ds K for
 // its 16 query rows x kD / 2 dims, added into dq rows that other blocks add
-// into too, four adjacent columns per vector reduction: 64 * kD / 4 of
-// them per tile pair.
+// into too, four adjacent columns per vector reduction, when the warp's
+// turn comes (add_frags_in_turn).
 //
 // Shared memory, fp32: K, V, two stages of Q and dO (64 x kD each), p and
 // ds (64 x 64 each), two stages of LSE and delta: 230,400 bytes at
@@ -151,15 +153,54 @@ __device__ __forceinline__ void pd_b_mma(float (&acc)[kN][4],
   }
 }
 
+// The rank of key tile kt among the key tiles whose blocks add into query
+// tile qt, from the q_tiles() arithmetic the walk itself uses. For
+// kt' <= kt the range q_tiles(kt') starts at or before q_tiles(kt)'s (its
+// first row only grows with the key column) and, with kt walking qt, ends
+// no earlier as kt' grows, so the key tiles that see qt below kt are the
+// contiguous run [first, kt): a binary search for first.
+__device__ __forceinline__ int dq_rank(const Dims& d, int kt, int qt) {
+  int a = 0, b = kt;
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    int lo, hi;
+    q_tiles(d, mid * kBK, min(mid * kBK + kBK, d.S), &lo, &hi);
+    if (hi > qt)
+      b = mid;
+    else
+      a = mid + 1;
+  }
+  return kt - a;
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
 // Add C fragments acc (rows r0 + g8 (+ 8), columns nd + 8 j + 2 tq (+ 1))
-// into the fp32 (rows_total, D) workspace dq. Lanes t and t ^ 1 trade two
-// values so that each holds four adjacent columns of one row, added by one
-// vector reduction (red.global.add.v4.f32, sm_90) when D % 4 == 0, else
-// one scalar reduction per value.
+// into the fp32 (rows_total, D) workspace dq once it is this warp's turn:
+// *turn counts the warps (kThreads / 32 a block) that have added into this
+// query tile, so the warp waits for rank blocks' worth (an acquire load),
+// adds, and counts itself with a release reduction, which makes its adds
+// visible first. Lanes t and t ^ 1 trade two values so that each holds four
+// adjacent columns of one row, added by one vector reduction
+// (red.global.add.v4.f32, sm_90) when D % 4 == 0, else one scalar reduction
+// per value.
 template <int kN>
-__device__ __forceinline__ void add_frags(float* dq, const float (&acc)[kN][4],
-                                          int r0, int rows_total, int D,
-                                          int nd, int g8, int tq) {
+__device__ __forceinline__ void add_frags_in_turn(
+    float* dq, const float (&acc)[kN][4], int r0, int rows_total, int D,
+    int nd, int g8, int tq, int* turn, int rank) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0 && rank > 0) {
+    const int target = rank * (kThreads / 32);
+    while (load_acquire(turn) < target) __nanosleep(32);
+  }
+  __syncwarp();
   const bool odd = tq & 1;
   const int row = r0 + g8 + (odd ? 8 : 0);
 #pragma unroll
@@ -182,18 +223,36 @@ __device__ __forceinline__ void add_frags(float* dq, const float (&acc)[kN][4],
       if (c + 3 < D) atomicAdd(out + 3, x.w);
     }
   }
+  // the lanes' adds come before lane 0's release in causality order
+  __syncwarp();
+  if (lane == 0)
+    asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(turn)
+                 : "memory");
 }
 
-// dq: a zeroed fp32 (B, H, T, D) workspace when kDq, unused otherwise; dk and
-// dv: (B, KVH, S, D) in the storage type. The block's key tile is kt, its
-// batch * kv head bkvh.
+// dq: a zeroed fp32 (B, H, T, D) workspace when kDq, unused otherwise;
+// dq_turn: a zeroed int32 (B * H, query tiles) count of the warps that have
+// added into each query tile, when kDq; dk and dv: (B, KVH, S, D) in the
+// storage type. The block's key tile is kt, its batch * kv head bkvh.
+//
+// With kDq the blocks of one batch * kv head add into each query tile in
+// ascending key-tile order, as the reference's sequential grid does, so dq
+// repeats bit for bit. A block waits only on blocks of lower key tiles,
+// which have lower indices in the tile-major grid: this relies on the card
+// dispatching blocks in index order, so that every block waited on is
+// resident or done. And the walk makes the waits short: every block goes
+// from the last query tile down, all heads of the group at each tile, so
+// a tile it shares with the block of the key tile below comes at the same
+// step of both walks (both end at the last query tile; a window only drops
+// tiles from the top of the lower block's walk), and a block lags the one
+// below it by one add rather than by whole tiles.
 template <typename T, int kD, bool kDq>
 __device__ __forceinline__ void bwd_kv_block(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ g, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq,
-    T* __restrict__ dk, T* __restrict__ dv, const Dims& d, int kt,
-    int bkvh) {
+    int* __restrict__ dq_turn, T* __restrict__ dk, T* __restrict__ dv,
+    const Dims& d, int kt, int bkvh) {
   constexpr int kN = kD / 16;  // 8-dim fragments in a warp's kD / 2 dims
   constexpr bool kSmall = sizeof(T) == 4;  // 16-bit storage is exact in TF32
   extern __shared__ __align__(16) float smem[];
@@ -224,11 +283,22 @@ __device__ __forceinline__ void bwd_kv_block(
   const int per = hi - lo;
   const int n = group * per;
 
-  // walked tile it (query head hg of the group, query tile lo + ...) into
-  // ring stage st
+  // walked tile it: query head hg of the group and query tile qt
+  auto tile_of = [&](int it, int* hg, int* qt) {
+    if constexpr (kDq) {
+      const int i = it / group;
+      *hg = it - i * group;
+      *qt = hi - 1 - i;
+    } else {
+      *hg = it / per;
+      *qt = lo + it - *hg * per;
+    }
+  };
+  // walked tile it into ring stage st
   auto issue = [&](int it, int st) {
-    const int hg = it / per;
-    const int q0 = (lo + it - hg * per) * kBQ;
+    int hg, qt;
+    tile_of(it, &hg, &qt);
+    const int q0 = qt * kBQ;
     const int h = kvh * group + hg;
     const long long bh = (long long)b * d.H + h;
     float* q_s = ring + 2 * st * kBQ * kD;
@@ -261,8 +331,9 @@ __device__ __forceinline__ void bwd_kv_block(
     if (it + 1 < n) issue(it + 1, st ^ 1);
     cp_async_commit();
 
-    const int hg = it / per;
-    const int q0 = (lo + it - hg * per) * kBQ;
+    int hg, qt;
+    tile_of(it, &hg, &qt);
+    const int q0 = qt * kBQ;
     const float* q_s = ring + 2 * st * kBQ * kD;
     const float* g_s = q_s + kBQ * kD;
     const float* r_s = rows_t + 2 * st * kBQ;
@@ -292,7 +363,10 @@ __device__ __forceinline__ void bwd_kv_block(
       // dq[rows] += ds K: the warp's query rows m0.., dims nd..
       pd_b_mma<kD, kN, kSmall, false>(acc, ds_t, k_t, m0, nd, g8, tq);
       const long long bh = (long long)b * d.H + kvh * group + hg;
-      add_frags<kN>(dq + bh * d.T * d.D, acc, q0 + m0, d.T, d.D, nd, g8, tq);
+      const int n_qt = (d.T + kBQ - 1) / kBQ;
+      add_frags_in_turn<kN>(dq + bh * d.T * d.D, acc, q0 + m0, d.T, d.D, nd,
+                            g8, tq, dq_turn + bh * n_qt + qt,
+                            dq_rank(d, kt, qt));
     }
   }
   cp_async_wait_all();

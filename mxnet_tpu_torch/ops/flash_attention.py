@@ -22,8 +22,9 @@ fails to build or launch raises; nothing falls back.
   versions are :func:`_torch_flash_fwd` (the port of ``_jnp_flash_fwd``)
   and :func:`_torch_flash_bwd` (the port of the blockwise scan backward
   in ``_flash_bwd_rule``, the plain version of both backwards).
-- :func:`paged_decode_attention` launches ``csrc/paged_decode.cu`` (the
-  port of ``_paged_decode_kernel``); its plain version is
+- :func:`paged_decode_attention` launches the two kernels of
+  ``csrc/paged_decode.cu`` (the port of ``_paged_decode_kernel``, split
+  across the context, then combined in a fixed order); its plain version is
   :func:`_torch_paged_decode` (the port of ``_jnp_paged_decode``).
 
 Each kernel's bound on an H100 SXM, and what its design does about it,
@@ -36,6 +37,7 @@ registers, shared memory and blocks per SM.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,7 +49,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the kernels' largest head dim; past it the JAX package runs its jnp path
 # (``_use_pallas``), and so does the port its plain versions
 _MAX_HEAD_DIM = 128
-_MAX_SMEM_BYTES = 232448  # per-block dynamic shared memory on Hopper
+# query rows (and key rows) of a flash kernel's tile (``kBQ``, ``kBK``)
+_FLASH_TILE = 64
 
 
 def _torch_paged_decode(q, k_pool, v_pool, tables, lens, scale):
@@ -76,21 +79,42 @@ def _torch_paged_decode(q, k_pool, v_pool, tables, lens, scale):
 def _lib():
     lib = _kernels.library("paged_decode")
     if not getattr(lib, "_mxtpu_typed", False):
-        ptr = ctypes.c_void_p
-        lib.mxtpu_paged_decode.restype = ctypes.c_int
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.mxtpu_paged_decode.restype = i32
         lib.mxtpu_paged_decode.argtypes = (
-            [ctypes.c_int] + [ptr] * 6 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ptr])
+            [i32] + [ptr] * 7 + [i32] * 7 + [ctypes.c_float, ptr])
         lib.mxtpu_paged_decode_smem_bytes.restype = ctypes.c_size_t
-        lib.mxtpu_paged_decode_smem_bytes.argtypes = [ctypes.c_int,
-                                                      ctypes.c_int]
+        lib.mxtpu_paged_decode_smem_bytes.argtypes = [i32, i32]
         lib._mxtpu_typed = True
     return lib
 
 
+# query rows one block of K3's split kernel takes (``kBlockRows``)
+_PAGED_BLOCK_ROWS = 16
+
+
+def _paged_decode_splits(B, H, KVH, max_blocks, sm_count):
+    """How many ranges K3 splits each context into: enough blocks for two
+    on every SM, at most one per table entry. It depends on shapes and the
+    card alone, never on the context lengths, which live on the device."""
+    per_split = B * KVH * -(-(H // KVH) // _PAGED_BLOCK_ROWS)
+    return max(1, min(max_blocks, -(-2 * sm_count // per_split)))
+
+
+def _int32(t):
+    return t if t.dtype == torch.int32 and t.is_contiguous() \
+        else t.to(torch.int32).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _cuda_paged_decode(q, k_pool, v_pool, tables, lens, scale):
-    """Validate, then launch the Hopper kernel on the current stream; past
-    ``_MAX_HEAD_DIM`` run the plain version on the card instead."""
+    """Validate, then launch K3's split kernel and its combine kernel on
+    the current stream; past ``_MAX_HEAD_DIM`` run the plain version on
+    the card instead."""
     B, H, D = q.shape
     nb, bs, KVH, Dk = k_pool.shape
     if q.dtype not in _DTYPE_CODES or k_pool.dtype != q.dtype \
@@ -112,27 +136,34 @@ def _cuda_paged_decode(q, k_pool, v_pool, tables, lens, scale):
     if not (q.is_contiguous() and k_pool.is_contiguous()
             and v_pool.is_contiguous()):
         raise ValueError("paged decode kernel needs contiguous q and pools")
-    tables = tables.to(torch.int32).contiguous()
-    lens = lens.to(torch.int32).contiguous()
+    tables, lens = _int32(tables), _int32(lens)
     if D > _MAX_HEAD_DIM:
         _kernels.LAUNCHES["paged_decode_plain"] += 1
         return _torch_paged_decode(q, k_pool, v_pool, tables, lens, scale)
     out = torch.empty_like(q)
     if B == 0:
         return out
+    mb = tables.shape[1]
+    nsplit = _paged_decode_splits(B, H, KVH, mb, _sm_count(dev.index))
+    # per (sequence, query head, split): acc[D], then (m, l)
+    ws = torch.empty(B * H * nsplit * (D + 2), dtype=torch.float32,
+                     device=dev)
     lib = _lib()
-    if lib.mxtpu_paged_decode_smem_bytes(H // KVH, D) > _MAX_SMEM_BYTES:
-        raise ValueError(f"group {H // KVH} x head_dim {D} needs more shared "
-                         "memory than one Hopper block has")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mxtpu_paged_decode(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+    args = (_DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), tables.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), B, H, KVH, D, bs, tables.shape[1], float(scale),
-            stream)
+            ws.data_ptr(), out.data_ptr(), B, H, KVH, D, bs, mb, nsplit,
+            float(scale), torch.cuda.current_stream(dev).cuda_stream)
+    # the launch goes to the current device: make it q's (a decode step
+    # calls this once a layer, so the common case skips the switch)
+    if dev.index == torch.cuda.current_device():
+        err = lib.mxtpu_paged_decode(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.mxtpu_paged_decode(*args)
     _kernels.check(lib, err, "paged_decode launch")
+    # one C call launches both kernels
     _kernels.LAUNCHES["paged_decode"] += 1
+    _kernels.LAUNCHES["paged_decode_combine"] += 1
     return out
 
 
@@ -146,8 +177,9 @@ def paged_decode_attention(query, k_pool, v_pool, block_tables,
     (rows past it — padding and the null block — are masked). Sequences
     with ``context_lens == 0`` return zeros.
 
-    CUDA tensors go through the Hopper kernel (counted in
-    ``_kernels.LAUNCHES["paged_decode"]``), or past head_dim 128 through
+    CUDA tensors go through the Hopper kernels, a split kernel and a
+    combine kernel (counted in ``_kernels.LAUNCHES["paged_decode"]`` and
+    ``["paged_decode_combine"]``), or past head_dim 128 through
     the plain version on the card (``["paged_decode_plain"]``), as the JAX
     package routes them; CPU tensors through the plain version."""
     if scale is None:
@@ -261,7 +293,7 @@ def _flash_lib(stem):
         fns = {"mxtpu_flash_fwd": [i32] + [ptr] * 5 + dims,
                "mxtpu_flash_fwd_resources": [i32] * 2 + [ptr]}
     elif stem == "flash_bwd_fused":
-        fns = {"mxtpu_flash_bwd_fused": [i32] + [ptr] * 9 + dims,
+        fns = {"mxtpu_flash_bwd_fused": [i32] + [ptr] * 10 + dims,
                "mxtpu_flash_bwd_resources": [i32] * 3 + [ptr]}
     else:
         fns = {"mxtpu_flash_bwd_dq": [i32] + [ptr] * 8 + dims,
@@ -406,10 +438,11 @@ def _cuda_flash_bwd(q, k, v, out, lse, g, scale, causal, window):
 
 def _cuda_flash_bwd_fused(q, k, v, out, lse, g, scale, causal, window):
     """Launch K6 on the current stream: one kernel emits dk and dv in the
-    storage type and adds dq into a zeroed fp32 workspace (atomics, so dq
-    is not bit-for-bit repeatable), rounded afterwards for a 16-bit type.
-    delta = rowsum(dO * O) in fp32 is one torch expression beforehand, as
-    in the JAX package."""
+    storage type and adds dq into a zeroed fp32 workspace in ascending
+    key-tile order (a zeroed int32 turn per (batch * head, query tile)
+    keeps the order, so dq repeats bit for bit), rounded afterwards for a
+    16-bit type. delta = rowsum(dO * O) in fp32 is one torch expression
+    beforehand, as in the JAX package."""
     q, k, v, g, out, lse, strides = _bwd_operands(q, k, v, out, lse, g)
     B, H, T, D = q.shape
     KVH, S = k.shape[1], k.shape[2]
@@ -419,13 +452,16 @@ def _cuda_flash_bwd_fused(q, k, v, out, lse, g, scale, causal, window):
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.to(q.dtype), dk.zero_(), dv.zero_()
     delta = (g.float() * out.float()).sum(dim=-1)
+    turn = torch.zeros((B * H, -(-T // _FLASH_TILE)), dtype=torch.int32,
+                       device=q.device)
     lib = _flash_lib("flash_bwd_fused")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mxtpu_flash_bwd_fused(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, H, KVH, T, S, D, int(causal),
+            turn.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KVH, T, S,
+            D, int(causal),
             int(window), float(scale), strides, stream)
     _kernels.check(lib, err, "flash_bwd_fused launch")
     _kernels.LAUNCHES["flash_bwd_fused"] += 1

@@ -14,7 +14,8 @@
   with the reference's kernels replaced by recorders as
   ``tests/test_attention_models.py`` does and both caps set alike.
 - On a card (``*_on_cuda``, skipped here): K6 against its plain version
-  in float32 and bfloat16, and which kernels a backward launches.
+  in float32 and bfloat16, its three gradients equal over two calls, and
+  which kernels a backward launches.
 """
 
 import jax
@@ -183,8 +184,8 @@ def _rel_err(got, want):
 @pytest.mark.parametrize("case", list(CUDA_CASES))
 def test_fused_kernel_matches_plain_on_cuda(case, dtype):
     """dq, dk and dv of K6 against the plain backward on the same CUDA
-    tensors, relative to the largest |value|: fp32 2e-5 (summation order,
-    atomics included); bf16 2^-7 (both round once to bf16)."""
+    tensors, relative to the largest |value|: fp32 2e-5 (summation order);
+    bf16 2^-7 (both round once to bf16)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     *_, D, causal, window = CUDA_CASES[case]
@@ -202,6 +203,27 @@ def test_fused_kernel_matches_plain_on_cuda(case, dtype):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dt and a.shape == b.shape, name
         assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("case", ["causal_gqa4_long_d128",
+                                  "window_d128_gqa4", "causal_cross_d64"])
+def test_fused_kernel_repeats_bit_for_bit_on_cuda(case):
+    """K6's dq, dk and dv equal bit for bit over two calls on the same
+    tensors: the blocks add into dq in ascending key-tile order, whatever
+    order they run in (causal GQA, a sliding window, a bottom-right causal
+    cross shape)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    *_, D, causal, window = CUDA_CASES[case]
+    q, k, v, g = _cuda_inputs(case, torch.float32)
+    scale = D ** -0.5
+    out, lse = fa._torch_flash_fwd(q, k, v, scale, causal, window)
+    first, second = (fa._cuda_flash_bwd_fused(q, k, v, out, lse, g, scale,
+                                              causal, window)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("env,T,want", [

@@ -11,18 +11,26 @@ output once, so they may differ by one float16 step, 2^-10 of the largest
 compute them with their plain versions (on a card the port too, counted
 as ``paged_decode_plain``).
 
-The Hopper kernel itself runs only on a card: the ``*_on_cuda`` tests
-skip without one (run them there with ``-k on_cuda``).
+The Hopper kernels (K3, ``csrc/paged_decode.cu``) split each context into
+ranges, one block each, and combine the ranges' partial softmaxes in
+ascending order. ``split_model`` below is that arithmetic in plain fp32
+torch, held against the JAX package's oracle ``_jnp_paged_decode`` within
+1e-5 of the largest |value|: the sums run in another order, across ranges
+and 32-position chunks, so only rounding moves. The kernels themselves run
+only on a card: the ``*_on_cuda`` tests skip without one (run them there
+with ``-k on_cuda``).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mxnet_tpu.ops.flash_attention import _jnp_paged_decode
 from mxnet_tpu.ops.flash_attention import \
     paged_decode_attention as jax_paged_decode
 from mxnet_tpu_torch.ops import _kernels
 from mxnet_tpu_torch.ops.flash_attention import (
+    _paged_decode_splits,
     _torch_paged_decode,
     paged_decode_attention,
 )
@@ -164,3 +172,144 @@ def test_head_dim_over_128_computes_on_cuda():
     assert _kernels.LAUNCHES["paged_decode"] == n0.get("paged_decode", 0)
     want = _torch_paged_decode(*args, 160 ** -0.5)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# K3's split-and-combine arithmetic
+# ---------------------------------------------------------------------------
+
+CHUNK = 32  # context positions one ring stage of the split kernel holds
+NEG_INF = -1e30
+
+
+def split_model(q, kp, vp, tables, lens, scale, nsplit):
+    """K3's arithmetic in fp32: each context (clamped to the table's reach)
+    cut into ``nsplit`` ranges of ceil(ctx / nsplit) positions rounded up
+    to whole pool blocks; each range an online softmax over chunks of
+    CHUNK positions, giving (m, l, acc); an empty range (m, l) =
+    (-1e30, 0); then M = max m, L = sum l e^(m - M) and
+    O = sum acc e^(m - M) / max(L, 1e-30), the ranges in ascending order,
+    and zeros where the context is empty."""
+    B, H, D = q.shape
+    _, bs, kvh, _ = kp.shape
+    mb = tables.shape[1]
+    heads = torch.arange(H) // (H // kvh)
+    out = torch.zeros(B, H, D)
+    for b in range(B):
+        ctx = min(max(int(lens[b]), 0), mb * bs)
+        if ctx == 0:
+            continue
+        per = -(-(-(-ctx // nsplit)) // bs) * bs
+        pos = torch.arange(ctx)
+        rows = tables[b, pos // bs].long() * bs + pos % bs
+        k = kp.reshape(-1, kvh, D)[rows][:, heads]  # (ctx, H, D)
+        v = vp.reshape(-1, kvh, D)[rows][:, heads]
+        parts = []
+        for s in range(nsplit):
+            m, l = torch.full((H,), NEG_INF), torch.zeros(H)
+            acc = torch.zeros(H, D)
+            for c0 in range(s * per, min(ctx, s * per + per), CHUNK):
+                c1 = min(ctx, s * per + per, c0 + CHUNK)
+                sc = torch.einsum("hd,thd->ht", q[b], k[c0:c1]) * scale
+                m_new = torch.maximum(m, sc.amax(-1))
+                p = torch.exp(sc - m_new[:, None])
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[:, None] \
+                    + torch.einsum("ht,thd->hd", p, v[c0:c1])
+                m = m_new
+            parts.append((m, l, acc))
+        big_m = torch.stack([m for m, _, _ in parts]).amax(0)
+        big_l, o = torch.zeros(H), torch.zeros(H, D)
+        for m, l, acc in parts:
+            w = torch.exp(m - big_m)
+            big_l = big_l + l * w
+            o = o + acc * w[:, None]
+        out[b] = o / torch.clamp(big_l, min=1e-30)[:, None]
+    return out
+
+
+SPLIT_BS, SPLIT_MB = 4, 40  # table reach 160: several chunks a range
+
+
+def _split_lens(nsplit):
+    """Per slot: empty, one position, one pool block, an exact multiple of
+    nsplit * block_size (clamped to the table's reach when none fits), a
+    ragged length and the table's full reach."""
+    exact = 80 if 80 % (nsplit * SPLIT_BS) == 0 else nsplit * SPLIT_BS
+    return [0, 1, SPLIT_BS, exact, 23, SPLIT_MB * SPLIT_BS]
+
+
+def _split_inputs(seed, h, kvh, lens, d=D):
+    rs = np.random.RandomState(seed)
+    b = len(lens)
+    q = rs.randn(b, h, d).astype(np.float32)
+    kp = rs.randn(b * SPLIT_MB + 1, SPLIT_BS, kvh, d).astype(np.float32)
+    vp = rs.randn(b * SPLIT_MB + 1, SPLIT_BS, kvh, d).astype(np.float32)
+    tables = rs.permutation(np.arange(1, b * SPLIT_MB + 1)) \
+        .reshape(b, SPLIT_MB).astype(np.int32)
+    return q, kp, vp, tables, np.asarray(lens, np.int32)
+
+
+SPLIT_HEADS = [(2, 2), (8, 2), (16, 1)]  # groups 1, 4 and 16
+
+
+@pytest.mark.parametrize("nsplit", [1, 4, SPLIT_MB + 5],
+                         ids=["nsplit1", "nsplit4", "more_splits_than_blocks"])
+@pytest.mark.parametrize("h,kvh", SPLIT_HEADS,
+                         ids=[f"g{h // k}" for h, k in SPLIT_HEADS])
+def test_split_model_matches_jax_oracle(h, kvh, nsplit):
+    q, kp, vp, tables, lens = _split_inputs(8, h, kvh, _split_lens(nsplit))
+    scale = D ** -0.5
+    want = np.asarray(_jnp_paged_decode(q, kp, vp, tables, lens, scale))
+    got = split_model(*(torch.from_numpy(a) for a in
+                        (q, kp, vp, tables, lens)), scale, nsplit).numpy()
+    assert np.abs(got - want).max() <= TOL * np.abs(want).max()
+    assert not got[0].any() and not want[0].any()  # ctx 0: zeros
+
+
+@pytest.mark.parametrize("b,h,kvh,mb,sms,want", [
+    (8, 16, 1, 512, 132, 33),   # the serving slice: 264 blocks
+    (8, 32, 8, 512, 132, 5),    # group 4: 8 x 8 blocks a split
+    (4, 16, 1, 6, 132, 6),      # at most one split per table entry
+    (64, 64, 1, 512, 132, 2),   # group 64: 4 blocks a (sequence, kv head)
+    (300, 16, 1, 512, 132, 1),  # the grid fills the card unsplit
+])
+def test_split_count_depends_on_shapes_and_sms_only(b, h, kvh, mb, sms,
+                                                    want):
+    assert _paged_decode_splits(b, h, kvh, mb, sms) == want
+
+
+@pytest.mark.parametrize("head_dim", [D, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("h,kvh", SPLIT_HEADS,
+                         ids=[f"g{h // k}" for h, k in SPLIT_HEADS])
+def test_kernel_edge_lengths_repeat_on_cuda(h, kvh, dtype, head_dim):
+    """On the card, at the split model's edge lengths (empty, 1, one pool
+    block, a multiple of the splits, ragged, the table's reach): K3
+    against the plain version (fp32 1e-5; bf16 1e-2 and fp16 2^-10 abs +
+    rel, one rounding of the output apart), zeros where the context is
+    empty, one launch of each kernel, and two calls equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dt = getattr(torch, dtype)
+    tol = {torch.float32: TOL, torch.bfloat16: 1e-2,
+           torch.float16: 2.0 ** -10}[dt]
+    mb = SPLIT_MB
+    nsplit = _paged_decode_splits(
+        6, h, kvh, mb, torch.cuda.get_device_properties(0)
+        .multi_processor_count)
+    args = [torch.from_numpy(a).cuda() for a in _split_inputs(
+        9, h, kvh, _split_lens(nsplit), d=head_dim)]
+    args[:3] = [a.to(dt) for a in args[:3]]
+    n0 = dict(_kernels.LAUNCHES)
+    first = paged_decode_attention(*args)
+    second = paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    for name in ("paged_decode", "paged_decode_combine"):
+        assert _kernels.LAUNCHES[name] == n0.get(name, 0) + 2, name
+    want = _torch_paged_decode(*args, 1.0 / head_dim ** 0.5)
+    torch.testing.assert_close(first.float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert not first[0].any()
+    assert torch.equal(first, second)

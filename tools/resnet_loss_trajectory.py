@@ -5,7 +5,7 @@ package, from the same numpy-made weights.
 
 This is ``chip_smoke.py``'s ResNet train schedule (``resnet_train_phase``:
 batch 128 at 224 x 224 from ``numpy.random.RandomState(0)``, labels in
-[0, 10), SGD lr 0.05 momentum 0.9 wd 1e-4, fp32) run step by step, so a
+[0, 10), SGD lr 0.005 momentum 0.9 wd 1e-4, fp32) run step by step, so a
 trajectory of the JAX package (the reference) can be set beside the
 port's:
 
@@ -35,7 +35,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+SGD = {"learning_rate": 0.005, "momentum": 0.9, "wd": 1e-4}
 
 
 def batch(n, size):
@@ -46,11 +46,12 @@ def batch(n, size):
     return x, y
 
 
-def run(mx, net, x, y, steps, ctx_kw):
-    """``steps`` Gluon-loop steps through optimize_for; the mean loss of
-    each step's forward."""
+def run(mx, net, x, y, steps, ctx_kw, lr):
+    """``steps`` Gluon-loop steps through optimize_for at learning rate
+    ``lr``; the mean loss of each step's forward."""
     call = net.optimize_for(backend="tpu_fused_conv_bn")
-    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(SGD, learning_rate=lr))
     sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
     xs, ys = mx.nd.array(x, **ctx_kw), mx.nd.array(y, **ctx_kw)
     losses = []
@@ -80,7 +81,7 @@ def side_jax(args, x, y):
     np.savez(args.weights, **weights)
     if args.hybridize:
         net.hybridize()
-    return run(mx, net, x, y, args.steps, {})
+    return run(mx, net, x, y, args.steps, {}, args.lr)
 
 
 def side_torch(args, x, y):
@@ -100,7 +101,7 @@ def side_torch(args, x, y):
     net(mx.nd.array(x[:2], ctx=ctx))
     with np.load(args.weights) as f:
         load_numpy(net.collect_params(), {k: f[k] for k in f.files})
-    return run(mx, net, x, y, args.steps, {"ctx": ctx})
+    return run(mx, net, x, y, args.steps, {"ctx": ctx}, args.lr)
 
 
 def main():
@@ -109,6 +110,8 @@ def main():
     p.add_argument("--weights", required=True,
                    help="npz written by --side jax, read by --side torch")
     p.add_argument("--steps", type=int, default=12)
+    p.add_argument("--lr", type=float, default=SGD["learning_rate"],
+                   help="SGD learning rate (momentum and wd stay as in SGD)")
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--size", type=int, default=224)
     p.add_argument("--hybridize", action="store_true",
@@ -123,7 +126,7 @@ def main():
     losses = (side_jax if args.side == "jax" else side_torch)(args, x, y)
     print(json.dumps({
         "side": args.side, "device": args.device if args.side == "torch"
-        else "cpu", "batch": args.batch, "size": args.size,
+        else "cpu", "lr": args.lr, "batch": args.batch, "size": args.size,
         "losses": losses, "seconds": round(time.perf_counter() - t0, 1),
         "peak_rss_gb": round(resource.getrusage(
             resource.RUSAGE_SELF).ru_maxrss / 2 ** 20, 2)}))
