@@ -10,10 +10,11 @@ Phases (each prints one line of facts; any failure exits non-zero):
 1. environment — card name and power limit (``nvidia-smi``), compute
    capability (must be 9.0), TF32 turned off for float32 parity;
 2. build — every CUDA kernel of the port from ``mxnet_tpu_torch/csrc``;
-   the TF32 tensor-core instructions in each flash library's SASS
-   (``[sass]``); then, for each flash kernel (K1, K2's two, K6) at each
-   storage type and head-dim bucket, the registers, shared memory and
-   blocks per SM the runtime reports (``[kernel-resources]``);
+   the TF32 tensor-core instructions in the SASS of each flash library and
+   of K5's (``[sass]``); then, for K4 and K5's kernels at each storage type
+   and prologue mode and each flash kernel (K1, K2's two, K6) at each
+   storage type and head-dim bucket, the registers, shared memory, local
+   memory and blocks per SM the runtime reports (``[kernel-resources]``);
 3. kernels — each kernel against its plain PyTorch version on the card,
    in float32, bfloat16 and float16: paged decode (K3: its split kernel
    and its combine kernel) at the serving path's shapes and at the split's
@@ -54,9 +55,12 @@ Phases (each prints one line of facts; any failure exits non-zero):
    ``optimize_for("tpu_fused_conv_bn")``: one forward + backward with the
    fused 1x1-conv + BN-statistics kernels (K4 forward, K5 dW and dX),
    every kernel call also held against its plain version on the same
-   tensors; the gradients against a run with K5 swapped (here only) for
-   its plain version, the loss against a run with K4 and K5 swapped, then
-   the un-fused net on the same weights;
+   tensors and each K5 call against K5 in float64; the gradients against a
+   run with K5 swapped (here only) for its plain version in float64: no
+   farther from it than the run with K5's fp32 plain version, while a run
+   with K5 on TF32 products must fall outside (``k5_grad_gate``); the loss
+   against a run with K4 and K5 swapped, then the un-fused net on the
+   same weights;
 9. resnet train — the Gluon loop with ``bench_resnet``'s settings but a
    tenth of its lr (Xavier init, SGD lr 0.005 momentum 0.9 wd 1e-4, see
    ``RESNET_SGD``): one warm-up step, 10 timed
@@ -79,9 +83,10 @@ Phases (each prints one line of facts; any failure exits non-zero):
 
 Phase 3 also checks K4 and K5's two kernels against their plain versions
 (fp32, bf16 and fp16, with and without the BatchNorm prologue, at ResNet-50's
-stage shapes and two ragged ones) and times them at each of ResNet-50's
+stage shapes and two ragged ones), times them at each of ResNet-50's
 nine 1x1 shapes beside their bounds, their plain versions and
-``torch.matmul`` of the bare product.
+``torch.matmul`` of the bare product, and holds K5's four outputs equal
+over two calls at each of those shapes (``[determinism]``).
 
 Then one JSON line listing every ported kernel, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -464,7 +469,7 @@ def flash_work(B, H, KVH, T, S, D, causal, window, item):
 
 
 def tf32x3_ms(ops):
-    """The operations bound of K1, K2 and K6 in ms: 3xTF32 runs each
+    """The operations bound of K1, K2, K5 and K6 in ms: 3xTF32 runs each
     product as three TF32 products on the tensor cores."""
     return TF32X3 * ops / TF32_TC_OPS * 1e3
 
@@ -687,13 +692,14 @@ def determinism_check(case, args):
 
 
 def sass_phase(libs):
-    """The flash kernels multiply on the tensor cores: count the TF32
-    mma instructions in each library's SASS (``cuobjdump -sass``, beside
-    nvcc in the toolkit)."""
+    """The flash kernels and K5 multiply on the tensor cores: count the
+    TF32 mma instructions in each library's SASS (``cuobjdump -sass``,
+    beside nvcc in the toolkit)."""
     from mxnet_tpu_torch.ops import _kernels
 
     tool = os.path.join(os.path.dirname(_kernels.nvcc_path()), "cuobjdump")
-    for stem in ("flash_fwd", "flash_bwd", "flash_bwd_fused"):
+    for stem in ("flash_fwd", "flash_bwd", "flash_bwd_fused",
+                 "fused_conv_bn"):
         sass = subprocess.run([tool, "-sass", libs[stem]], capture_output=True,
                               text=True, check=True, timeout=300).stdout
         n = sass.count("HMMA.1688.F32.TF32")
@@ -703,11 +709,22 @@ def sass_phase(libs):
 
 def kernel_resources_phase():
     """What the runtime reports for each flash kernel at each storage type
-    and head-dim bucket (cudaFuncGetAttributes and
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor, through each source's
-    mxtpu_flash_fwd_resources / mxtpu_flash_bwd_resources)."""
+    and head-dim bucket, and for K4 and K5's kernels (dW for K >= N and for
+    K < N, dX) at each storage type and prologue mode
+    (cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    through each source's mxtpu_*_resources)."""
+    from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
     from mxnet_tpu_torch.ops.flash_attention import _kernel_resources
 
+    for kernel in ("fused_fwd", "fused_dw", "fused_dw_t", "fused_dx"):
+        for dtype in DTYPES:
+            for mode, (pro, relu) in FUSED_MODES.items():
+                r = fcbn._kernel_resources(kernel, dtype, pro, relu)
+                check(r["blocks_per_sm"] >= 1, f"{kernel} {dtype} {mode} "
+                      f"fits no SM: {r}")
+                say("kernel-resources", kernel=kernel,
+                    dtype=str(dtype).split(".")[1], mode=mode, **r,
+                    warps_per_sm=r["threads"] // 32 * r["blocks_per_sm"])
     for kernel in ("fwd", "dq", "dkv", "fused"):
         for dtype in DTYPES:
             for bucket in (32, 64, 128):
@@ -922,18 +939,57 @@ def fused_work(M, K, N, item=4):
             "fused_dx": (ops, 2 * mn + w + vec + x)}
 
 
+def fused_bound(name, ops, nbytes):
+    """(bound ms, bound by, CUDA cores' operations bound ms) of one call:
+    K4 multiplies on the CUDA cores (67 TFLOP/s fp32), K5 as 3xTF32 on the
+    tensor cores."""
+    t_cores = ops / PEAK_OPS[torch.float32] * 1e3
+    t_ops = t_cores if name == "fused_fwd" else tf32x3_ms(ops)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", t_cores)
+
+
+def fused_determinism(dev, gen):
+    """K5's dW, dX, dscale and dbias repeat bit for bit over two calls at
+    each of ResNet-50's 1x1 shapes (fp32, with the prologue and relu, so
+    that every output exists, and without, as the training path runs)."""
+    from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
+
+    for M, K, N, _ in RESNET_1X1:
+        same = {}
+        for mode in ("plain", "prologue_relu"):
+            pro, relu = FUSED_MODES[mode]
+            x, w, s, t, y, dy, ds, dq = fused_inputs(gen, dev, M, K, N,
+                                                     torch.float32, pro)
+            runs = [(fcbn._cuda_fused_dw(x, w, y, s, t, dy, ds, dq, relu),)
+                    + fcbn._cuda_fused_dx(x, w, y, s, t, dy, ds, dq, relu)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            for what, a, b in zip(("dw", "dx", "dscale", "dbias"), *runs):
+                if a is not None:
+                    same[f"{mode}_k5_{what}"] = torch.equal(a, b)
+            del x, w, y, dy, runs
+        check(all(same.values()), f"K5 at M{M}_K{K}_N{N} not repeatable: "
+              f"{same}")
+        say("determinism", case=f"resnet50_1x1_M{M}_K{K}_N{N}_fp32",
+            **{k: "equal" for k in same})
+
+
 def fused_time_phase(dev, gen, worst):
     """K4, K5-dW and K5-dX timed at each of ResNet-50's 1x1 shapes (fp32,
     no prologue, as the training path runs them) with CUDA events, beside
-    their bounds, their plain versions and torch.matmul of the bare
-    product. The kernels line gets each kernel's totals over the 30 calls
-    of one training step."""
+    their bounds (K5's on the 3xTF32 route, with the CUDA cores' beside
+    it), their plain versions and torch.matmul of the bare product. The
+    kernels line gets each kernel's totals over the 30 calls of one
+    training step, the bound summed call by call."""
     from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
 
     replaces = {"fused_fwd": "mxnet_tpu/ops/fused_conv_bn.py:105",
                 "fused_dw": "mxnet_tpu/ops/fused_conv_bn.py:216",
                 "fused_dx": "mxnet_tpu/ops/fused_conv_bn.py:246"}
-    total = {k: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "ops": 0, "bytes": 0}
+    total = {k: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "ops": 0, "bytes": 0,
+                 "bound": 0.0, "by_bytes": 0.0, "cores": 0.0}
              for k in replaces}
     for M, K, N, calls in RESNET_1X1:
         x, w, _, _, y, dy, ds, dq = fused_inputs(gen, dev, M, K, N,
@@ -958,27 +1014,27 @@ def fused_time_phase(dev, gen, worst):
             ms, plain_ms, lib_ms = (cuda_ms(kern, 20), cuda_ms(plain, 10),
                                     cuda_ms(lib, 20))
             ops, nbytes = work[name]
-            t_ops = ops / PEAK_OPS[torch.float32] * 1e3
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound, by, t_cores = fused_bound(name, ops, nbytes)
             tot = total[name]
             tot["ms"] += calls * ms
             tot["plain"] += calls * plain_ms
             tot["lib"] += calls * lib_ms
             tot["ops"] += calls * ops
             tot["bytes"] += calls * nbytes
+            tot["bound"] += calls * bound
+            tot["by_bytes"] += calls * bound * (by == "bytes")
+            tot["cores"] += calls * t_cores
             say("kernel-time", kernel=name, shape=f"M{M}_K{K}_N{N}_fp32",
                 calls_per_step=calls, ms=f"{ms:.4f}",
                 plain_ms=f"{plain_ms:.4f}",
                 matmul_product_only_ms=f"{lib_ms:.4f}",
-                bound_ms=f"{max(t_ops, t_bytes):.5f}",
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_ms=f"{bound:.5f}", bound_by=by,
+                bound_cuda_cores_ms=f"{t_cores:.5f}",
                 tflops=f"{ops / ms / 1e9:.2f}",
-                bound_share=f"{max(t_ops, t_bytes) / ms:.4f}")
+                bound_share=f"{bound / ms:.4f}")
         del x, w, y, dy
     rows = []
     for name, tot in total.items():
-        t_ops = tot["ops"] / PEAK_OPS[torch.float32] * 1e3
-        t_bytes = tot["bytes"] / HBM_BYTES_PER_S * 1e3
         rows.append({
             "name": name,
             "route": "cuda",
@@ -988,17 +1044,24 @@ def fused_time_phase(dev, gen, worst):
             "max_abs_err": worst[name],
             "ms": tot["ms"],
             "plain_ms": tot["plain"],
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": tot["bound"],
+            # the kind of bound that holds the larger part of the sum
+            "bound_by": "bytes" if 2 * tot["by_bytes"] > tot["bound"]
+            else "operations",
             # no single PyTorch call computes the product with its
             # statistics; the bare product's time is in the lines above
             "library_ms": None,
         })
         say("kernel-time", kernel=name, shape="resnet50_step_30_calls",
+            math='"fp32 CUDA cores"' if name == "fused_fwd"
+            else '"3xTF32 tensor cores"',
             ms=f"{tot['ms']:.4f}", plain_ms=f"{tot['plain']:.4f}",
             matmul_product_only_ms=f"{tot['lib']:.4f}",
-            bound_ms=f"{rows[-1]['bound_ms']:.4f}",
-            bound_by=rows[-1]["bound_by"], gflop=f"{tot['ops'] / 1e9:.2f}",
+            bound_ms=f"{tot['bound']:.4f}", bound_by=rows[-1]["bound_by"],
+            bound_bytes_bound_calls_ms=f"{tot['by_bytes']:.4f}",
+            bound_cuda_cores_ms=f"{tot['cores']:.4f}",
+            bound_share=f"{tot['bound'] / tot['ms']:.4f}",
+            gflop=f"{tot['ops'] / 1e9:.2f}",
             gbytes=f"{tot['bytes'] / 1e9:.3f}")
     return rows
 
@@ -1463,6 +1526,37 @@ def _grads(params):
             if p.grad_req != "null"}
 
 
+def k5_grad_gate(kernel_rel, plain_rel, control_rel):
+    """ResNet-50's gradient gate on K5. Each argument is a run's worst
+    gradient distance to the run with K5 in float64 on the same forward:
+    the kernels', K5's fp32 plain version's, and the TF32 control's (K5's
+    plain version with float32 products on TF32). The kernel run may be no
+    farther from exact arithmetic than the fp32 plain version, with
+    RESNET_GRAD_RTOL as the floor; the control must fall outside, or the
+    gate could not tell a TF32 kernel from an fp32-accurate one. Returns
+    (passes, gate)."""
+    gate = max(RESNET_GRAD_RTOL, plain_rel)
+    return kernel_rel <= gate and control_rel > gate, gate
+
+
+def _with_tf32(fn, *args, **kw):
+    """``fn(*args, **kw)`` with float32 matmuls on TF32, restored after."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn(*args, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def _rel(got, ref):
+    """max |got - ref| relative to max |ref| (None: 0)."""
+    if ref is None:
+        return 0.0
+    return float((got.double() - ref.double()).abs().max()) / max(
+        float(ref.double().abs().max()), 1e-30)
+
+
 def _grad_errors(grads, ref, skip=()):
     """The worst gradient error, each relative to its own largest |grad|,
     and its parameter."""
@@ -1480,8 +1574,12 @@ def _grad_errors(grads, ref, skip=()):
 class _CheckedCalls:
     """Inside ``with``: every K4 and K5 call of the fused operators also
     runs the plain version on the same tensors and records each output's
-    error relative to its largest |value| (the plain versions launch no
-    kernel of the port, so the launch counts stay the main path's)."""
+    error relative to its largest |value|; each K5 call is also held, with
+    its fp32 plain version and the TF32 control beside it, against K5's
+    plain version with the products and sums in float64 (``f64``: per
+    shape (M, K, N), per run, the worst of dW and of dX with its
+    statistics). The plain versions launch no kernel of the port, so the
+    launch counts stay the main path's."""
 
     def __init__(self):
         from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
@@ -1489,15 +1587,28 @@ class _CheckedCalls:
         self._fcbn = fcbn
         self.worst = {"fused_fwd": 0.0, "fused_dw": 0.0, "fused_dx": 0.0}
         self.calls = {k: 0 for k in self.worst}
+        self.f64 = {}
 
     def _note(self, kernel, outs, refs):
         self.calls[kernel] += 1
         for g, r in zip(outs, refs):
-            if r is None:
-                continue
-            rel = float((g.float() - r.float()).abs().max()) / max(
-                float(r.float().abs().max()), 1e-30)
-            self.worst[kernel] = max(self.worst[kernel], rel)
+            if r is not None:
+                self.worst[kernel] = max(self.worst[kernel], _rel(g, r))
+
+    def _note_f64(self, args, runs):
+        f = self._fcbn
+        exact = f._torch_fused_bwd(*args, exact=True)
+        runs["tf32_control"] = _with_tf32(f._torch_fused_bwd, *args)
+        shape = (args[0].shape[0], args[0].shape[1], args[1].shape[1])
+        rec = self.f64.setdefault(shape, {"calls": 0})
+        rec["calls"] += 1
+        for run, (dx, dw, dsc, dbi) in runs.items():
+            for out, got, ref in (("dw", (dw,), exact[1:2]),
+                                  ("dx", (dx, dsc, dbi),
+                                   (exact[0],) + exact[2:])):
+                key = f"{run}_{out}"
+                rec[key] = max([rec.get(key, 0.0)] + [
+                    _rel(g, r) for g, r in zip(got, ref) if r is not None])
 
     def __enter__(self):
         f = self._fcbn
@@ -1514,6 +1625,8 @@ class _CheckedCalls:
             rdx, rdw, rsc, rbi = f._torch_fused_bwd(*args)
             self._note("fused_dw", (dw,), (rdw,))
             self._note("fused_dx", (dx, dsc, dbi), (rdx, rsc, rbi))
+            self._note_f64(args, {"kernel": (dx, dw, dsc, dbi),
+                                  "plain_fp32": (rdx, rdw, rsc, rbi)})
             return dx, dw, dsc, dbi
 
         f._fused_fwd, f._fused_bwd = fwd_checked, bwd_checked
@@ -1524,9 +1637,11 @@ class _CheckedCalls:
         return False
 
 
-def _swapped_op(forward):
+def _swapped_op(forward, exact=False, tf32=False):
     """An ``nd`` operator for ``_contrib_fused_matmul_stats`` whose forward
-    is ``forward(x, w)`` and whose backward is K5's plain version."""
+    is ``forward(x, w)`` and whose backward is K5's plain version
+    (``exact``: its products and sums in float64, outputs cast back to
+    fp32; ``tf32``: its float32 products on TF32, the gate's control)."""
     from mxnet_tpu_torch.ndarray.ndarray import apply
     from mxnet_tpu_torch.ops.fused_conv_bn import _torch_fused_bwd
 
@@ -1540,8 +1655,9 @@ def _swapped_op(forward):
         @staticmethod
         def backward(ctx_, dy, dsum, dssq):
             a, w, out = ctx_.saved_tensors
-            dx, dw, _, _ = _torch_fused_bwd(a, w, out, None, None, dy, dsum,
-                                            dssq)
+            args = (a, w, out, None, None, dy, dsum, dssq)
+            dx, dw, _, _ = _with_tf32(_torch_fused_bwd, *args) if tf32 \
+                else _torch_fused_bwd(*args, exact=exact)
             return dx, dw
 
     return lambda a, w: apply(Swapped.apply, a, w)
@@ -1554,12 +1670,22 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
     deterministic algorithms.
 
     - Every K4/K5 call of the kernel run is also held against its plain
-      version on the same tensors (FUSED_TOL).
-    - Gradients: the run with K5 swapped for its plain version (K4 kept,
-      so both backward passes see the same forward activations) must give
-      every weight's gradient within RESNET_GRAD_RTOL of its own largest
-      |grad|. With K4 swapped too the forward rounds otherwise, and at
-      Xavier init this net's training-mode gradient is chaotic at fp32
+      version on the same tensors (FUSED_TOL), and each K5 call against
+      K5's plain version with the products and sums in float64, within
+      FUSED_TOL of the largest value, the fp32 plain version's and the TF32
+      control's distances printed beside it (the control must fall
+      outside).
+    - Gradients (k5_grad_gate): runs with K5 swapped for its plain version
+      in float64, in fp32 and on TF32 (K4 kept, so every backward pass
+      sees the same forward activations and the loss is the same); the
+      kernel run must be no farther from the float64 run than the fp32
+      plain version is, RESNET_GRAD_RTOL at least, each weight's gradient
+      relative to its own largest |grad|, and the TF32 control must fail
+      that gate. The kernel run against the fp32 plain version is printed:
+      it measures summation order (bit-equal only for a kernel that adds
+      in cuBLAS's order). With K4 swapped too the forward rounds
+      otherwise, and at Xavier init this net's training-mode gradient is
+      chaotic at fp32
       rounding: every relu that a rounding moves across zero changes the
       backward, and BatchNorm's backward leaves a small residual of large
       cancelling terms. That run's gradient difference is printed beside
@@ -1605,32 +1731,76 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
                   f"{n} fused convs")
             check(calls.worst[k] <= lim, f"{k} disagrees with its plain "
                   f"version on the main path's tensors: {calls.worst[k]:.3e}")
+        every = {"calls": 0}
+        for (M, K, N), rec in sorted(calls.f64.items()):
+            say("resnet-parity", check="k5_calls_vs_float64",
+                shape=f"M{M}_K{K}_N{N}", calls=rec["calls"],
+                **{k: f"{rec[k]:.3e}" for k in rec if k != "calls"})
+            for k, v in rec.items():
+                every[k] = every.get(k, 0) + v if k == "calls" \
+                    else max(every.get(k, 0.0), v)
+        control = min(every["tf32_control_dw"], every["tf32_control_dx"])
+        say("resnet-parity", check="k5_calls_vs_float64", shape="all",
+            tol_rel=lim, **{k: every[k] if k == "calls" else f"{every[k]:.3e}"
+                            for k in every},
+            control_room=f"{control / lim:.1f}")
+        check(every["calls"] == n, f"{every['calls']} K5 calls held against "
+              f"float64, not {n}")
+        for out in ("dw", "dx"):
+            check(every[f"kernel_{out}"] <= lim, f"K5 {out} is farther than "
+                  f"{lim} from float64: {every[f'kernel_{out}']:.3e}")
+        check(control > lim, f"the TF32 control is within {lim} of float64 "
+              f"({control:.3e}): the per-call check has no teeth")
         grads_k = _grads(params)
 
-        loss_b = swapped_run(
-            _swapped_op(lambda a, w: fcbn._fused_fwd(a, w, None, None,
-                                                     False)),
-            {"fused_fwd": n})
         # a conv bias before a training-mode BatchNorm has a zero gradient
         # in exact arithmetic: float noise on both sides, judged against
         # its conv's weight gradient
         noise = {k for k in grads_k if "conv2d" in k and k.endswith("_bias")}
-        grads_b = _grads(params)
-        worst, worst_name = _grad_errors(grads_b, grads_k, noise)
-        for k in noise:
-            w = k[:-len("bias")] + "weight"
-            rel = float((grads_b[k] - grads_k[k]).abs().max()) / max(
-                float(grads_k[w].abs().max()), 1e-30)
-            if rel > worst:
-                worst, worst_name = rel, k
+
+        def worst_vs(grads, ref):
+            worst, worst_name = _grad_errors(grads, ref, noise)
+            for k in noise:
+                w = k[:-len("bias")] + "weight"
+                rel = float((grads[k] - ref[k]).abs().max()) / max(
+                    float(ref[w].abs().max()), 1e-30)
+                if rel > worst:
+                    worst, worst_name = rel, k
+            return worst, worst_name
+
+        def k4(a, w):
+            return fcbn._fused_fwd(a, w, None, None, False)
+
+        runs = {}
+        for run, op in (("plain_fp32", _swapped_op(k4)),
+                        ("float64", _swapped_op(k4, exact=True)),
+                        ("tf32_control", _swapped_op(k4, tf32=True))):
+            runs[run] = (swapped_run(op, {"fused_fwd": n}), _grads(params))
+        loss_b, grads_b = runs["plain_fp32"]
+        loss_e, grads_e = runs["float64"]
+        worst, worst_name = worst_vs(grads_b, grads_k)
+        kern, kern_name = worst_vs(grads_k, grads_e)
+        plain, plain_name = worst_vs(grads_b, grads_e)
+        ctl, ctl_name = worst_vs(runs["tf32_control"][1], grads_e)
+        passes, gate = k5_grad_gate(kern, plain, ctl)
+        say("resnet-parity", vs="float64_K5_same_forward",
+            loss_kernels=f"{loss_k:.7f}", loss_float64_k5=f"{loss_e:.7f}",
+            worst_grad_rel=f"{kern:.3e}", worst_param=kern_name,
+            plain_fp32_k5_grad_rel=f"{plain:.3e}", plain_param=plain_name,
+            tf32_control_grad_rel=f"{ctl:.3e}", tf32_control_param=ctl_name,
+            gate=f"{gate:.3e}", control_room=f"{ctl / gate:.1f}",
+            tol_floor=RESNET_GRAD_RTOL, params=len(grads_k))
         say("resnet-parity", vs="plain_K5_same_forward",
             loss_kernels=f"{loss_k:.7f}", loss_plain_k5=f"{loss_b:.7f}",
             worst_grad_rel=f"{worst:.3e}", worst_param=worst_name,
             tol_grad=RESNET_GRAD_RTOL, params=len(grads_k))
-        check(loss_b == loss_k, "the same forward gave another loss")
-        check(worst <= RESNET_GRAD_RTOL, f"{worst_name} gradient with K5 "
-              f"disagrees with its plain version: {worst}")
-        del grads_b
+        check(all(loss == loss_k for loss, _ in runs.values()),
+              "the same forward gave another loss: "
+              f"{ {k: v[0] for k, v in runs.items()} } vs {loss_k}")
+        check(passes, f"K5 gradient gate {gate:.3e}: the kernel run is "
+              f"{kern:.3e} from the float64 run ({kern_name}), the TF32 "
+              f"control {ctl:.3e}, which must fall outside")
+        del runs, grads_b, grads_e
 
         loss_p = swapped_run(
             _swapped_op(lambda a, w: fcbn._torch_fused_fwd(a, w, None,
@@ -1997,6 +2167,7 @@ def main():
     flash_rows, flash_errs = flash_kernel_phase(dev, gen)
     k6_row = fused_bwd_time_phase(dev, gen, flash_errs)
     fused_rows = fused_time_phase(dev, gen, fused_kernel_phase(dev, gen))
+    fused_determinism(dev, gen)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

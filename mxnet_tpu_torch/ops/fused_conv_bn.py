@@ -24,7 +24,10 @@ dW kernel (the port of ``_dw_kernel``) and dX kernel (the port of
 ``_dx_kernel``),
 counted in ``_kernels.LAUNCHES["fused_fwd"]``, ``["fused_dw"]`` and
 ``["fused_dx"]`` (one count per call of a launcher, which enqueues the
-tile kernel and its fixed-order reduction). On CPU tensors they run the
+tile kernel and its fixed-order reduction). K4 multiplies on the CUDA
+cores in fp32, K5 on the tensor cores as 3xTF32 (fp32 accuracy);
+:func:`_kernel_resources` reports each kernel's registers, shared memory
+and blocks per SM. On CPU tensors they run the
 plain versions :func:`_torch_fused_fwd` and :func:`_torch_fused_bwd` (the
 ports of ``_fused_fwd_reference`` and ``_fused_bwd_reference``, cast for
 cast). A CUDA tensor never takes the plain version.
@@ -73,35 +76,47 @@ def _form_dy(y, dy, dsum, dssq, acc, mm):
             + 2.0 * y.to(acc) * dssq.to(acc).reshape(1, -1)).to(mm)
 
 
-def _torch_fused_dw(x, y, scale, shift, dy, dsum, dssq, relu, w_dtype):
-    """Plain version of K5's dW kernel: ``xa^T dY`` in w's type."""
+def _torch_fused_dw(x, y, scale, shift, dy, dsum, dssq, relu, w_dtype,
+                    exact=False):
+    """Plain version of K5's dW kernel: ``xa^T dY`` in w's type. With
+    ``exact`` the product runs in float64 on the same operands (a yardstick
+    of the kernels' accuracy; the port never sets it)."""
     acc = _acc_dtype(x.dtype)
+    prod = torch.float64 if exact else acc
     d_y = _form_dy(y, dy, dsum, dssq, acc, x.dtype)
     xa = x if scale is None \
         else _prologue(x, scale, shift, relu, acc).to(x.dtype)
-    return torch.matmul(xa.to(acc).t(), d_y.to(acc)).to(w_dtype)
+    return torch.matmul(xa.to(prod).t(), d_y.to(prod)).to(w_dtype)
 
 
-def _torch_fused_dx(x, w, y, scale, shift, dy, dsum, dssq, relu):
+def _torch_fused_dx(x, w, y, scale, shift, dy, dsum, dssq, relu,
+                    exact=False):
     """Plain version of K5's dX kernel: ``(dx, dscale, dbias)``; the last
-    two are None without a prologue."""
+    two are None without a prologue. With ``exact`` the product and the
+    statistics run in float64 on the same operands (as ``_torch_fused_dw``),
+    each output then cast to its usual type."""
     acc = _acc_dtype(x.dtype)
+    prod = torch.float64 if exact else acc
     d_y = _form_dy(y, dy, dsum, dssq, acc, x.dtype)
-    dxa = torch.matmul(d_y.to(acc), w.to(acc).t())
+    dxa = torch.matmul(d_y.to(prod), w.to(prod).t())
     if scale is None:
         return dxa.to(x.dtype), None, None
     if relu:
         xf = _prologue(x, scale, shift, False, acc)
         dxa = torch.where(xf > 0.0, dxa, 0.0)
-    dx = (dxa * scale.to(acc).reshape(1, -1)).to(x.dtype)
-    return dx, (dxa * x.to(acc)).sum(dim=0), dxa.sum(dim=0)
+    dx = (dxa * scale.to(prod).reshape(1, -1)).to(x.dtype)
+    return (dx, (dxa * x.to(prod)).sum(dim=0).to(acc),
+            dxa.sum(dim=0).to(acc))
 
 
-def _torch_fused_bwd(x, w, y, scale, shift, dy, dsum, dssq, relu=False):
-    """Plain version of K5: ``(dx, dw, dscale, dbias)``."""
-    dw = _torch_fused_dw(x, y, scale, shift, dy, dsum, dssq, relu, w.dtype)
+def _torch_fused_bwd(x, w, y, scale, shift, dy, dsum, dssq, relu=False,
+                     exact=False):
+    """Plain version of K5: ``(dx, dw, dscale, dbias)`` (``exact``: the
+    products and sums in float64, as above)."""
+    dw = _torch_fused_dw(x, y, scale, shift, dy, dsum, dssq, relu, w.dtype,
+                         exact)
     dx, dsc, dbi = _torch_fused_dx(x, w, y, scale, shift, dy, dsum, dssq,
-                                   relu)
+                                   relu, exact)
     return dx, dw, dsc, dbi
 
 
@@ -124,8 +139,30 @@ def _lib():
         fn.argtypes = [i32] + [ptr] * n_ptrs + tail
     lib.mxtpu_fused_workspace.restype = ctypes.c_longlong
     lib.mxtpu_fused_workspace.argtypes = [i32] * 5
+    lib.mxtpu_fused_resources.restype = i32
+    lib.mxtpu_fused_resources.argtypes = [i32] * 4 + [ptr]
     lib._mxtpu_typed = True
     return lib
+
+
+_RESOURCE_KERNELS = {"fused_fwd": 0, "fused_dw": 1, "fused_dw_t": 2,
+                     "fused_dx": 3}
+
+
+def _kernel_resources(kernel, dtype, apply=False, relu=False):
+    """What the runtime reports for one kernel (``"fused_fwd"``,
+    ``"fused_dw"`` for K >= N, ``"fused_dw_t"`` for K < N, or
+    ``"fused_dx"``) at a storage type and prologue mode: registers per
+    thread, static and dynamic shared bytes per block, blocks per SM, local
+    (spill) bytes per thread and threads per block."""
+    lib = _lib()
+    out = (ctypes.c_int * 6)()
+    err = lib.mxtpu_fused_resources(_RESOURCE_KERNELS[kernel],
+                                    _DTYPE_CODES[dtype], int(apply),
+                                    int(relu), out)
+    _kernels.check(lib, err, f"{kernel} resources")
+    return dict(zip(("regs", "static_smem", "dynamic_smem", "blocks_per_sm",
+                     "local_bytes", "threads"), out))
 
 
 def _ptr(t):
@@ -217,8 +254,9 @@ def _cuda_fused_dw(x, w, y, scale, shift, dy, dsum, dssq, relu=False):
     if M == 0 or N == 0 or K == 0:
         return dw.zero_()
     lib = _lib()
-    ws = _workspace(lib, 1, M, K, N, scale is not None, dev)
     with torch.cuda.device(dev):
+        # the split count, and so the workspace, follows the device's SMs
+        ws = _workspace(lib, 1, M, K, N, scale is not None, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _launch(lib, "mxtpu_fused_dw", _DTYPE_CODES[x.dtype], _ptr(x),
                 _ptr(dy), _ptr(y), _ptr(dsum), _ptr(dssq), _ptr(scale),

@@ -283,7 +283,14 @@ def test_stats_compose_to_batch_norm():
 CUDA_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-4),
             torch.float16: (2.0 ** -10, 1e-4)}
 CUDA_SHAPES = {"small": (128, 64, 32), "ragged": (1000, 72, 40),
-               "odd": (1000, 37, 23), "stage4": (6272, 2048, 512)}
+               "odd": (1000, 37, 23), "stage4": (6272, 2048, 512),
+               "ragged_wide": (1000, 40, 72), "odd_wide": (1000, 23, 37),
+               "stage1_wide": (8192, 64, 256)}
+# K5 in fp32 against its plain version with the products and sums in
+# float64 on the same fp32 operands (``exact=True``), relative to the
+# largest |value|: the kernels multiply with fp32 accuracy (3xTF32), so
+# only fp32 summation separates them
+F64_TOL = 1e-5
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
@@ -325,6 +332,34 @@ def test_kernels_match_plain_on_cuda(shape, mode, dtype):
         assert err <= lim * float(r.float().abs().max()), (name, err)
     for k in ("fused_fwd", "fused_dw", "fused_dx"):
         assert _kernels.LAUNCHES[k] == n0.get(k, 0) + 1
+    if dt == torch.float32:
+        f64 = F._torch_fused_bwd(x, w, y, s, t, dy, d["dsum"], d["dssq"],
+                                 relu, exact=True)
+        for name, g, r in zip(("dx", "dw", "dscale", "dbias"),
+                              (got_b[0], got_b[3], got_b[1], got_b[2]), f64):
+            if r is None:
+                continue
+            err = float((g - r).abs().max())
+            assert err <= F64_TOL * float(r.abs().max()), (name, err)
+    again = (F._cuda_fused_dx(x, w, y, s, t, dy, d["dsum"], d["dssq"], relu)
+             + (F._cuda_fused_dw(x, w, y, s, t, dy, d["dsum"], d["dssq"],
+                                 relu),))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dscale", "dbias", "dw"), got_b, again):
+        assert (a is None and b is None) or torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("kernel", ["fused_dw", "fused_dw_t", "fused_dx"])
+def test_k5_kernels_do_not_spill_in_fp32_on_cuda(kernel, mode):
+    """K5's fp32 kernels keep their accumulators in registers (no local
+    memory) at two blocks of 8 warps per SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    pro, relu = MODES[mode]
+    r = F._kernel_resources(kernel, torch.float32, pro, relu)
+    assert r["local_bytes"] == 0, r
+    assert r["blocks_per_sm"] >= 2 and r["threads"] == 256, r
 
 
 def test_autograd_ops_launch_kernels_on_cuda():
@@ -362,3 +397,27 @@ def test_kernel_takes_float16_and_refuses_bad_shapes_on_cuda():
         assert err <= lim * float(r.float().abs().max())
     with pytest.raises(ValueError, match="x .M, K. and w .K, N."):
         F.matmul_stats(x.float(), w.float().t())
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_exact_plain_version_is_the_float64_product(mode):
+    """``exact=True`` forms dY, xa and the relu mask as the plain version
+    does and takes the products and sums in float64: dW is the float64
+    product of those fp32 operands, rounded once, and every output stays
+    within the fp32 plain version's tolerance."""
+    tx, tw, ts, tt, relu = _args(mode, "torch")
+    y = F._torch_fused_fwd(tx, tw, ts, tt, relu)[0]
+    cts = [torch.from_numpy(DATA[k]) for k in ("dy", "dsum", "dssq")]
+    got = F._torch_fused_bwd(tx, tw, y, ts, tt, *cts, relu=relu, exact=True)
+    plain = F._torch_fused_bwd(tx, tw, y, ts, tt, *cts, relu=relu)
+    d_y = F._form_dy(y, *cts, torch.float32, torch.float32).double()
+    xa = tx if ts is None else F._prologue(tx, ts, tt, relu, torch.float32)
+    want_dw = xa.double().t() @ d_y
+    assert got[1].dtype == torch.float32
+    _close(got[1], want_dw.float(), tol=1e-7)
+    for g, p in zip(got, plain):
+        if p is None:
+            assert g is None
+            continue
+        assert g.dtype == p.dtype and g.shape == p.shape
+        _close(g, p)

@@ -1,0 +1,212 @@
+"""The precision scheme of K5's Hopper kernels (dW and dX of the fused
+1x1-conv + BN-statistics backward), checked on the CPU: an emulation of
+their 3xTF32 tensor-core products against the JAX package's
+``_fused_bwd_reference``.
+
+The kernels (``mxnet_tpu_torch/csrc/fused_conv_bn.cu``) split each fp32
+operand ``x`` into ``big = tf32(x)`` and ``small = tf32(x - big)`` (round
+to nearest, ties away from zero, as ``csrc/flash_mma.cuh`` does), and
+take a product one mma step of 8 contraction indices at a time: the
+step's sum starts at zero, gathers small.big, big.small and big.big, and
+is added to the running fp32 sum in k order. dW contracts over M in
+splits of ``dw_chunk`` rows (the kernel's rule, mirrored below), each
+split summed alone and the splits then added in split order; for K < N
+the kernel computes dW^T = dY^T xa, so dY takes the A side. Here each
+TF32 product is an fp32 matmul of TF32 values (a product of two 11-bit
+significands is exact in fp32), so a step's sum rounds to nearest where
+the tensor cores truncate (``tests/test_torch_flash_tf32x3.py`` models
+that). The emulation lives in this file only; the port never uses it.
+
+Tolerance (float32): 1e-5 of the largest value of each output, as the
+port's other fused conv + BN parity tests; and the emulated products may
+be no farther from the float64 product of the same fp32 operands than
+twice the distance of torch's fp32 matmul (the plain version's product).
+One TF32 product alone misses by about 2^-11, which the tolerance
+catches.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu.ops import fused_conv_bn as J
+from mxnet_tpu_torch.ops import fused_conv_bn as F
+
+TOL = 1e-5
+KC = 32                 # kKC: contraction per k-tile (dW splits' unit)
+STEP = 8                # one mma step: each step's product starts at zero
+TILE_R, TILE_C = 128, 64  # kBM, kBN: dW's tile, the larger of K, N on R
+DW_BLOCKS_PER_SM = 2    # kDwBlocksPerSm: one wave of resident blocks
+H100_SMS = 132
+
+# name: (M, K, N): ResNet-like widths at a small M, one ragged shape
+SHAPES = {"k64_n64": (2048, 64, 64), "k64_n256": (4096, 64, 256),
+          "k256_n64": (4096, 256, 64), "k256_n256": (8192, 256, 256),
+          "ragged_72_40": (2048, 72, 40)}
+MODES = {"plain": (False, False), "prologue": (True, False),
+         "prologue_relu": (True, True)}
+
+
+def tf32(x):
+    """fp32 -> TF32 (kept in fp32), round to nearest, ties away from zero
+    (finite inputs)."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (u + 0x1000) & 0xFFFFE000
+    r = torch.where(r >= 2 ** 31, r - 2 ** 32, r)
+    return r.to(torch.int32).view(torch.float32)
+
+
+def split(x):
+    big = tf32(x)
+    return big, tf32(x - big)
+
+
+def cdiv(a, b):
+    return -(-a // b)
+
+
+def dw_chunk(M, K, N, sms=H100_SMS):
+    """Rows of dW's contraction per split, as the kernel's dw_chunk() on a
+    card of ``sms`` multiprocessors."""
+    tiles = cdiv(max(K, N), TILE_R) * cdiv(min(K, N), TILE_C)
+    splits = DW_BLOCKS_PER_SM * sms // tiles
+    splits = max(1, min(splits, cdiv(M, 256)))
+    return cdiv(cdiv(M, splits), KC) * KC
+
+
+def ktile_mm(a, b, products=3):
+    """a (R, L) @ b (L, C) as the kernels take it: per mma step of STEP,
+    from zero, small.big + big.small + big.big (``products=1``: big.big
+    only), each step's sum added to the fp32 total in k order."""
+    a_big, a_small = split(a)
+    b_big, b_small = split(b)
+    total = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for l0 in range(0, a.shape[1], STEP):
+        ks = slice(l0, l0 + STEP)
+        acc = torch.zeros_like(total)
+        if products == 3:
+            acc = acc + a_small[:, ks] @ b_big[ks]
+            acc = acc + a_big[:, ks] @ b_small[ks]
+        total = total + (acc + a_big[:, ks] @ b_big[ks])
+    return total
+
+
+def model_dw(xa, d_y, products=3):
+    """dW = xa^T dY over splits of dw_chunk rows, added in split order."""
+    M, K = xa.shape
+    N = d_y.shape[1]
+    chunk = dw_chunk(M, K, N)
+    total = torch.zeros(K, N, dtype=torch.float32)
+    for m0 in range(0, M, chunk):
+        rows = slice(m0, m0 + chunk)
+        if K >= N:
+            part = ktile_mm(xa[rows].T, d_y[rows], products)
+        else:
+            part = ktile_mm(d_y[rows].T, xa[rows], products).T
+        total = total + part
+    return total
+
+
+def operands(x, w, y, s, t, dy, dsum, dssq, relu):
+    """The fp32 operands the kernels multiply: xa and dY (both rounded to
+    the storage type, here float32) and w."""
+    acc = torch.float32
+    d_y = F._form_dy(y, dy, dsum, dssq, acc, x.dtype)
+    xa = x if s is None else F._prologue(x, s, t, relu, acc).to(x.dtype)
+    return xa, d_y, w
+
+
+def model_bwd(x, w, y, s, t, dy, dsum, dssq, relu, products=3):
+    """K5's function with the kernels' products: (dx, dw, dscale,
+    dbias); the epilogue as the plain version computes it."""
+    xa, d_y, w = operands(x, w, y, s, t, dy, dsum, dssq, relu)
+    dw = model_dw(xa, d_y, products)
+    dxa = ktile_mm(d_y, w.T, products)
+    if s is None:
+        return dxa, dw, None, None
+    if relu:
+        dxa = torch.where(F._prologue(x, s, t, False, torch.float32) > 0.0,
+                          dxa, 0.0)
+    dx = dxa * s.reshape(1, -1)
+    return dx, dw, (dxa * x).sum(dim=0), dxa.sum(dim=0)
+
+
+def _case(shape, mode, seed=3):
+    M, K, N = SHAPES[shape]
+    pro, relu = MODES[mode]
+    rs = np.random.RandomState(seed)
+    d = {"x": rs.randn(M, K), "w": rs.randn(K, N) * K ** -0.5,
+         "y": rs.randn(M, N), "dy": rs.randn(M, N), "dsum": rs.randn(N),
+         "dssq": rs.randn(N) * 0.01, "s": rs.rand(K) + 0.5,
+         "t": rs.randn(K) * 0.1}
+    d = {k: v.astype(np.float32) for k, v in d.items()}
+    if not pro:
+        d["s"] = d["t"] = None
+    order = ("x", "w", "y", "s", "t", "dy", "dsum", "dssq")
+    jargs = [None if d[k] is None else jnp.asarray(d[k]) for k in order]
+    want = J._fused_bwd_reference(*jargs, relu=relu)
+    targs = [None if d[k] is None else torch.from_numpy(d[k]) for k in order]
+    return targs, relu, want
+
+
+def _rel(got, want):
+    want = np.asarray(want, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / np.abs(want).max())
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    base = 0x3F800000  # 1.0
+    bits = np.array([base, base + 0x0FFF, base + 0x1000, base + 0x1FFF,
+                     (base + 0x1000) | 0x80000000], dtype=np.uint32)
+    got = tf32(torch.from_numpy(bits.view(np.float32).copy()))
+    want = np.array([base, base, base + 0x2000, base + 0x2000,
+                     (base + 0x2000) | 0x80000000], dtype=np.uint32)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("M,K,N,chunk", [
+    (401408, 64, 64, 1536), (401408, 64, 256, 3072), (6272, 2048, 512, 3136),
+    (1000, 37, 23, 256), (100, 8, 8, 128)])
+def test_dw_chunk_follows_the_kernel_rule(M, K, N, chunk):
+    """Whole k-tiles, at least 256 rows where M allows, one wave of two
+    blocks per SM of an H100 (132 SMs)."""
+    assert dw_chunk(M, K, N) == chunk
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_3xtf32_backward_matches_jax_reference(shape, mode):
+    args, relu, want = _case(shape, mode)
+    got = model_bwd(*args, relu)
+    for name, g, w in zip(("dx", "dw", "dscale", "dbias"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32, name
+        assert _rel(g, w) <= TOL, (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_3xtf32_products_as_close_to_float64_as_fp32_matmul(shape, mode):
+    """dW and dxa against the float64 products of the same fp32 operands:
+    the emulated kernels within twice torch's fp32 matmul distance."""
+    args, relu, _ = _case(shape, mode)
+    xa, d_y, w = operands(*args, relu)
+    products = {
+        "dw": (model_dw(xa, d_y), xa.T @ d_y, xa.double().T @ d_y.double()),
+        "dxa": (ktile_mm(d_y, w.T), d_y @ w.T, d_y.double() @ w.double().T),
+    }
+    for name, (model, plain, exact) in products.items():
+        m, p = _rel(model, exact), _rel(plain, exact)
+        assert m <= 2 * p, (name, m, p)
+
+
+def test_one_tf32_product_misses_the_tolerance():
+    """big.big alone (TF32) misses the 1e-5 the 3xTF32 products meet."""
+    args, relu, want = _case("k256_n256", "plain")
+    got = model_bwd(*args, relu, products=1)
+    worst = max(_rel(g, w) for g, w in zip(got[:2], want[:2]))
+    assert worst > 10 * TOL, worst
