@@ -11,7 +11,8 @@ Phases (each prints one line of facts; any failure exits non-zero):
    capability (must be 9.0), TF32 turned off for float32 parity;
 2. build — every CUDA kernel of the port from ``mxnet_tpu_torch/csrc``;
    the TF32 tensor-core instructions in the SASS of each flash library and
-   of K5's (``[sass]``); then, for K4 and K5's kernels at each storage type
+   of K4 and K5's, and in each instantiation of K4's own function
+   (``[sass]``); then, for K4 and K5's kernels at each storage type
    and prologue mode and each flash kernel (K1, K2's two, K6) at each
    storage type and head-dim bucket, the registers, shared memory, local
    memory and blocks per SM the runtime reports (``[kernel-resources]``);
@@ -55,7 +56,8 @@ Phases (each prints one line of facts; any failure exits non-zero):
    ``optimize_for("tpu_fused_conv_bn")``: one forward + backward with the
    fused 1x1-conv + BN-statistics kernels (K4 forward, K5 dW and dX),
    every kernel call also held against its plain version on the same
-   tensors and each K5 call against K5 in float64; the gradients against a
+   tensors and each K4 and K5 call against its plain version in float64
+   (``k4_calls_vs_float64``, ``k5_calls_vs_float64``); the gradients against a
    run with K5 swapped (here only) for its plain version in float64: no
    farther from it than the run with K5's fp32 plain version, while a run
    with K5 on TF32 products must fall outside (``k5_grad_gate``); the loss
@@ -85,8 +87,8 @@ Phase 3 also checks K4 and K5's two kernels against their plain versions
 (fp32, bf16 and fp16, with and without the BatchNorm prologue, at ResNet-50's
 stage shapes and two ragged ones), times them at each of ResNet-50's
 nine 1x1 shapes beside their bounds, their plain versions and
-``torch.matmul`` of the bare product, and holds K5's four outputs equal
-over two calls at each of those shapes (``[determinism]``).
+``torch.matmul`` of the bare product, and holds K4's three outputs and K5's
+four equal over two calls at each of those shapes (``[determinism]``).
 
 Then one JSON line listing every ported kernel, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -692,9 +694,12 @@ def determinism_check(case, args):
 
 
 def sass_phase(libs):
-    """The flash kernels and K5 multiply on the tensor cores: count the
+    """The flash kernels, K4 and K5 multiply on the tensor cores: count the
     TF32 mma instructions in each library's SASS (``cuobjdump -sass``,
-    beside nvcc in the toolkit)."""
+    beside nvcc in the toolkit), and in each of the nine instantiations
+    (storage type x prologue mode) of K4's own function, ``fwd_kernel``."""
+    import re
+
     from mxnet_tpu_torch.ops import _kernels
 
     tool = os.path.join(os.path.dirname(_kernels.nvcc_path()), "cuobjdump")
@@ -705,6 +710,18 @@ def sass_phase(libs):
         n = sass.count("HMMA.1688.F32.TF32")
         say("sass", library=stem, hmma_1688_f32_tf32=n)
         check(n > 0, f"{stem} holds no HMMA.1688.F32.TF32")
+        if stem != "fused_conv_bn":
+            continue
+        # [preamble, name, body, name, body, ...], one body per function
+        parts = re.split(r"^\s*Function\s*:\s*(\S+)\s*$", sass, flags=re.M)
+        k4 = [body.count("HMMA.1688.F32.TF32")
+              for name, body in zip(parts[1::2], parts[2::2])
+              if "10fwd_kernel" in name]
+        say("sass", library=stem, function="fwd_kernel (K4)",
+            instantiations=len(k4), hmma_1688_f32_tf32=sum(k4),
+            fewest_in_one=min(k4, default=0))
+        check(len(k4) == 9 and min(k4) > 0, f"K4's fwd_kernel: {k4} "
+              "HMMA.1688.F32.TF32 in its instantiations, need 9, each > 0")
 
 
 def kernel_resources_phase():
@@ -722,6 +739,10 @@ def kernel_resources_phase():
                 r = fcbn._kernel_resources(kernel, dtype, pro, relu)
                 check(r["blocks_per_sm"] >= 1, f"{kernel} {dtype} {mode} "
                       f"fits no SM: {r}")
+                if dtype == torch.float32:
+                    check(r["local_bytes"] == 0 and r["blocks_per_sm"] >= 2,
+                          f"{kernel} fp32 {mode} spills or holds fewer than "
+                          f"two blocks an SM: {r}")
                 say("kernel-resources", kernel=kernel,
                     dtype=str(dtype).split(".")[1], mode=mode, **r,
                     warps_per_sm=r["threads"] // 32 * r["blocks_per_sm"])
@@ -939,21 +960,22 @@ def fused_work(M, K, N, item=4):
             "fused_dx": (ops, 2 * mn + w + vec + x)}
 
 
-def fused_bound(name, ops, nbytes):
+def fused_bound(ops, nbytes):
     """(bound ms, bound by, CUDA cores' operations bound ms) of one call:
-    K4 multiplies on the CUDA cores (67 TFLOP/s fp32), K5 as 3xTF32 on the
-    tensor cores."""
+    K4 and K5 multiply as 3xTF32 on the tensor cores; the CUDA cores' bound
+    (67 TFLOP/s fp32) is printed beside it."""
     t_cores = ops / PEAK_OPS[torch.float32] * 1e3
-    t_ops = t_cores if name == "fused_fwd" else tf32x3_ms(ops)
+    t_ops = tf32x3_ms(ops)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", t_cores)
 
 
 def fused_determinism(dev, gen):
-    """K5's dW, dX, dscale and dbias repeat bit for bit over two calls at
-    each of ResNet-50's 1x1 shapes (fp32, with the prologue and relu, so
-    that every output exists, and without, as the training path runs)."""
+    """K4's y, ysum and yssq and K5's dW, dX, dscale and dbias repeat bit
+    for bit over two calls at each of ResNet-50's 1x1 shapes (fp32, with
+    the prologue and relu, so that every output exists, and without, as
+    the training path runs)."""
     from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
 
     for M, K, N, _ in RESNET_1X1:
@@ -962,16 +984,19 @@ def fused_determinism(dev, gen):
             pro, relu = FUSED_MODES[mode]
             x, w, s, t, y, dy, ds, dq = fused_inputs(gen, dev, M, K, N,
                                                      torch.float32, pro)
+            k4 = [fcbn._cuda_fused_fwd(x, w, s, t, relu) for _ in range(2)]
             runs = [(fcbn._cuda_fused_dw(x, w, y, s, t, dy, ds, dq, relu),)
                     + fcbn._cuda_fused_dx(x, w, y, s, t, dy, ds, dq, relu)
                     for _ in range(2)]
             torch.cuda.synchronize()
+            for what, a, b in zip(("y", "ysum", "yssq"), *k4):
+                same[f"{mode}_k4_{what}"] = torch.equal(a, b)
             for what, a, b in zip(("dw", "dx", "dscale", "dbias"), *runs):
                 if a is not None:
                     same[f"{mode}_k5_{what}"] = torch.equal(a, b)
-            del x, w, y, dy, runs
-        check(all(same.values()), f"K5 at M{M}_K{K}_N{N} not repeatable: "
-              f"{same}")
+            del x, w, y, dy, k4, runs
+        check(all(same.values()), f"K4/K5 at M{M}_K{K}_N{N} not "
+              f"repeatable: {same}")
         say("determinism", case=f"resnet50_1x1_M{M}_K{K}_N{N}_fp32",
             **{k: "equal" for k in same})
 
@@ -979,8 +1004,8 @@ def fused_determinism(dev, gen):
 def fused_time_phase(dev, gen, worst):
     """K4, K5-dW and K5-dX timed at each of ResNet-50's 1x1 shapes (fp32,
     no prologue, as the training path runs them) with CUDA events, beside
-    their bounds (K5's on the 3xTF32 route, with the CUDA cores' beside
-    it), their plain versions and torch.matmul of the bare product. The
+    their bounds (on the 3xTF32 route, with the CUDA cores' beside it),
+    their plain versions and torch.matmul of the bare product. The
     kernels line gets each kernel's totals over the 30 calls of one
     training step, the bound summed call by call."""
     from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
@@ -1014,7 +1039,7 @@ def fused_time_phase(dev, gen, worst):
             ms, plain_ms, lib_ms = (cuda_ms(kern, 20), cuda_ms(plain, 10),
                                     cuda_ms(lib, 20))
             ops, nbytes = work[name]
-            bound, by, t_cores = fused_bound(name, ops, nbytes)
+            bound, by, t_cores = fused_bound(ops, nbytes)
             tot = total[name]
             tot["ms"] += calls * ms
             tot["plain"] += calls * plain_ms
@@ -1053,8 +1078,7 @@ def fused_time_phase(dev, gen, worst):
             "library_ms": None,
         })
         say("kernel-time", kernel=name, shape="resnet50_step_30_calls",
-            math='"fp32 CUDA cores"' if name == "fused_fwd"
-            else '"3xTF32 tensor cores"',
+            math='"3xTF32 tensor cores"',
             ms=f"{tot['ms']:.4f}", plain_ms=f"{tot['plain']:.4f}",
             matmul_product_only_ms=f"{tot['lib']:.4f}",
             bound_ms=f"{tot['bound']:.4f}", bound_by=rows[-1]["bound_by"],
@@ -1574,12 +1598,14 @@ def _grad_errors(grads, ref, skip=()):
 class _CheckedCalls:
     """Inside ``with``: every K4 and K5 call of the fused operators also
     runs the plain version on the same tensors and records each output's
-    error relative to its largest |value|; each K5 call is also held, with
-    its fp32 plain version and the TF32 control beside it, against K5's
-    plain version with the products and sums in float64 (``f64``: per
-    shape (M, K, N), per run, the worst of dW and of dX with its
-    statistics). The plain versions launch no kernel of the port, so the
-    launch counts stay the main path's."""
+    error relative to its largest |value|; each call is also held, with
+    its fp32 plain version and the TF32 control (the plain version with
+    its float32 products on TF32) beside it, against its plain version
+    with the products and sums in float64: ``f64_fwd`` per shape (M, K,
+    N), per run, the worst of y, ysum and yssq each; ``f64`` the same for
+    K5, the worst of dW and of dX with its statistics. The plain versions
+    launch no kernel of the port, so the launch counts stay the main
+    path's."""
 
     def __init__(self):
         from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
@@ -1588,6 +1614,7 @@ class _CheckedCalls:
         self.worst = {"fused_fwd": 0.0, "fused_dw": 0.0, "fused_dx": 0.0}
         self.calls = {k: 0 for k in self.worst}
         self.f64 = {}
+        self.f64_fwd = {}
 
     def _note(self, kernel, outs, refs):
         self.calls[kernel] += 1
@@ -1610,6 +1637,18 @@ class _CheckedCalls:
                 rec[key] = max([rec.get(key, 0.0)] + [
                     _rel(g, r) for g, r in zip(got, ref) if r is not None])
 
+    def _note_f64_fwd(self, args, runs):
+        f = self._fcbn
+        exact = f._torch_fused_fwd(*args, exact=True)
+        runs["tf32_control"] = _with_tf32(f._torch_fused_fwd, *args)
+        shape = (args[0].shape[0], args[0].shape[1], args[1].shape[1])
+        rec = self.f64_fwd.setdefault(shape, {"calls": 0})
+        rec["calls"] += 1
+        for run, outs in runs.items():
+            for out, got, ref in zip(("y", "ysum", "yssq"), outs, exact):
+                key = f"{run}_{out}"
+                rec[key] = max(rec.get(key, 0.0), _rel(got, ref))
+
     def __enter__(self):
         f = self._fcbn
         self._saved = (f._fused_fwd, f._fused_bwd)
@@ -1617,7 +1656,9 @@ class _CheckedCalls:
 
         def fwd_checked(*args):
             out = fwd(*args)
-            self._note("fused_fwd", out, f._torch_fused_fwd(*args))
+            plain = f._torch_fused_fwd(*args)
+            self._note("fused_fwd", out, plain)
+            self._note_f64_fwd(args, {"kernel": out, "plain_fp32": plain})
             return out
 
         def bwd_checked(*args):
@@ -1635,6 +1676,20 @@ class _CheckedCalls:
     def __exit__(self, *exc):
         self._fcbn._fused_fwd, self._fcbn._fused_bwd = self._saved
         return False
+
+
+def _f64_report(check_name, records):
+    """Print each shape's record of a ``_CheckedCalls`` float64 check and
+    return them merged: the calls summed, every distance its worst."""
+    every = {"calls": 0}
+    for (M, K, N), rec in sorted(records.items()):
+        say("resnet-parity", check=check_name, shape=f"M{M}_K{K}_N{N}",
+            calls=rec["calls"],
+            **{k: f"{rec[k]:.3e}" for k in rec if k != "calls"})
+        for k, v in rec.items():
+            every[k] = every.get(k, 0) + v if k == "calls" \
+                else max(every.get(k, 0.0), v)
+    return every
 
 
 def _swapped_op(forward, exact=False, tf32=False):
@@ -1674,7 +1729,8 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
       K5's plain version with the products and sums in float64, within
       FUSED_TOL of the largest value, the fp32 plain version's and the TF32
       control's distances printed beside it (the control must fall
-      outside).
+      outside); each K4 call likewise against K4's plain version in
+      float64, for y, ysum and yssq.
     - Gradients (k5_grad_gate): runs with K5 swapped for its plain version
       in float64, in fp32 and on TF32 (K4 kept, so every backward pass
       sees the same forward activations and the loss is the same); the
@@ -1731,14 +1787,7 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
                   f"{n} fused convs")
             check(calls.worst[k] <= lim, f"{k} disagrees with its plain "
                   f"version on the main path's tensors: {calls.worst[k]:.3e}")
-        every = {"calls": 0}
-        for (M, K, N), rec in sorted(calls.f64.items()):
-            say("resnet-parity", check="k5_calls_vs_float64",
-                shape=f"M{M}_K{K}_N{N}", calls=rec["calls"],
-                **{k: f"{rec[k]:.3e}" for k in rec if k != "calls"})
-            for k, v in rec.items():
-                every[k] = every.get(k, 0) + v if k == "calls" \
-                    else max(every.get(k, 0.0), v)
+        every = _f64_report("k5_calls_vs_float64", calls.f64)
         control = min(every["tf32_control_dw"], every["tf32_control_dx"])
         say("resnet-parity", check="k5_calls_vs_float64", shape="all",
             tol_rel=lim, **{k: every[k] if k == "calls" else f"{every[k]:.3e}"
@@ -1751,6 +1800,20 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
                   f"{lim} from float64: {every[f'kernel_{out}']:.3e}")
         check(control > lim, f"the TF32 control is within {lim} of float64 "
               f"({control:.3e}): the per-call check has no teeth")
+        every = _f64_report("k4_calls_vs_float64", calls.f64_fwd)
+        outs = ("y", "ysum", "yssq")
+        control = max(every.get(f"tf32_control_{o}", 0.0) for o in outs)
+        say("resnet-parity", check="k4_calls_vs_float64", shape="all",
+            tol_rel=lim, **{k: every[k] if k == "calls" else f"{every[k]:.3e}"
+                            for k in every},
+            control_room=f"{control / lim:.1f}")
+        check(every["calls"] == n, f"{every['calls']} K4 calls held against "
+              f"float64, not {n}")
+        for out in outs:
+            check(every[f"kernel_{out}"] <= lim, f"K4 {out} is farther than "
+                  f"{lim} from float64: {every[f'kernel_{out}']:.3e}")
+        check(control > lim, f"the K4 TF32 control is within {lim} of "
+              f"float64 ({control:.3e}): the per-call check has no teeth")
         grads_k = _grads(params)
 
         # a conv bias before a training-mode BatchNorm has a zero gradient

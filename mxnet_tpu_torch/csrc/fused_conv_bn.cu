@@ -38,45 +38,53 @@
 // launcher enqueues its tile kernel and its reduction on the given stream.
 //
 // Bound on this card: 2 M K N operations against reading x, w (dy, y) once
-// and writing y (dx, dW) once. At ResNet-50's 1x1 shapes in fp32 that is
-// 2 K N / (4 (K + N)) flops per byte: at K = N = 64 and at K or N = 64 with
-// the other 256 the bytes bind (3.35 TB/s), at K, N >= 128 the operations.
+// and writing y (dx, dW) once. All three kernels multiply on the tensor
+// cores as 3xTF32 mma.sync.m16n8k8 (flash_mma.cuh: each fp32 operand split
+// into TF32 big + small parts, small.big + big.small + big.big into an fp32
+// accumulator), which keeps fp32 accuracy at 495 / 3 TFLOP/s; a bf16 or
+// fp16 operand is exact in TF32, so its small part is zero and one TF32
+// product does the same work. At ResNet-50's nine 1x1 shapes in fp32 that
+// puts K4's bound at 2.8152 ms per training step (30 calls): the bytes bind
+// at K = N = 64 and where K or N is 64 and the other 256 (3.35 TB/s), the
+// operations at the six shapes with K, N >= 128 (the CUDA cores' 67 TFLOP/s
+// would make it 5.7546 ms).
 //
-// K4 runs on the CUDA cores in fp32 for every storage type: a block of 256
-// threads owns a 128 x 64 output tile, each thread 8 rows x 4 columns of
-// fp32 accumulators, the contraction advancing 16 at a time through shared
-// memory (operands stored as fp32 after the prologue and the rounding to
-// mm, so bf16 and fp16 products are exact and only the sums round).
-//
-// K5 multiplies on the tensor cores as 3xTF32 mma.sync.m16n8k8
-// (flash_mma.cuh: each fp32 operand split into TF32 big + small parts,
-// small.big + big.small + big.big into an fp32 accumulator), which keeps
-// fp32 accuracy at 495 / 3 TFLOP/s. A bf16 or fp16 operand is exact in
-// TF32, so its small part is zero and one TF32 product does the same work.
-// A block of 8 warps owns a 128 x 64 output tile, each warp 32 x 32 of it
-// (2 x 4 mma tiles). The contraction advances in k-tiles of 32 through a
-// two-stage cp.async ring that copies the raw operands (dy, y and x or w,
-// in their storage type, 16 bytes at a time where a row is 16-byte aligned,
-// else 4-byte copies or plain loads); once a stage lands, a form pass
-// turns it into fp32 tiles in shared memory: dY (form_dy, rounded to mm),
-// xa (the prologue, rounded to mm), w, and zeros outside the matrices. The
-// stage is refilled as soon as it is formed, before the products, so both
-// stages are in flight while the tensor cores work.
-// The tensor-core accumulator truncates, so each mma step's product starts
-// from zero and is added to the running sums with an ordinary fp32 add
-// (warp_ktile).
-//   - dX contracts over N, along which dY (M, N) and w (K, N) are both
-//     contiguous: its tiles are K-major, XOR-swizzled 16-byte chunks read
-//     by ldmatrix (flash_mma.cuh's tile_idx / load_a / load_b_t2).
-//   - dW contracts over M, along which x and dY are both strided (MN-major;
-//     tf32 wgmma takes only K-major operands, hence mma.sync): its tiles are
-//     k-tile rows of 128 or 64 columns, chunks swizzled by mn_idx() so that
-//     the transposed fragment reads hit 32 different banks. The larger of
-//     K and N lies on the 128 side (kSwap: dW^T = dY^T xa).
-// Shared memory in fp32: 104 KB for dX, 105.5 KB for dW with K < N, 89.5
-// KB for dW with K >= N: two blocks (16 warps) per SM, 128 registers a
-// thread and no local memory. mxtpu_fused_resources reports what the
-// runtime gives each kernel.
+// Every kernel: a block of 8 warps owns a 128 x 64 output tile, each warp
+// 32 x 32 of it (2 x 4 mma tiles). The contraction advances in k-tiles of
+// 32 through a cp.async ring, so the copies of later k-tiles are in flight
+// while the tensor cores work on this one. The tensor-core accumulator
+// truncates, so each mma step's product starts from zero and is added to
+// the running sums with an ordinary fp32 add (warp_ktile).
+//   - K4 contracts over K: xa (M, K) is K-major, a 128 x 32 tile in
+//     flash_mma.cuh's tile_idx swizzle read by ldmatrix (load_a); w (K, N)
+//     is MN-major, k-tile rows of 64 columns in mn_idx() swizzle
+//     (load_b_mn). On the training path (fp32, no prologue: every
+//     ResNet-50 call) nothing needs forming, so the raw fp32 operands land
+//     by cp.async straight in their swizzled tiles, a three-stage ring with
+//     one barrier per k-tile. With a prologue or 16-bit storage, a
+//     two-stage ring of the raw operands feeds a form pass (below) that
+//     builds the fp32 tiles. The epilogue stores y from the C fragments
+//     (four consecutive columns a thread, one vector store) and takes the
+//     column sum and sum of squares of the fp32 sums: each thread's rows,
+//     a fixed shuffle tree over the warp's row groups, the 4 warp rows in
+//     order, one partial pair per 128-row tile.
+//   - K5's dX contracts over N, along which dY (M, N) and w (K, N) are both
+//     contiguous: its tiles are K-major as K4's xa.
+//   - K5's dW contracts over M, along which x and dY are both strided (MN-
+//     major; tf32 wgmma takes only K-major operands, hence mma.sync): its
+//     tiles are k-tile rows of 128 or 64 columns in mn_idx() swizzle. The
+//     larger of K and N lies on the 128 side (kSwap: dW^T = dY^T xa).
+// K5 always forms: a two-stage ring copies the raw operands (dy, y and x
+// or w, in their storage type, 16 bytes at a time where a row is 16-byte
+// aligned, else 4-byte copies or plain loads); once a stage lands, a form
+// pass turns it into fp32 tiles in shared memory: dY (form_dy, rounded to
+// mm), xa (the prologue, rounded to mm), w, and zeros outside the
+// matrices. The stage is refilled as soon as it is formed, before the
+// products, so both stages are in flight while the tensor cores work.
+// Shared memory in fp32: 72 KB for K4, 104 KB for dX, 105.5 KB for dW with
+// K < N, 89.5 KB for dW with K >= N: two blocks (16 warps) per SM, at most
+// 128 registers a thread and no local memory. mxtpu_fused_resources
+// reports what the runtime gives each kernel.
 
 #include "flash_mma.cuh"
 
@@ -89,15 +97,12 @@ using fm::to_f;
 
 constexpr int kBM = 128;        // output rows per tile
 constexpr int kBN = 64;         // output columns per tile
-constexpr int kBC = 16;         // K4: contraction step
-constexpr int kThreads = 256;   // K4: 16 x 16 threads, 8 x 4 outputs each;
-                                // K5: 8 warps of 32 x 32 outputs each
-constexpr int kLdA = kBM + 4;   // padded rows in shared memory (16-byte
-constexpr int kLdB = kBN + 4;   // aligned for float4 reads)
+constexpr int kThreads = 256;   // 8 warps of 32 x 32 outputs each
 constexpr int kRedRows = 16;    // reduce_pairs: tile stripes per column
 constexpr int kDwBlocksPerSm = 2;  // dW: resident blocks (launch bounds)
-constexpr int kKC = 32;         // K5: contraction per k-tile (4 mma steps)
-constexpr int kStages = 2;      // K5: cp.async ring depth
+constexpr int kKC = 32;         // contraction per k-tile (4 mma steps)
+constexpr int kStages = 2;      // ring depth where a form pass runs
+constexpr int kFwdStages = 3;   // K4's ring depth where none runs
 
 // The value rounded to the storage type T (round to nearest even).
 template <typename T>
@@ -124,132 +129,6 @@ __device__ __forceinline__ float prologue(float v, float s, float t) {
 __device__ __forceinline__ float form_dy(float dy, float y, float ds,
                                          float dq) {
   return __fadd_rn(__fadd_rn(dy, ds), __fmul_rn(2.f * y, dq));
-}
-
-// S[r][c] = op(m0 + r, c0 + c) for a kBC x W tile whose rows run along the
-// contraction (row-major operands read along their rows); zeros outside
-// [.., mend) x [.., cend).
-template <int W, int LD, typename Op>
-__device__ __forceinline__ void load_rows(float* S, long long m0,
-                                          long long mend, int c0, int cend,
-                                          Op op) {
-  constexpr int kPer = W * kBC / kThreads;  // 8 for W = 128, 4 for W = 64
-  constexpr int kTpr = W / kPer;            // threads per tile row: 16
-  const int r = threadIdx.x / kTpr;
-  const int cc = (threadIdx.x % kTpr) * kPer;
-  const long long m = m0 + r;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int c = c0 + cc + j;
-    S[r * LD + cc + j] = (m < mend && c < cend) ? op(m, c) : 0.f;
-  }
-}
-
-// S[c][r] = op(r0 + r, c0 + c): a W x kBC block of a row-major operand
-// whose columns run along the contraction, stored transposed; zeros outside
-// [.., rend) x [.., cend).
-template <int W, int LD, typename Op>
-__device__ __forceinline__ void load_cols(float* S, long long r0,
-                                          long long rend, int c0, int cend,
-                                          Op op) {
-  constexpr int kPer = W * kBC / kThreads;  // 8 for W = 128, 4 for W = 64
-  constexpr int kTpr = kBC / kPer;          // threads per operand row
-  const int r = threadIdx.x / kTpr;
-  const int cc = (threadIdx.x % kTpr) * kPer;
-  const long long row = r0 + r;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int c = c0 + cc + j;
-    S[(cc + j) * LD + r] = (row < rend && c < cend) ? op(row, c) : 0.f;
-  }
-}
-
-// acc[i][j] += sum_c A[c][ty * 8 + i] * B[c][tx * 4 + j]
-__device__ __forceinline__ void mma_tile(const float* A, const float* B,
-                                         float (&acc)[8][4], int ty, int tx) {
-#pragma unroll
-  for (int c = 0; c < kBC; ++c) {
-    const float4 a0 = *reinterpret_cast<const float4*>(A + c * kLdA + ty * 8);
-    const float4 a1 =
-        *reinterpret_cast<const float4*>(A + c * kLdA + ty * 8 + 4);
-    const float4 b = *reinterpret_cast<const float4*>(B + c * kLdB + tx * 4);
-    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bb[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-  }
-}
-
-// Sum s[j], q[j] (each thread's 4 columns) over the block's 16 thread rows
-// in a fixed order and write the tile's partial pair for columns
-// [c0, c0 + 64) to part[(tile * 2 + {0, 1}) * ncols + c].
-__device__ __forceinline__ void block_pair_partial(const float (&s)[4],
-                                                   const float (&q)[4],
-                                                   float* part, long long tile,
-                                                   int c0, int ncols) {
-  __shared__ float red[2][kThreads / 16][kBN];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red[0][ty][tx * 4 + j] = s[j];
-    red[1][ty][tx * 4 + j] = q[j];
-  }
-  __syncthreads();
-  if (threadIdx.x < 2 * kBN) {
-    const int which = threadIdx.x / kBN, col = threadIdx.x % kBN;
-    float t = 0.f;
-#pragma unroll
-    for (int r = 0; r < kThreads / 16; ++r) t += red[which][r][col];
-    if (c0 + col < ncols) part[(tile * 2 + which) * ncols + c0 + col] = t;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4: y = prologue(x) @ w with the column statistics of the fp32 accumulator
-// ---------------------------------------------------------------------------
-
-template <typename T, bool kPro, bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-           const float* __restrict__ scale, const float* __restrict__ shift,
-           T* __restrict__ y, float* __restrict__ part, int M, int K, int N) {
-  __shared__ __align__(16) float As[kBC * kLdA];
-  __shared__ __align__(16) float Bs[kBC * kLdB];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int n0 = blockIdx.x * kBN;
-  const long long m0 = (long long)blockIdx.y * kBM;
-  float acc[8][4] = {};
-
-  auto xa = [&](long long m, int k) {
-    float v = to_f(x[m * K + k]);
-    if (kPro) v = rnd<T>(prologue<kRelu>(v, scale[k], shift[k]));
-    return v;
-  };
-  auto wv = [&](long long k, int n) { return to_f(w[k * N + n]); };
-  for (int c0 = 0; c0 < K; c0 += kBC) {
-    load_cols<kBM, kLdA>(As, m0, M, c0, K, xa);
-    load_rows<kBN, kLdB>(Bs, c0, K, n0, N, wv);
-    __syncthreads();
-    mma_tile(As, Bs, acc, ty, tx);
-    __syncthreads();
-  }
-
-  float s[4] = {}, q[4] = {};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long m = m0 + ty * 8 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) store(&y[m * N + n], acc[i][j]);
-      s[j] += acc[i][j];
-      q[j] = fmaf(acc[i][j], acc[i][j], q[j]);
-    }
-  }
-  block_pair_partial(s, q, part, blockIdx.y, n0, N);
 }
 
 // out0[c] = sum_t part[t][0][c], out1[c] = sum_t part[t][1][c], over the
@@ -284,7 +163,7 @@ reduce_pairs(const float* __restrict__ part, float* __restrict__ out0,
 }
 
 // ---------------------------------------------------------------------------
-// K5: staging, form pass and 3xTF32 warp tiles
+// staging, form pass and 3xTF32 warp tiles (K4 and K5)
 // ---------------------------------------------------------------------------
 
 template <int kN>
@@ -453,6 +332,283 @@ __device__ __forceinline__ void warp_ktile(float (&sum)[2][4][4], LA load_a,
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sum[i][j][e] += d[i][j][e];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4: y = xa @ w with the column statistics of the fp32 sums
+// ---------------------------------------------------------------------------
+
+// fp32 storage and no prologue: the tiles are the raw operands, nothing to
+// form (every call of the training path)
+template <typename T, bool kPro>
+__host__ __device__ constexpr bool fwd_direct() {
+  return sizeof(T) == 4 && !kPro;
+}
+
+// Direct: kFwdStages stages of the fp32 tiles (xa 128 x 32, w 32 x 64).
+// Formed: the fp32 tiles once, then kStages raw stages of x and w in T.
+template <typename T, bool kPro>
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
+  return fwd_direct<T, kPro>()
+             ? kFwdStages * kKC * (kBM + kBN) * sizeof(float)
+             : kKC * (kBM + kBN) * (sizeof(float) + kStages * sizeof(T));
+}
+
+// Rows row0 .. row0 + kRows - 1 and columns col0 .. col0 + kW - 1 of a
+// row-major fp32 matrix (row stride ld, rows_end rows, cols_end columns)
+// into an fp32 tile that keeps element (r, c) at idx(r, c), 16-byte chunks
+// whole: by one 16-byte cp.async where the chunk lies whole inside the
+// matrix and the rows are 16-byte aligned (vec), else by 4-byte cp.async
+// element by element; zeros outside the matrix are stored directly. Each
+// thread copies one chunk column, rows kRowStep apart.
+template <int kRows, int kW, typename Idx>
+__device__ __forceinline__ void stage_f32(float* dst, const float* src,
+                                          long long ld, long long row0,
+                                          long long rows_end, int col0,
+                                          int cols_end, bool vec, int tid,
+                                          Idx idx) {
+  constexpr int kPerRow = kW / 4;
+  constexpr int kRowStep = kThreads / kPerRow;
+  const int r0 = tid / kPerRow, c = (tid % kPerRow) * 4;
+  const int col = col0 + c;
+  const float* in0 = src + (row0 + r0) * ld + col;
+#pragma unroll
+  for (int j = 0; j < kRows / kRowStep; ++j) {
+    const int r = r0 + j * kRowStep;
+    float* out = dst + idx(r, c);
+    const float* in = in0 + j * kRowStep * ld;
+    if (row0 + r >= rows_end || col >= cols_end) {
+      *reinterpret_cast<float4*>(out) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else if (vec && col + 4 <= cols_end) {
+      fm::cp_async16(out, in);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (col + e < cols_end)
+          fm::cp_async4(out + e, in + e);
+        else
+          out[e] = 0.f;
+      }
+    }
+  }
+}
+
+// Two values into p[0], p[1] of a 16-bit type by one 4-byte store.
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// v[0 .. 4) into p[0 .. 4) in T: by vector stores where vec and all four
+// lie inside the row (room: the row's columns from p on), else one by one.
+__device__ __forceinline__ void store4(float* p, const float (&v)[4],
+                                       int room, bool vec) {
+  if (vec && room >= 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (c < room) p[c] = v[c];
+}
+template <typename T>
+__device__ __forceinline__ void store4(T* p, const float (&v)[4], int room,
+                                       bool vec) {
+  if (vec && room >= 4) {
+    store2(p, v[0], v[1]);
+    store2(p + 2, v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (c < room) store(p + c, v[c]);
+}
+
+// The warp's products over one k-tile: xa (a_t) K-major, w (b_t) MN-major.
+template <bool kSmall>
+__device__ __forceinline__ void fwd_products(float (&sum)[2][4][4],
+                                             const float* a_t,
+                                             const float* b_t, int wr, int wc,
+                                             int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+  warp_ktile<kSmall>(
+      sum,
+      [&](fm::FragA& a, int i16, int k8) {
+        fm::load_a<kKC>(a, a_t, wr + i16, k8, lane);
+      },
+      [&](fm::FragB& b0, fm::FragB& b1, int j16, int k8) {
+        load_b_mn<kBN>(b0, b1, b_t, wc + j16, k8, g, tq);
+      });
+}
+
+// The block owns y's rows m0 .. m0 + 127 and columns n0 .. n0 + 63 and
+// writes its partial (sum, sum of squares) pair of those columns to
+// part[(blockIdx.y * 2 + {0, 1}) * N + n].
+template <typename T, bool kPro, bool kRelu>
+__global__ void __launch_bounds__(kThreads, 2)
+fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+           const float* __restrict__ scale, const float* __restrict__ shift,
+           T* __restrict__ y, float* __restrict__ part, int M, int K, int N) {
+  constexpr bool kSmall = sizeof(T) == 4;  // 16-bit storage is exact in TF32
+  constexpr int kTile = kKC * (kBM + kBN);  // xa and w tiles, elements
+  extern __shared__ __align__(16) float smem[];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int n0 = blockIdx.x * kBN;
+  const long long m0 = (long long)blockIdx.y * kBM;
+  const int steps = (K + kKC - 1) / kKC;
+  const bool vec_x = aligned16(x) && (K * sizeof(T)) % 16 == 0;
+  const bool vec_w = aligned16(w) && (N * sizeof(T)) % 16 == 0;
+
+  const int wr = 32 * (warp & 3), wc = 32 * (warp >> 2);
+  float sum[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) fm::zero_frags<4>(sum[i]);
+
+  if constexpr (fwd_direct<T, kPro>()) {
+    const float* xf = reinterpret_cast<const float*>(x);
+    const float* wf = reinterpret_cast<const float*>(w);
+    auto issue = [&](int s) {
+      float* a_t = smem + (s % kFwdStages) * kTile;
+      const int k0 = s * kKC;
+      stage_f32<kBM, kKC>(a_t, xf, K, m0, M, k0, K, vec_x, tid,
+                          [](int r, int c) { return fm::tile_idx<kKC>(r, c); });
+      stage_f32<kKC, kBN>(a_t + kBM * kKC, wf, N, k0, K, n0, N, vec_w, tid,
+                          [](int r, int c) { return mn_idx<kBN>(r, c); });
+    };
+#pragma unroll
+    for (int s = 0; s < kFwdStages - 1; ++s) {
+      if (s < steps) issue(s);
+      fm::cp_async_commit();
+    }
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<kFwdStages - 2>();
+      __syncthreads();  // stage s landed; every warp is done with s - 1
+      if (s + kFwdStages - 1 < steps) issue(s + kFwdStages - 1);
+      fm::cp_async_commit();
+      const float* a_t = smem + (s % kFwdStages) * kTile;
+      fwd_products<kSmall>(sum, a_t, a_t + kBM * kKC, wr, wc, lane);
+    }
+  } else {
+    float* a_t = smem;             // kBM x kKC xa, K-major (tile_idx)
+    float* b_t = a_t + kBM * kKC;  // kKC x kBN w, MN-major (mn_idx)
+    T* ring = reinterpret_cast<T*>(smem + kTile);
+    auto issue = [&](int s) {
+      T* st = ring + (s % kStages) * kTile;
+      const int k0 = s * kKC;
+      stage_raw<kBM, kKC>(st, x, K, m0, M, k0, K, vec_x, tid);
+      stage_raw<kKC, kBN>(st + kBM * kKC, w, N, k0, K, n0, N, vec_w, tid);
+    };
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      if (s < steps) issue(s);
+      fm::cp_async_commit();
+    }
+    // each thread forms the same 4 columns of xa and of w at every step
+    const int cx = (tid % (kKC / 4)) * 4, cw = (tid % (kBN / 4)) * 4;
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<kStages - 1>();
+      __syncthreads();  // stage s landed; the fp32 tiles are free again
+      const T* st = ring + (s % kStages) * kTile;
+      const int k = s * kKC + cx;
+      float sc[4], sh[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[e] = kPro && k + e < K ? scale[k + e] : 0.f;
+        sh[e] = kPro && k + e < K ? shift[k + e] : 0.f;
+      }
+#pragma unroll
+      for (int r = tid / (kKC / 4); r < kBM; r += kThreads / (kKC / 4)) {
+        float v[4];
+        load4(st + r * kKC + cx, v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (kPro) v[e] = rnd<T>(prologue<kRelu>(v[e], sc[e], sh[e]));
+          if (m0 + r >= M || k + e >= K) v[e] = 0.f;
+        }
+        *reinterpret_cast<float4*>(a_t + fm::tile_idx<kKC>(r, cx)) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+#pragma unroll
+      for (int r = tid / (kBN / 4); r < kKC; r += kThreads / (kBN / 4)) {
+        float v[4];
+        load4(st + kBM * kKC + r * kBN + cw, v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (s * kKC + r >= K || n0 + cw + e >= N) v[e] = 0.f;
+        *reinterpret_cast<float4*>(b_t + mn_idx<kBN>(r, cw)) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+      __syncthreads();  // the fp32 tiles are formed, stage s is free
+      if (s + kStages < steps) issue(s + kStages);
+      fm::cp_async_commit();
+      fwd_products<kSmall>(sum, a_t, b_t, wr, wc, lane);
+    }
+  }
+  cp_async_wait<0>();
+
+  // y, and each thread's column sums over its 4 rows. With load_b_mn's
+  // interleaved columns, C element (g + 8 h, 2 tq + b) of mma tile (i, j)
+  // is tile row wr + 16 i + g + 8 h, column wc + 16 (j / 2) + 4 tq + 2 b +
+  // j % 2: for each pair of n8 tiles a thread holds 4 consecutive columns
+  // of a row, column c = 2 b + j % 2 of them in sum[i][j][2 h + b].
+  const bool vec_y = aligned16(y) && (N * sizeof(T)) % 16 == 0;
+  float cs[2][4] = {}, cq[2][4] = {};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long m = m0 + wr + 16 * i + g + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        float v[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          v[c] = sum[i][2 * jp + (c & 1)][2 * h + (c >> 1)];
+          cs[jp][c] += v[c];
+          cq[jp][c] = fmaf(v[c], v[c], cq[jp][c]);
+        }
+        const int n = n0 + wc + 16 * jp + 4 * tq;
+        store4(y + m * N + n, v, N - n, vec_y);
+      }
+    }
+
+  // over the warp's 8 row groups (lanes of one tq) by a fixed shuffle tree,
+  // then over the 4 warps of a column range in order, into the tile's pair
+#pragma unroll
+  for (int jp = 0; jp < 2; ++jp)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        cs[jp][c] += __shfl_xor_sync(0xffffffffu, cs[jp][c], o);
+        cq[jp][c] += __shfl_xor_sync(0xffffffffu, cq[jp][c], o);
+      }
+  __syncthreads();  // every warp is done reading the tiles
+  float* red = smem;  // [4 warp rows][2][kBN]
+  if (g == 0) {
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = wc + 16 * jp + 4 * tq + c;
+        red[((warp & 3) * 2 + 0) * kBN + col] = cs[jp][c];
+        red[((warp & 3) * 2 + 1) * kBN + col] = cq[jp][c];
+      }
+  }
+  __syncthreads();
+  if (tid < 2 * kBN) {
+    const int which = tid / kBN, col = tid % kBN;
+    float t = 0.f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) t += red[(r * 2 + which) * kBN + col];
+    if (n0 + col < N)
+      part[((long long)blockIdx.y * 2 + which) * N + n0 + col] = t;
   }
 }
 
@@ -816,8 +972,13 @@ template <typename T, bool kPro, bool kRelu>
 int launch_fwd(const void* x, const void* w, const float* scale,
                const float* shift, void* y, float* ysum, float* yssq,
                float* ws, int M, int K, int N, cudaStream_t st) {
+  constexpr size_t smem = fwd_smem_bytes<T, kPro>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_kernel<T, kPro, kRelu>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(cdiv(N, kBN), cdiv(M, kBM));
-  fwd_kernel<T, kPro, kRelu><<<grid, kThreads, 0, st>>>(
+  fwd_kernel<T, kPro, kRelu><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), scale, shift,
       static_cast<T*>(y), ws, M, K, N);
   reduce_pairs<<<cdiv(N, 32), dim3(32, kRedRows), 0, st>>>(ws, ysum, yssq,
@@ -890,7 +1051,8 @@ int launch_dx(const void* dy, const void* y, const void* w, const float* ds,
 template <typename T, bool kPro, bool kRelu>
 int resources_of(int kernel, int* out) {
   if (kernel == 0)
-    return fm::kernel_resources(fwd_kernel<T, kPro, kRelu>, 0, kThreads, out);
+    return fm::kernel_resources(fwd_kernel<T, kPro, kRelu>,
+                                fwd_smem_bytes<T, kPro>(), kThreads, out);
   if (kernel == 1)
     return fm::kernel_resources(dw_kernel<T, kPro, kRelu, false>,
                                 dw_smem_bytes<T, false>(), kThreads, out);

@@ -24,10 +24,9 @@ dW kernel (the port of ``_dw_kernel``) and dX kernel (the port of
 ``_dx_kernel``),
 counted in ``_kernels.LAUNCHES["fused_fwd"]``, ``["fused_dw"]`` and
 ``["fused_dx"]`` (one count per call of a launcher, which enqueues the
-tile kernel and its fixed-order reduction). K4 multiplies on the CUDA
-cores in fp32, K5 on the tensor cores as 3xTF32 (fp32 accuracy);
-:func:`_kernel_resources` reports each kernel's registers, shared memory
-and blocks per SM. On CPU tensors they run the
+tile kernel and its fixed-order reduction). K4 and K5 multiply on the
+tensor cores as 3xTF32 (fp32 accuracy); :func:`_kernel_resources` reports
+each kernel's registers, shared memory and blocks per SM. On CPU tensors they run the
 plain versions :func:`_torch_fused_fwd` and :func:`_torch_fused_bwd` (the
 ports of ``_fused_fwd_reference`` and ``_fused_bwd_reference``, cast for
 cast). A CUDA tensor never takes the plain version.
@@ -60,14 +59,19 @@ def _prologue(x, scale, shift, relu, acc):
     return torch.relu(xf) if relu else xf
 
 
-def _torch_fused_fwd(x, w, scale, shift, relu=False):
+def _torch_fused_fwd(x, w, scale, shift, relu=False, exact=False):
     """Plain version of K4: ``(y, ysum, yssq)``, y in x's type, the sums of
-    the fp32 (accumulation-type) product."""
+    the fp32 (accumulation-type) product. With ``exact`` the prologue and
+    its rounding run as without, and the product and both sums in float64
+    on the same operands, each output then cast to its usual type (a
+    yardstick of the kernel's accuracy; the port never sets it)."""
     acc = _acc_dtype(x.dtype)
+    prod = torch.float64 if exact else acc
     if scale is not None:
         x = _prologue(x, scale, shift, relu, acc).to(x.dtype)
-    y = torch.matmul(x.to(acc), w.to(acc))
-    return y.to(x.dtype), y.sum(dim=0), (y * y).sum(dim=0)
+    y = torch.matmul(x.to(prod), w.to(prod))
+    return (y.to(x.dtype), y.sum(dim=0).to(acc),
+            (y * y).sum(dim=0).to(acc))
 
 
 def _form_dy(y, dy, dsum, dssq, acc, mm):

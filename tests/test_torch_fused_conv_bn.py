@@ -286,9 +286,9 @@ CUDA_SHAPES = {"small": (128, 64, 32), "ragged": (1000, 72, 40),
                "odd": (1000, 37, 23), "stage4": (6272, 2048, 512),
                "ragged_wide": (1000, 40, 72), "odd_wide": (1000, 23, 37),
                "stage1_wide": (8192, 64, 256)}
-# K5 in fp32 against its plain version with the products and sums in
-# float64 on the same fp32 operands (``exact=True``), relative to the
-# largest |value|: the kernels multiply with fp32 accuracy (3xTF32), so
+# K4 and K5 in fp32 against their plain versions with the products and
+# sums in float64 on the same fp32 operands (``exact=True``), relative to
+# the largest |value|: the kernels multiply with fp32 accuracy (3xTF32), so
 # only fp32 summation separates them
 F64_TOL = 1e-5
 
@@ -335,8 +335,11 @@ def test_kernels_match_plain_on_cuda(shape, mode, dtype):
     if dt == torch.float32:
         f64 = F._torch_fused_bwd(x, w, y, s, t, dy, d["dsum"], d["dssq"],
                                  relu, exact=True)
-        for name, g, r in zip(("dx", "dw", "dscale", "dbias"),
-                              (got_b[0], got_b[3], got_b[1], got_b[2]), f64):
+        f64_fwd = F._torch_fused_fwd(x, w, s, t, relu, exact=True)
+        for name, g, r in zip(("dx", "dw", "dscale", "dbias", "y", "ysum",
+                               "yssq"),
+                              (got_b[0], got_b[3], got_b[1], got_b[2])
+                              + tuple(got), tuple(f64) + tuple(f64_fwd)):
             if r is None:
                 continue
             err = float((g - r).abs().max())
@@ -344,8 +347,10 @@ def test_kernels_match_plain_on_cuda(shape, mode, dtype):
     again = (F._cuda_fused_dx(x, w, y, s, t, dy, d["dsum"], d["dssq"], relu)
              + (F._cuda_fused_dw(x, w, y, s, t, dy, d["dsum"], d["dssq"],
                                  relu),))
+    again_fwd = F._cuda_fused_fwd(x, w, s, t, relu)
     torch.cuda.synchronize()
-    for name, a, b in zip(("dx", "dscale", "dbias", "dw"), got_b, again):
+    for name, a, b in zip(("dx", "dscale", "dbias", "dw", "y", "ysum",
+                           "yssq"), got_b + tuple(got), again + again_fwd):
         assert (a is None and b is None) or torch.equal(a, b), name
 
 
@@ -359,6 +364,19 @@ def test_k5_kernels_do_not_spill_in_fp32_on_cuda(kernel, mode):
     pro, relu = MODES[mode]
     r = F._kernel_resources(kernel, torch.float32, pro, relu)
     assert r["local_bytes"] == 0, r
+    assert r["blocks_per_sm"] >= 2 and r["threads"] == 256, r
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_k4_kernel_does_not_spill_in_fp32_on_cuda(mode):
+    """K4's fp32 kernel, with its cp.async ring in dynamic shared memory,
+    keeps its accumulators in registers (no local memory) at two blocks of
+    8 warps per SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    pro, relu = MODES[mode]
+    r = F._kernel_resources("fused_fwd", torch.float32, pro, relu)
+    assert r["local_bytes"] == 0 and r["dynamic_smem"] > 0, r
     assert r["blocks_per_sm"] >= 2 and r["threads"] == 256, r
 
 
@@ -420,4 +438,24 @@ def test_exact_plain_version_is_the_float64_product(mode):
             assert g is None
             continue
         assert g.dtype == p.dtype and g.shape == p.shape
+        _close(g, p)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_exact_forward_is_the_float64_product(mode):
+    """K4's ``exact=True`` forms xa (prologue, relu, rounding) as the plain
+    version does and takes the product and both sums in float64: y is the
+    float64 product of those fp32 operands rounded once, ysum and yssq the
+    float64 sums of that product rounded once, and every output stays
+    within the fp32 plain version's tolerance."""
+    tx, tw, ts, tt, relu = _args(mode, "torch")
+    got = F._torch_fused_fwd(tx, tw, ts, tt, relu, exact=True)
+    plain = F._torch_fused_fwd(tx, tw, ts, tt, relu)
+    xa = tx if ts is None else F._prologue(tx, ts, tt, relu, torch.float32)
+    prod = xa.double() @ tw.double()
+    for g, want in zip(got, (prod, prod.sum(dim=0), (prod * prod).sum(dim=0))):
+        assert g.dtype == torch.float32
+        assert torch.equal(g, want.float())
+    for g, p in zip(got, plain):
+        assert g.shape == p.shape
         _close(g, p)

@@ -1,7 +1,7 @@
-"""The precision scheme of K5's Hopper kernels (dW and dX of the fused
-1x1-conv + BN-statistics backward), checked on the CPU: an emulation of
-their 3xTF32 tensor-core products against the JAX package's
-``_fused_bwd_reference``.
+"""The precision scheme of K4's and K5's Hopper kernels (the fused 1x1-conv
++ BN-statistics forward, and dW and dX of its backward), checked on the
+CPU: an emulation of their 3xTF32 tensor-core products against the JAX
+package's ``_fused_fwd_reference`` and ``_fused_bwd_reference``.
 
 The kernels (``mxnet_tpu_torch/csrc/fused_conv_bn.cu``) split each fp32
 operand ``x`` into ``big = tf32(x)`` and ``small = tf32(x - big)`` (round
@@ -11,7 +11,10 @@ step's sum starts at zero, gathers small.big, big.small and big.big, and
 is added to the running fp32 sum in k order. dW contracts over M in
 splits of ``dw_chunk`` rows (the kernel's rule, mirrored below), each
 split summed alone and the splits then added in split order; for K < N
-the kernel computes dW^T = dY^T xa, so dY takes the A side. Here each
+the kernel computes dW^T = dY^T xa, so dY takes the A side. K4 contracts
+over K in the same mma steps, and its column statistics are the sums of
+the fp32 product over one 128-row tile at a time, then over the tiles in
+order (the kernel's order within a tile is another fixed one). Here each
 TF32 product is an fp32 matmul of TF32 values (a product of two 11-bit
 significands is exact in fp32), so a step's sum rounds to nearest where
 the tensor cores truncate (``tests/test_torch_flash_tf32x3.py`` models
@@ -132,6 +135,38 @@ def model_bwd(x, w, y, s, t, dy, dsum, dssq, relu, products=3):
     return dx, dw, (dxa * x).sum(dim=0), dxa.sum(dim=0)
 
 
+def model_fwd(x, w, s, t, relu, products=3):
+    """K4's function with the kernel's products: (y, ysum, yssq); the
+    statistics summed per 128-row tile, then over the tiles in order."""
+    xa = x if s is None else F._prologue(x, s, t, relu, torch.float32)
+    y = ktile_mm(xa, w, products)
+    tiles = [y[m0:m0 + TILE_R] for m0 in range(0, y.shape[0], TILE_R)]
+    ysum = torch.zeros(y.shape[1], dtype=torch.float32)
+    yssq = torch.zeros_like(ysum)
+    for tile in tiles:
+        ysum = ysum + tile.sum(dim=0)
+        yssq = yssq + (tile * tile).sum(dim=0)
+    return y, ysum, yssq
+
+
+def _fwd_case(shape, mode, seed=5):
+    """K4's operands (x, w, scale, shift) as torch tensors, relu, and the
+    JAX package's ``_fused_fwd_reference`` on the same numpy inputs."""
+    M, K, N = SHAPES[shape]
+    pro, relu = MODES[mode]
+    rs = np.random.RandomState(seed)
+    d = {"x": rs.randn(M, K), "w": rs.randn(K, N) * K ** -0.5,
+         "s": rs.rand(K) + 0.5, "t": rs.randn(K) * 0.1}
+    d = {k: v.astype(np.float32) for k, v in d.items()}
+    if not pro:
+        d["s"] = d["t"] = None
+    order = ("x", "w", "s", "t")
+    jargs = [None if d[k] is None else jnp.asarray(d[k]) for k in order]
+    want = J._fused_fwd_reference(*jargs, relu=relu)
+    targs = [None if d[k] is None else torch.from_numpy(d[k]) for k in order]
+    return targs, relu, want
+
+
 def _case(shape, mode, seed=3):
     M, K, N = SHAPES[shape]
     pro, relu = MODES[mode]
@@ -210,3 +245,33 @@ def test_one_tf32_product_misses_the_tolerance():
     got = model_bwd(*args, relu, products=1)
     worst = max(_rel(g, w) for g, w in zip(got[:2], want[:2]))
     assert worst > 10 * TOL, worst
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_3xtf32_forward_matches_jax_reference(shape, mode):
+    args, relu, want = _fwd_case(shape, mode)
+    got = model_fwd(*args, relu)
+    for name, g, w in zip(("y", "ysum", "yssq"), got, want):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32, name
+        assert _rel(g, w) <= TOL, (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_3xtf32_forward_as_close_to_float64_as_fp32_matmul(shape, mode):
+    """K4's product against the float64 product of the same fp32 operands:
+    the emulated kernel within twice torch's fp32 matmul distance."""
+    (x, w, s, t), relu, _ = _fwd_case(shape, mode)
+    xa = x if s is None else F._prologue(x, s, t, relu, torch.float32)
+    m = _rel(ktile_mm(xa, w), xa.double() @ w.double())
+    p = _rel(xa @ w, xa.double() @ w.double())
+    assert m <= 2 * p, (m, p)
+
+
+def test_one_tf32_product_misses_the_forward_tolerance():
+    """big.big alone (TF32) puts K4's y past the 1e-5 the 3xTF32 products
+    meet."""
+    args, relu, want = _fwd_case("k256_n256", "plain")
+    got = model_fwd(*args, relu, products=1)
+    assert _rel(got[0], want[0]) > 10 * TOL, _rel(got[0], want[0])
