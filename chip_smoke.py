@@ -51,7 +51,18 @@ Phases (each prints one line of facts; any failure exits non-zero):
    Adam lr 1e-4 wd 0.01): one warm-up step, 10 timed steps, one profiled
    step; the loss must be finite and fall, and K1/K2 must have launched
    once per layer per forward/backward;
-8. resnet parity — ResNet-50 v1 at full width (``bench_resnet``'s
+8. trainer fused — the Trainer's multi-tensor Adam update
+   (``torch._foreach_*``, the default) against its per-parameter path at
+   BERT-base's widths, on two nets from one seed fed the same gradients:
+   3 steps, every weight and Adam moment within 1e-6 of its own largest
+   value; ``save_states`` after step 2, a fresh Trainer's
+   ``load_states`` and step 3 equal to the uninterrupted run; the update
+   alone profiled on each path (device ms, device events, ``_foreach_*``
+   calls per step; the fused path must launch fewer kernels than there
+   are parameters); then the net cast to bfloat16 with
+   ``multi_precision``, 2 fused steps, every weight its fp32 master
+   rounded, the loss finite;
+9. resnet parity — ResNet-50 v1 at full width (``bench_resnet``'s
    shapes: batch 128, 224 x 224, 1000 classes, fp32) through
    ``optimize_for("tpu_fused_conv_bn")``: one forward + backward with the
    fused 1x1-conv + BN-statistics kernels (K4 forward, K5 dW and dX),
@@ -63,21 +74,22 @@ Phases (each prints one line of facts; any failure exits non-zero):
    with K5 on TF32 products must fall outside (``k5_grad_gate``); the loss
    against a run with K4 and K5 swapped, then the un-fused net on the
    same weights;
-9. resnet train — the Gluon loop with ``bench_resnet``'s settings but a
+10. resnet train — the Gluon loop with ``bench_resnet``'s settings but a
    tenth of its lr (Xavier init, SGD lr 0.005 momentum 0.9 wd 1e-4, see
    ``RESNET_SGD``): one warm-up step, 10 timed
    steps, one profiled step (device time split into cuDNN convs, K4, K5,
-   BN and element-wise kernels and the SGD update); the loss must be finite
+   BN and element-wise kernels and the SGD update, which is the fused
+   multi-tensor update); the loss must be finite
    and fall, the running statistics move, and K4, K5-dW and K5-dX launch
    30 times per step;
-10. llama parity — Llama-3-8B at its published widths cut to 2 decoder
+11. llama parity — Llama-3-8B at its published widths cut to 2 decoder
    layers (meta-llama/Meta-Llama-3-8B ``config.json``: vocab 128256,
    hidden 4096, intermediate 14336, 32 heads over 8 kv heads, rope theta
    500000; 1,486,901,248 parameters, fp32), one sequence of 8192 tokens:
    one forward + backward through the Gluon loop with
    ``MXTPU_FLASH_BWD=fused`` (K6) and again with ``split`` (K2) on the
    same weights; the loss must be equal and every gradient agree;
-11. llama train — ``parallel.SPMDTrainStep(mesh=None)`` with Adam (lr
+12. llama train — ``parallel.SPMDTrainStep(mesh=None)`` with Adam (lr
    1e-4) under ``MXTPU_FLASH_BWD=fused``: ``run_steps`` for one warm-up
    step, 10 timed steps and one profiled step (device time split into fp32
    products, K1, K6, element-wise kernels and the Adam update); the loss
@@ -134,6 +146,11 @@ FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7,
              torch.float16: 2.0 ** -10}
 # bench_bert on an accelerator: bert_base(dropout=0, no pooler/classifier)
 BERT_BATCH, BERT_SEQ, BERT_VOCAB, BERT_LAYERS = 64, 128, 30522, 12
+# bench_bert's optimizer, and the fused update against the per-parameter
+# one on the same gradients: float32 element-wise updates evaluated in
+# another order, each value within 1e-6 of its tensor's largest |value|
+BERT_ADAM = {"learning_rate": 1e-4, "wd": 0.01}
+FUSED_UPDATE_RTOL = 1e-6
 # kernels vs plain attention over a full BERT-base forward + backward in
 # fp32, each parameter's gradient relative to the largest |grad| of its
 # layer's group (see train_parity_phase)
@@ -1422,8 +1439,7 @@ def train_phase(net, x, y, launches, steps=10):
     import mxnet_tpu_torch as mx
     from torch.profiler import ProfilerActivity, profile
 
-    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
-                               {"learning_rate": 1e-4, "wd": 0.01})
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam", dict(BERT_ADAM))
 
     def step():
         loss = _fwd_bwd(mx, net, x, y)
@@ -1487,7 +1503,171 @@ def train_phase(net, x, y, launches, steps=10):
 
 
 # ---------------------------------------------------------------------------
-# phases 8 and 9: ResNet-50 v1 training through optimize_for
+# phase 8: the Trainer's fused multi-tensor update at BERT-base's widths
+# ---------------------------------------------------------------------------
+
+def _with_fused(on, fn, *args):
+    """``fn(*args)`` with the port's MXTPU_FUSED_STEP switch set to
+    ``on``."""
+    from mxnet_tpu_torch import fusedstep
+
+    prev = fusedstep.set_enabled(on)
+    try:
+        return fn(*args)
+    finally:
+        fusedstep.set_enabled(prev)
+
+
+def _rel_to_own_max(got, want):
+    """max |got - want| over max |want| (0 when both are all zero)."""
+    got, want = got.detach(), want.detach()
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    return diff / scale if scale > 0 else (0.0 if diff == 0 else np.inf)
+
+
+def update_profile(trainer, fused, steps=3):
+    """Device ms, device events (kernel launches and copies) and
+    ``torch._foreach_*`` calls per ``trainer.step`` on its own: the
+    gradient buffers keep the last backward's values. One warm-up step,
+    then ``steps`` steps in one profiler window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _with_fused(fused, trainer.step, BERT_BATCH)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            _with_fused(fused, trainer.step, BERT_BATCH)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    foreach = sum(e.name.startswith("aten::_foreach_") for e in events)
+    return (sum(e.time_range.elapsed_us() for e in dev) / steps / 1e3,
+            len(dev) / steps, foreach / steps)
+
+
+def trainer_fused_phase(ctx, **cut):
+    """The Trainer's fused Adam update (``MXTPU_FUSED_STEP``, the default)
+    against its per-parameter path at BERT-base's widths (bench_bert's
+    batch and Adam lr 1e-4 wd 0.01), on two nets built from the same
+    seed:
+
+    1. 3 steps of each from the same weights and batch. Each step's
+       gradients come from the per-parameter run's forward and backward
+       and are written into the fused net's buffers, so the comparison
+       sees the update alone (an attention key bias has a zero gradient
+       in exact arithmetic, so its float noise, and Adam's normalised
+       step on it, would differ between two runs' backward passes).
+       Every parameter and both Adam moments within FUSED_UPDATE_RTOL of
+       their own largest magnitude;
+    2. ``save_states`` after the fused run's step 2, then a fresh Trainer
+       on the step-2 weights, ``load_states`` and step 3: its weights
+       ``torch.equal`` to the uninterrupted run's;
+    3. the update alone, profiled per path: device ms, device events and
+       ``_foreach_*`` calls per step; the fused path must launch fewer
+       kernels than there are parameters;
+    4. the fused net cast to bfloat16 with ``multi_precision``: 2 fused
+       steps through its own forward and backward; every weight equal to
+       its fp32 master (state leaf 0) rounded to bfloat16, the loss
+       finite.
+    """
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import _kernels
+
+    mx.gluon.block.reset_names()
+    net_e, x, y = bert_setup(ctx, **cut)
+    mx.gluon.block.reset_names()
+    net_f, _, _ = bert_setup(ctx, **cut)
+    pe, pf = net_e.collect_params(), net_f.collect_params()
+    check(list(pe.keys()) == list(pf.keys()) and all(
+        torch.equal(p.data().data, pf[k].data().data)
+        for k, p in pe.items()), "two BERT-base nets from one seed differ")
+    tr_e = mx.gluon.Trainer(pe, "adam", dict(BERT_ADAM))
+    tr_f = mx.gluon.Trainer(pf, "adam", dict(BERT_ADAM))
+    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_kernels.BUILD_DIR) as tmp:
+        fname = os.path.join(tmp, "bert_adam.states")
+        for step in range(3):
+            _fwd_bwd(mx, net_e, x, y)
+            for k, p in pe.items():
+                pf[k].grad()._set_data(p.grad())
+            _with_fused(False, tr_e.step, BERT_BATCH)
+            _with_fused(True, tr_f.step, BERT_BATCH)
+            if step == 1:
+                tr_f.save_states(fname)
+                at_2 = {k: p.data().data.clone() for k, p in pf.items()}
+        check(isinstance(tr_f._fused, dict) and tr_e._fused is None
+              and not tr_e._fused_states, "the two paths did not run")
+        worst = {"param": (0.0, ""), "m": (0.0, ""), "v": (0.0, "")}
+        for k, p in pe.items():
+            m_e, v_e = (a.data for a in p._opt_state)
+            m_f, v_f, t_f = tr_f._fused_states[k]
+            check(int(t_f) == tr_e.optimizer._index_update_count[
+                tr_e._param2idx[k]] == 3, f"{k}: step leaf {int(t_f)}")
+            for what, got, want in (("param", pf[k].data().data,
+                                     p.data().data),
+                                    ("m", m_f, m_e), ("v", v_f, v_e)):
+                rel = _rel_to_own_max(got, want)
+                worst[what] = max(worst[what], (rel, k))
+        at_3 = {k: p.data().data.clone() for k, p in pf.items()}
+        for k, p in pf.items():
+            p.data()._set_data(at_2[k])
+        tr_r = mx.gluon.Trainer(pf, "adam", dict(BERT_ADAM))
+        tr_r.load_states(fname)
+        tr_r.step(BERT_BATCH)  # the buffers still hold step 3's gradients
+        resumed = [k for k, p in pf.items()
+                   if not torch.equal(p.data().data, at_3[k])]
+        del at_2, at_3
+    eager_ms, eager_ev, _ = update_profile(tr_e, False)
+    fused_ms, fused_ev, fused_foreach = update_profile(tr_r, True)
+    n_params = len(pf)
+    say("trainer-fused", config="BERT-base Adam lr 1e-4 wd 0.01",
+        params=n_params, steps=3,
+        worst_param_rel=f"{worst['param'][0]:.3e}",
+        worst_param=worst["param"][1], worst_m_rel=f"{worst['m'][0]:.3e}",
+        worst_v_rel=f"{worst['v'][0]:.3e}", tol_rel=FUSED_UPDATE_RTOL,
+        resumed_equal=not resumed,
+        update_ms_eager=f"{eager_ms:.4f}",
+        update_ms_fused=f"{fused_ms:.4f}",
+        device_events_per_step_eager=f"{eager_ev:.1f}",
+        device_events_per_step_fused=f"{fused_ev:.1f}",
+        foreach_calls_per_step=f"{fused_foreach:.1f}")
+    for what, (rel, k) in worst.items():
+        check(rel <= FUSED_UPDATE_RTOL,
+              f"fused update: {what} of {k} off by {rel:.3e}")
+    check(not resumed, f"load_states + step 3 differs at {resumed[:3]}")
+    check(fused_ev < n_params, f"the fused update made {fused_ev} device "
+          f"events a step for {n_params} parameters")
+    del net_e, pe, tr_e, tr_r
+    torch.cuda.empty_cache()
+
+    net_f.cast("bfloat16")
+    tr_b = mx.gluon.Trainer(pf, "adam",
+                            dict(BERT_ADAM, multi_precision=True))
+    losses = []
+    for _ in range(2):
+        losses.append(float(_fwd_bwd(mx, net_f, x, y)))
+        tr_b.step(BERT_BATCH)
+    check(isinstance(tr_b._fused, dict), "bf16 + multi_precision fell back")
+    off = [k for k, p in pf.items() if p.data().data.dtype != torch.bfloat16
+           or not torch.equal(p.data().data, tr_b._fused_states[k][0].to(
+               torch.bfloat16))]
+    masters = {str(tr_b._fused_states[k][0].dtype) for k in pf.keys()}
+    say("trainer-fused-bf16", steps=2, loss_first=f"{losses[0]:.5f}",
+        loss_last=f"{losses[-1]:.5f}", masters=sorted(masters),
+        weights_not_rounded_masters=len(off))
+    check(all(np.isfinite(losses)), f"non-finite bf16 loss {losses}")
+    check(masters == {"torch.float32"} and not off,
+          f"bf16 weights not their rounded fp32 masters: {off[:3]}")
+    return {"eager_ms": eager_ms, "fused_ms": fused_ms}
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: ResNet-50 v1 training through optimize_for
 # ---------------------------------------------------------------------------
 
 def resnet_setup(ctx, batch=RESNET_BATCH, size=RESNET_SIZE, spec=None):
@@ -2011,7 +2191,7 @@ def resnet_train_phase(net, fused, x, y, marked, launches, steps=10):
 
 
 # ---------------------------------------------------------------------------
-# phases 10 and 11: Llama-3-8B widths through SPMDTrainStep(mesh=None)
+# phases 11 and 12: Llama-3-8B widths through SPMDTrainStep(mesh=None)
 # ---------------------------------------------------------------------------
 
 def llama_setup(ctx, layers=LLAMA_LAYERS, seq=LLAMA_SEQ, **cut):
@@ -2254,6 +2434,8 @@ def main():
     for r in flash_rows:
         r["launches"] = counts[r["name"]]
     del bert, x, y
+    torch.cuda.empty_cache()
+    trainer_fused_phase(mx.gpu(0))
     torch.cuda.empty_cache()
 
     net, fused, x, y, marked, build = resnet_setup(mx.gpu(0))

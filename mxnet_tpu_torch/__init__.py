@@ -47,7 +47,11 @@ from . import ndarray as nd  # noqa: F401
 from .ndarray import NDArray  # noqa: F401
 from . import autograd  # noqa: F401
 from . import initializer  # noqa: F401
+from . import lr_scheduler  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import fusedstep  # noqa: F401
+from . import metric  # noqa: F401
+from . import callback  # noqa: F401
 from . import gluon  # noqa: F401
 from . import models  # noqa: F401
 from . import parallel  # noqa: F401

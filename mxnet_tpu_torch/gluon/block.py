@@ -149,6 +149,14 @@ class Block:
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
+    def cast(self, dtype):
+        """Cast every parameter of this block and its children to
+        ``dtype`` (reference: ``Block.cast``)."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for _, param in self.params.items():
+            param.cast(dtype)
+
     def zero_grad(self):
         self.collect_params().zero_grad()
 

@@ -38,7 +38,8 @@ def _contexts(ctx):
 class Parameter:
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False):
+                 allow_deferred_init=False, stype="default",
+                 grad_stype="default"):
         self.name = name
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = dtype
@@ -49,6 +50,10 @@ class Parameter:
         self.grad_req = grad_req
         self._data = None  # {Context: NDArray}
         self._deferred_init = None  # (init, [Context], default_init)
+        # storage types: only "default" (dense) is ported; the Trainer's
+        # fused update declines others, as the JAX package's does
+        self._stype = stype
+        self._grad_stype = grad_stype
 
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self._shape}, "
@@ -180,6 +185,24 @@ class Parameter:
             for arr in self._data.values():
                 if arr.grad is not None:
                     arr.grad.data.zero_()
+
+    def cast(self, dtype):
+        """Cast the data and the gradient buffer of every copy to
+        ``dtype`` (a dtype name, numpy or torch dtype); a deferred
+        parameter is created in it. The handles stay; their tensors are
+        new, so a Trainer's fused plan rebuilds on its next step."""
+        if isinstance(dtype, torch.dtype):
+            dtype = str(dtype).split(".")[1]
+        self.dtype = dtype if isinstance(dtype, str) \
+            else _np.dtype(dtype).name
+        if self._data is None:
+            return
+        dt = torch_dtype(self.dtype)
+        for arr in self._data.values():
+            arr._t = arr._t.detach().to(dt).requires_grad_(
+                arr._t.requires_grad)
+            if arr.grad is not None:
+                arr.grad._t = arr.grad._t.to(dt)
 
 
 class ParameterDict:

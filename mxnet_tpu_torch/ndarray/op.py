@@ -14,6 +14,7 @@ from ..ops import flash_attention as _fa
 from ..ops import fused_conv_bn as _fcbn
 from ..ops import math as _math
 from ..ops import nn as _nn
+from ..ops import optimizer_ops as _optimizer_ops
 from ..ops import shape_ops as _shape
 from .ndarray import apply
 
@@ -57,6 +58,32 @@ _contrib_fused_matmul_stats = _wrapped(_fcbn.matmul_stats,
                                        "_contrib_fused_matmul_stats")
 _contrib_fused_scaled_matmul_stats = _wrapped(
     _fcbn.scaled_matmul_stats, "_contrib_fused_scaled_matmul_stats")
+
+
+def _update_op(fn, name):
+    """An optimizer update operator: its result(s) written back into
+    ``out`` (an NDArray or a list, zipped with the results) when given,
+    as the JAX package's ``_wrap_result`` does."""
+    def op(*args, out=None, **kwargs):
+        res = apply(fn, *args, **kwargs)
+        if out is None:
+            return res
+        if isinstance(res, (tuple, list)):
+            outs = out if isinstance(out, (tuple, list)) else [out]
+            for o, r in zip(outs, res):
+                o._set_data(r)
+            return list(outs)
+        out = out[0] if isinstance(out, (tuple, list)) else out
+        out._set_data(res)
+        return out
+
+    op.__name__ = name
+    op.__doc__ = fn.__doc__
+    return op
+
+
+globals().update({name: _update_op(fn, name)
+                  for name, fn in _optimizer_ops.OPS.items()})
 
 
 def reshape_like(lhs, rhs):
@@ -103,4 +130,5 @@ __all__ = ["Activation", "BatchNorm", "Convolution", "Dropout",
            "flash_attention", "flatten", "identity", "log_softmax",
            "logsumexp", "maximum", "mean", "pick", "relu", "reshape",
            "reshape_like", "sigmoid", "slice_axis", "sum", "take",
-           "transpose", "zeros_like"]
+           "transpose", "zeros_like"] + sorted(
+               n for n in _optimizer_ops.OPS if not n.startswith("_"))

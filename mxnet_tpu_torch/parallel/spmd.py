@@ -7,8 +7,11 @@ parameters and the optimizer rule on each, over the step's own copy of
 the parameters, which goes back into the block at ``sync_to_block``. The
 JAX package compiles that step into one XLA executable; here it runs
 eagerly, with no host synchronisation inside a step or between the steps
-of ``run_steps``. The update rules are pure functions of tensors, as in
-the JAX package, so each returns new tensors.
+of ``run_steps``. The update rules (``_RULES``, ``mp_rule``) are pure
+functions of tensors, as in the JAX package, so each returns new tensors;
+the step applies them to all parameters at once through the multi-tensor
+update it shares with ``gluon.Trainer`` (``optimizer/multi_tensor.py``),
+or one parameter at a time under ``MXTPU_FUSED_STEP=0``.
 """
 
 from __future__ import annotations
@@ -16,8 +19,11 @@ from __future__ import annotations
 import torch
 
 from .. import autograd
+from .. import fusedstep as _fusedstep
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray, array
+from ..optimizer import multi_tensor
+from ..optimizer.multi_tensor import is_low_precision_dtype
 
 
 def _state_dtype(w):
@@ -130,13 +136,6 @@ _RULES = {"sgd": _sgd_rule, "nag": _nag_rule, "adam": _adam_rule,
 _MP_SENTINEL = object()
 
 
-def is_low_precision_dtype(dtype) -> bool:
-    """The {float16, bfloat16} predicate for master-weight decisions (the
-    port's copy of ``amp/policy.py::is_low_precision_dtype``; AMP itself
-    is not ported). Takes torch dtypes and their names."""
-    return str(dtype).replace("torch.", "") in ("bfloat16", "float16")
-
-
 def mp_rule(rule_init, rule_update):
     """fp32 master-weight wrapper around a ``_RULES`` pair (reference:
     ``mp_sgd_update``/``mp_adam_update``): for bf16/fp16 params the fp32
@@ -219,8 +218,11 @@ class SPMDTrainStep:
         self.block = block
         self.loss_fn = loss_fn
         self.mesh = None
-        self._rule_init, self._rule_update = _RULES[optimizer](
-            dict(optimizer_params or {}))
+        self._optimizer = optimizer
+        self._hyper = dict(optimizer_params or {})
+        self._multi_precision = multi_precision
+        self._num_update = 0  # steps since init_state: the bias correction
+        self._rule_init, self._rule_update = _RULES[optimizer](self._hyper)
         if multi_precision:
             self._rule_init, self._rule_update = mp_rule(
                 self._rule_init, self._rule_update)
@@ -246,6 +248,7 @@ class SPMDTrainStep:
         opt_states = [tuple(self._rule_init(p.detach())) if d else ()
                       for p, d in zip(params, diff)]
         self._state = (params, opt_states)
+        self._num_update = 0
 
     # -- the step ---------------------------------------------------------
     def _run_forward(self, params, x, y):
@@ -273,17 +276,35 @@ class SPMDTrainStep:
         return loss.detach(), grads
 
     def _apply(self, grads, lr):
-        """The rule on each differentiable parameter, freeing each
-        gradient as it is used."""
+        """The update of every differentiable parameter at learning rate
+        ``lr`` (a float): one multi-tensor update (``MXTPU_FUSED_STEP``,
+        default on), else the rule on each parameter in turn. The list
+        ``grads`` is emptied: by the rule, one gradient as it is used; by
+        the multi-tensor update, all after it."""
         params, opt_states = self._state
         diff_idx = [i for i, d in enumerate(self._diff) if d]
+        for k, i in enumerate(diff_idx):
+            if grads[k] is None:
+                grads[k] = torch.zeros_like(params[i])
+        self._num_update += 1
+        n = len(diff_idx)
         with torch.no_grad():
+            if _fusedstep.ENABLED:
+                multi_tensor.update(
+                    self._optimizer, self._hyper,
+                    [params[i] for i in diff_idx], grads,
+                    [opt_states[i] for i in diff_idx], [lr] * n,
+                    [self._hyper.get("wd", 0.0)] * n,
+                    [self._num_update] * n, self._multi_precision)
+                grads.clear()
+                return
+            lr_t = torch.full((), lr, dtype=torch.float32,
+                              device=params[diff_idx[0]].device) \
+                if n else None
             for k, i in enumerate(diff_idx):
-                g = grads[k] if grads[k] is not None \
-                    else torch.zeros_like(params[i])
-                grads[k] = None
+                g, grads[k] = grads[k], None
                 w, s = self._rule_update(params[i].detach(), g,
-                                         opt_states[i], lr)
+                                         opt_states[i], lr_t)
                 params[i] = w.requires_grad_()
                 opt_states[i] = tuple(s)
 
@@ -294,11 +315,10 @@ class SPMDTrainStep:
 
     def _prepare(self, x, y, lr):
         raw_x, raw_y = _raw(x), _raw(y)
-        dt = raw_x.dtype if raw_x.dtype in (torch.float32, torch.bfloat16) \
-            else torch.float32
-        # a fill on the device: no host-to-device copy, no sync
-        return raw_x, raw_y, torch.full((), float(lr), dtype=dt,
-                                        device=raw_x.device)
+        if raw_x.dtype == torch.bfloat16:
+            # the JAX step carries lr in a bfloat16 batch's dtype
+            lr = float(torch.tensor(lr, dtype=torch.bfloat16))
+        return raw_x, raw_y, float(lr)
 
     def __call__(self, x, y, lr=0.01, sync=True):
         if self._state is None:

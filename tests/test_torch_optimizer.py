@@ -77,7 +77,18 @@ def test_trainer_steps_match_jax(name):
 
 
 def test_unknown_optimizer_and_argument_raise():
-    with pytest.raises(mx.MXNetError, match="unknown optimizer"):
-        mx.optimizer.create("lion")
-    with pytest.raises(mx.MXNetError, match="unknown optimizer arguments"):
-        mx.optimizer.create("sgd", learning_rat=0.1)
+    """An unknown optimizer raises in both packages; an unknown keyword
+    is swallowed by both (the reference's ``Optimizer.__init__`` takes
+    ``**kwargs``), so a misspelt ``learning_rat`` leaves the default
+    learning rate and the same 3 updates."""
+    for mxmod in (jmx, mx):
+        with pytest.raises(mxmod.MXNetError, match="unknown optimizer"):
+            mxmod.optimizer.create("lion")
+    rs = np.random.RandomState(2)
+    w0 = rs.randn(5, 4).astype(np.float32)
+    grads = [rs.randn(5, 4).astype(np.float32) for _ in range(3)]
+    kwargs = dict(learning_rat=0.1, momentum=0.9)
+    want, jopt = _steps(jmx, "sgd", kwargs, w0, grads, {})
+    got, topt = _steps(mx, "sgd", kwargs, w0, grads, {"ctx": mx.cpu()})
+    assert topt.learning_rate == jopt.learning_rate == 0.01
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
