@@ -51,6 +51,15 @@ Phases (each prints one line of facts; any failure exits non-zero):
    Adam lr 1e-4 wd 0.01): one warm-up step, 10 timed steps, one profiled
    step; the loss must be finite and fall, and K1/K2 must have launched
    once per layer per forward/backward;
+7b. train hybrid — BERT-base ``hybridize()``d (the cached graph: its
+   forward and backward captured as CUDA graphs and replayed): one
+   forward + backward against an eager net from the same seed (loss 1e-5,
+   every gradient 1e-4 of its layer's largest, bit for bit expected),
+   then the loop of phase 7 on it, every step a replay: one recording
+   entry, K1/K2 once per layer per pass from the replays' launch
+   accounting, the flash kernels in the profile; a half batch captures a
+   second entry (cause ``shape``) and a cast captures again (cause
+   ``params``) to the same loss;
 8. trainer fused — the Trainer's multi-tensor Adam update
    (``torch._foreach_*``, the default) against its per-parameter path at
    BERT-base's widths, on two nets from one seed fed the same gradients:
@@ -82,6 +91,11 @@ Phases (each prints one line of facts; any failure exits non-zero):
    multi-tensor update); the loss must be finite
    and fall, the running statistics move, and K4, K5-dW and K5-dX launch
    30 times per step;
+10b. resnet train hybrid — phase 10 on a ``hybridize()``d net: parity
+   with an eager net from the same seed (loss and running statistics
+   within 1e-5, gradients bit for bit or within K5's float64 gate), one
+   recording entry, K4, K5-dW and K5-dX 30 times per step from the
+   replays, and the same shape and cast recaptures;
 11. llama parity — Llama-3-8B at its published widths cut to 2 decoder
    layers (meta-llama/Meta-Llama-3-8B ``config.json``: vocab 128256,
    hidden 4096, intermediate 14336, 32 heads over 8 kv heads, rope theta
@@ -106,6 +120,7 @@ Then one JSON line listing every ported kernel, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -1432,10 +1447,11 @@ STEP_GROUPS = (("flash_attention", ("mxtpu_flash",)),
                ("elementwise", ("elementwise", "unrolled")))
 
 
-def train_phase(net, x, y, launches, steps=10):
+def train_phase(net, x, y, launches, steps=10, tag="train"):
     """The Gluon loop of bench_bert: one warm-up step, ``steps`` timed
-    steps (host clock around synchronised work), one profiled step. The
-    launch counts are read over exactly these steps."""
+    steps (host clock around synchronised work), one profiled step, whose
+    kernels must include the flash kernels. The launch counts are read
+    over exactly these steps. ``tag`` names the printed lines."""
     import mxnet_tpu_torch as mx
     from torch.profiler import ProfilerActivity, profile
 
@@ -1472,10 +1488,12 @@ def train_phase(net, x, y, launches, steps=10):
     busy = sum(by_name.values())
     check(busy > 0, "the profiler saw no device time")
     flash = sum(us for n, us in by_name.items() if "flash" in n)
-    say("train", device_steps=n_steps, step_ms=f"{step_s * 1e3:.3f}",
+    check(flash > 0, f"[{tag}] the profiler saw no flash kernel")
+    say(tag, device_steps=n_steps, step_ms=f"{step_s * 1e3:.3f}",
         samples_per_s=f"{BERT_BATCH / step_s:.2f}",
         loss_first=f"{losses[0]:.5f}", loss_last=f"{losses[-1]:.5f}",
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        reserved_gb=f"{torch.cuda.memory_reserved() / 1e9:.2f}",
         profiled_busy_ms=f"{busy / 1e3:.3f}",
         profiled_idle_share=f"{1 - busy / window_us:.4f}",
         flash_share=f"{flash / busy:.4f}",
@@ -1487,11 +1505,11 @@ def train_phase(net, x, y, launches, steps=10):
         group = next((g for g, keys in STEP_GROUPS if any(
             k in name.lower() for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + us
-    say("train-step-split", **{g: f"{us / 1e3:.3f}ms/{us / busy:.4f}"
-                               for g, us in sorted(groups.items(),
-                                                   key=lambda kv: -kv[1])})
+    say(f"{tag}-step-split", **{g: f"{us / 1e3:.3f}ms/{us / busy:.4f}"
+                                for g, us in sorted(groups.items(),
+                                                    key=lambda kv: -kv[1])})
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        say("train-step-kernel", ms_per_step=f"{us / 1e3:.4f}",
+        say(f"{tag}-step-kernel", ms_per_step=f"{us / 1e3:.4f}",
             share=f"{us / busy:.4f}", name=f'"{name[:90]}"')
     check(all(np.isfinite(losses)), f"non-finite training loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -1499,6 +1517,106 @@ def train_phase(net, x, y, launches, steps=10):
         check(counts.get(name, 0) == BERT_LAYERS * n_steps,
               f"{name} launched {counts.get(name, 0)} times in {n_steps} "
               f"train steps of {BERT_LAYERS} layers")
+    return counts
+
+
+def recapture_checks(tag, block, fwd_bwd, x, y):
+    """On a trained hybridized net: a batch of half the size captures a
+    second entry, cause ``shape``; a cast of every parameter to float32,
+    its own type (new tensors behind the same handles), captures the
+    full-batch entry again, cause ``params``, and its loss equals the
+    replayed loss on the same weights before the cast."""
+    graph = block._cached_graph
+    n0 = len(graph.retrace_causes)
+    half = x.shape[0] // 2
+    loss_half = float(fwd_bwd(x[0:half], y[0:half]))
+    shape_causes = graph.retrace_causes[n0:]
+    loss_before = float(fwd_bwd(x, y))
+    block.cast("float32")
+    loss_after = float(fwd_bwd(x, y))
+    causes = graph.retrace_causes[n0:]
+    entries = list(graph._cache.values())
+    rel = abs(loss_after - loss_before) / abs(loss_before)
+    say(f"{tag}-recapture", causes=causes, entries=len(entries),
+        batches=sorted(k[0][0][0][0] for k in graph._cache),
+        loss_half=f"{loss_half:.6f}", loss_before_cast=f"{loss_before:.6f}",
+        loss_after_cast=f"{loss_after:.6f}", loss_rel=f"{rel:.3e}",
+        bitwise=loss_after == loss_before)
+    check(shape_causes == ["shape"], f"a batch of {half} captured with "
+          f"causes {shape_causes}, not ['shape']")
+    check(causes == ["shape", "params"], f"the cast recaptured with causes "
+          f"{causes}, not ['shape', 'params']")
+    check(len(entries) == 2 and all(e.graphed and e.recording
+                                    for e in entries),
+          f"{len(entries)} entries after the shape change and the cast")
+    check(np.isfinite(loss_half) and rel <= 1e-5,
+          f"the recaptured loss {loss_after} is not the replayed "
+          f"{loss_before}")
+
+
+def _layer_grad_errors(grads, ref):
+    """The worst gradient error, each relative to the largest |grad| of
+    its layer's group in ``ref`` (the weight and bias of one layer), and
+    its parameter; both dicts in the same parameter order."""
+    blocks = {}
+    for name, g in ref.items():
+        block = name.rsplit("_", 1)[0]
+        blocks[block] = max(blocks.get(block, 0.0), float(g.abs().max()))
+    worst, worst_name = 0.0, ""
+    for (name, want), got in zip(ref.items(), grads.values()):
+        rel = float((got - want).abs().max()) / max(
+            blocks[name.rsplit("_", 1)[0]], 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
+
+
+def train_hybrid_phase(ctx, launches, steps=10, **cut):
+    """BERT-base ``hybridize()``d: two nets from the same seed, one eager
+    and one hybridized. One forward + backward each (the hybridized one
+    captures its forward and backward graphs and replays them): the loss
+    within 1e-5 relative and each gradient within TRAIN_GRAD_RTOL of its
+    layer's largest, bit for bit expected (the same kernels in the same
+    order). Then the Gluon loop on the hybridized net as ``train_phase``
+    runs it, every step a replay: one captured recording entry, K1/K2
+    once per layer per pass from the replays' launch accounting, the
+    flash kernels among the profiled kernels. Then ``recapture_checks``."""
+    import mxnet_tpu_torch as mx
+
+    eager, x, y = bert_setup(ctx, **cut)
+    net, _, _ = bert_setup(ctx, **cut)
+    net.hybridize()
+    loss_e = float(_fwd_bwd(mx, eager, x, y))
+    grads_e = _grads(eager.collect_params())
+    del eager
+    loss_h = float(_fwd_bwd(mx, net, x, y))
+    grads_h = _grads(net.collect_params())
+    worst, worst_name = _layer_grad_errors(grads_h, grads_e)
+    bitwise = loss_h == loss_e and all(
+        torch.equal(a, b) for a, b in zip(grads_h.values(), grads_e.values()))
+    loss_rel = abs(loss_h - loss_e) / abs(loss_e)
+    say("train-hybrid-parity", loss_eager=f"{loss_e:.7f}",
+        loss_hybrid=f"{loss_h:.7f}", loss_rel=f"{loss_rel:.3e}",
+        worst_grad_rel=f"{worst:.3e}", worst_param=worst_name,
+        tol_rel=TRAIN_GRAD_RTOL, bitwise=bitwise, params=len(grads_e))
+    check(np.isfinite(loss_h) and loss_rel <= 1e-5,
+          "the hybridized BERT-base loss disagrees with the eager net's")
+    check(worst <= TRAIN_GRAD_RTOL, f"hybridized {worst_name} gradient "
+          f"disagrees with the eager net's: {worst}")
+    del grads_e, grads_h
+    torch.cuda.empty_cache()
+    counts = train_phase(net, x, y, launches, steps, tag="train-hybrid")
+    entries = list(net._cached_graph._cache.values())
+    say("train-hybrid-entries", entries=len(entries),
+        recording=[e.recording for e in entries],
+        graphed=[e.graphed for e in entries],
+        replays=[e.gen for e in entries],
+        fwd_graph_launches=dict(entries[0]._fwd.launches),
+        bwd_graph_launches=dict(entries[0]._bwd.launches))
+    check(len(entries) == 1 and entries[0].recording and entries[0].graphed,
+          f"{len(entries)} entries captured, not one recording entry")
+    recapture_checks("train-hybrid", net,
+                     lambda xb, yb: _fwd_bwd(mx, net, xb, yb), x, y)
     return counts
 
 
@@ -1898,6 +2016,59 @@ def _swapped_op(forward, exact=False, tf32=False):
     return lambda a, w: apply(Swapped.apply, a, w)
 
 
+def _conv_bias_noise(grads):
+    """The conv biases before a training-mode BatchNorm: their gradient is
+    zero in exact arithmetic, float noise on both sides, judged against
+    their conv's weight gradient."""
+    return {k for k in grads if "conv2d" in k and k.endswith("_bias")}
+
+
+def _worst_vs(grads, ref, noise):
+    """``_grad_errors`` with each of ``noise`` judged against its conv's
+    weight gradient."""
+    worst, worst_name = _grad_errors(grads, ref, noise)
+    for k in noise:
+        w = k[:-len("bias")] + "weight"
+        rel = float((grads[k] - ref[k]).abs().max()) / max(
+            float(ref[w].abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, k
+    return worst, worst_name
+
+
+def _swapped_run(mx, fused, x, y, op, expect, launches):
+    """One step with ``op`` in place of the fused operator; the kernels
+    launched must be ``expect``. Returns the loss."""
+    kernel_op = mx.nd._contrib_fused_matmul_stats
+    mx.nd._contrib_fused_matmul_stats = op
+    launches.clear()
+    try:
+        loss = float(_resnet_fwd_bwd(mx, fused, x, y))
+    finally:
+        mx.nd._contrib_fused_matmul_stats = kernel_op
+    got = {k: v for k, v in launches.items() if v}
+    check(got == expect, f"the swapped run launched {got}, not {expect}")
+    return loss
+
+
+def k5_anchor_runs(mx, net, fused, x, y, launches, n):
+    """The gradient gate's runs on the eager net: one step each with K5
+    swapped for its plain version in fp32, in float64 and on TF32 (K4
+    kept, so each sees the kernel run's forward): ``{run: (loss,
+    grads)}``."""
+    from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
+
+    def k4(a, w):
+        return fcbn._fused_fwd(a, w, None, None, False)
+
+    params = net.collect_params()
+    return {run: (_swapped_run(mx, fused, x, y, op, {"fused_fwd": n},
+                               launches), _grads(params))
+            for run, op in (("plain_fp32", _swapped_op(k4)),
+                            ("float64", _swapped_op(k4, exact=True)),
+                            ("tf32_control", _swapped_op(k4, tf32=True)))}
+
+
 def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
     """ResNet-50 through optimize_for with the kernels against the same
     net with K4/K5 swapped, in this script only, for their plain versions,
@@ -1932,20 +2103,6 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ndarray.ndarray import NDArray
     from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
-
-    def swapped_run(op, expect):
-        """One step with ``op`` in place of the fused operator; the
-        kernels launched must be ``expect``."""
-        kernel_op = mx.nd._contrib_fused_matmul_stats
-        mx.nd._contrib_fused_matmul_stats = op
-        launches.clear()
-        try:
-            loss = float(_resnet_fwd_bwd(mx, fused, x, y))
-        finally:
-            mx.nd._contrib_fused_matmul_stats = kernel_op
-        got = {k: v for k, v in launches.items() if v}
-        check(got == expect, f"the swapped run launched {got}, not {expect}")
-        return loss
 
     params = net.collect_params()
     n = len(marked)
@@ -1995,36 +2152,14 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
         check(control > lim, f"the K4 TF32 control is within {lim} of "
               f"float64 ({control:.3e}): the per-call check has no teeth")
         grads_k = _grads(params)
-
-        # a conv bias before a training-mode BatchNorm has a zero gradient
-        # in exact arithmetic: float noise on both sides, judged against
-        # its conv's weight gradient
-        noise = {k for k in grads_k if "conv2d" in k and k.endswith("_bias")}
-
-        def worst_vs(grads, ref):
-            worst, worst_name = _grad_errors(grads, ref, noise)
-            for k in noise:
-                w = k[:-len("bias")] + "weight"
-                rel = float((grads[k] - ref[k]).abs().max()) / max(
-                    float(ref[w].abs().max()), 1e-30)
-                if rel > worst:
-                    worst, worst_name = rel, k
-            return worst, worst_name
-
-        def k4(a, w):
-            return fcbn._fused_fwd(a, w, None, None, False)
-
-        runs = {}
-        for run, op in (("plain_fp32", _swapped_op(k4)),
-                        ("float64", _swapped_op(k4, exact=True)),
-                        ("tf32_control", _swapped_op(k4, tf32=True))):
-            runs[run] = (swapped_run(op, {"fused_fwd": n}), _grads(params))
+        noise = _conv_bias_noise(grads_k)
+        runs = k5_anchor_runs(mx, net, fused, x, y, launches, n)
         loss_b, grads_b = runs["plain_fp32"]
         loss_e, grads_e = runs["float64"]
-        worst, worst_name = worst_vs(grads_b, grads_k)
-        kern, kern_name = worst_vs(grads_k, grads_e)
-        plain, plain_name = worst_vs(grads_b, grads_e)
-        ctl, ctl_name = worst_vs(runs["tf32_control"][1], grads_e)
+        worst, worst_name = _worst_vs(grads_b, grads_k, noise)
+        kern, kern_name = _worst_vs(grads_k, grads_e, noise)
+        plain, plain_name = _worst_vs(grads_b, grads_e, noise)
+        ctl, ctl_name = _worst_vs(runs["tf32_control"][1], grads_e, noise)
         passes, gate = k5_grad_gate(kern, plain, ctl)
         say("resnet-parity", vs="float64_K5_same_forward",
             loss_kernels=f"{loss_k:.7f}", loss_float64_k5=f"{loss_e:.7f}",
@@ -2045,9 +2180,11 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
               f"control {ctl:.3e}, which must fall outside")
         del runs, grads_b, grads_e
 
-        loss_p = swapped_run(
+        loss_p = _swapped_run(
+            mx, fused, x, y,
             _swapped_op(lambda a, w: fcbn._torch_fused_fwd(a, w, None,
-                                                           None)), {})
+                                                           None)), {},
+            launches)
         chaos, chaos_name = _grad_errors(_grads(params), grads_k, noise)
         xp = NDArray(x.data * (1.0 + 2.0 ** -24 * torch.randn(
             x.shape, generator=torch.Generator(x.data.device).manual_seed(
@@ -2108,12 +2245,14 @@ def _device_us(prof):
     return by_name
 
 
-def resnet_train_phase(net, fused, x, y, marked, launches, steps=10):
+def resnet_train_phase(net, fused, x, y, marked, launches, steps=10,
+                       tag="resnet-train"):
     """The Gluon loop with bench_resnet's settings: one warm-up step,
     ``steps`` timed steps (host clock around synchronised work), one
     profiled step (its forward + backward and its SGD update in two
-    profiler windows). The launch counts are read over exactly these
-    steps."""
+    profiler windows), whose kernels must include K4 and K5's. The launch
+    counts are read over exactly these steps. ``tag`` names the printed
+    lines."""
     import mxnet_tpu_torch as mx
     from torch.profiler import ProfilerActivity, profile
 
@@ -2159,20 +2298,24 @@ def resnet_train_phase(net, fused, x, y, marked, launches, steps=10):
     for name, us in by_name.items():
         g = resnet_group(name)
         groups[g] = groups.get(g, 0.0) + us
-    say("resnet-train", device_steps=n_steps, step_ms=f"{step_s * 1e3:.3f}",
+    for g in ("k4", "k5_dw", "k5_dx"):
+        check(groups.get(g, 0.0) > 0, f"[{tag}] the profiler saw no {g}")
+    say(tag, device_steps=n_steps, step_ms=f"{step_s * 1e3:.3f}",
         images_per_s=f"{batch / step_s:.2f}",
         loss_first=f"{losses[0]:.5f}", loss_last=f"{losses[-1]:.5f}",
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        reserved_gb=f"{torch.cuda.memory_reserved() / 1e9:.2f}",
         profiled_busy_ms=f"{busy / 1e3:.3f}",
         profiled_idle_share=f"{1 - busy / window_us:.4f}",
         fused_fwd=counts.get("fused_fwd", 0),
         fused_dw=counts.get("fused_dw", 0),
         fused_dx=counts.get("fused_dx", 0))
-    say("resnet-step-split", **{g: f"{us / 1e3:.3f}ms/{us / busy:.4f}"
-                                for g, us in sorted(groups.items(),
-                                                    key=lambda kv: -kv[1])})
+    split = tag.replace("-train", "-step")
+    say(f"{split}-split", **{g: f"{us / 1e3:.3f}ms/{us / busy:.4f}"
+                             for g, us in sorted(groups.items(),
+                                                 key=lambda kv: -kv[1])})
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        say("resnet-step-kernel", ms_per_step=f"{us / 1e3:.4f}",
+        say(f"{split}-kernel", ms_per_step=f"{us / 1e3:.4f}",
             share=f"{us / busy:.4f}", name=f'"{name[:90]}"')
     check(all(np.isfinite(losses)), f"non-finite training loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -2187,6 +2330,92 @@ def resnet_train_phase(net, fused, x, y, marked, launches, steps=10):
         check(counts.get(name, 0) == len(marked) * n_steps,
               f"{name} launched {counts.get(name, 0)} times in {n_steps} "
               f"train steps of {len(marked)} fused convs")
+    return counts
+
+
+def resnet_train_hybrid_phase(ctx, launches, steps=10, **setup):
+    """ResNet-50 through ``optimize_for`` and ``hybridize()``d: two nets
+    from the same seed, one eager and one hybridized, one forward +
+    backward each with cuDNN's deterministic algorithms. The loss within
+    RESNET_LOSS_RTOL and the running statistics within it of each one's
+    largest value, bit for bit expected; the gradients bit for bit, or
+    else held to K5's float64 anchor as ``k5_grad_gate`` holds the
+    kernel run (``k5_anchor_runs`` on the eager net). Then
+    ``hybridize()`` again, so that the training graphs are captured with
+    cuDNN's default algorithms as ``[resnet-train]`` runs them, one
+    capturing forward + backward, and the Gluon loop as
+    ``resnet_train_phase`` runs it, every step a replay: one captured
+    recording entry, K4/K5-dW/dX once per fused conv per step from the
+    replays' launch accounting. Then ``recapture_checks``."""
+    import mxnet_tpu_torch as mx
+
+    eager, efused, x, y, marked, _ = resnet_setup(ctx, **setup)
+    net, fused, _, _, _, _ = resnet_setup(ctx, **setup)
+    fused.hybridize()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_e = float(_resnet_fwd_bwd(mx, efused, x, y))
+        loss_h = float(_resnet_fwd_bwd(mx, fused, x, y))
+        grads_e = _grads(eager.collect_params())
+        grads_h = _grads(net.collect_params())
+        stats = [{k: p.data().data for k, p in n.collect_params().items()
+                  if "running" in k} for n in (eager, net)]
+        stats_rel = max(_rel(b, a) for a, b in zip(stats[0].values(),
+                                                   stats[1].values()))
+        stats_bitwise = all(torch.equal(a, b) for a, b in zip(
+            stats[0].values(), stats[1].values()))
+        noise = _conv_bias_noise(grads_e)
+        worst, worst_name = _worst_vs(
+            dict(zip(grads_e, grads_h.values())), grads_e, noise)
+        bitwise = loss_h == loss_e and worst == 0.0
+        loss_rel = abs(loss_h - loss_e) / abs(loss_e)
+        gate, passes = {}, bitwise
+        if not bitwise:
+            runs = k5_anchor_runs(mx, eager, efused, x, y, launches,
+                                  len(marked))
+            grads_f64 = runs["float64"][1]
+            kern, _ = _worst_vs(dict(zip(grads_e, grads_h.values())),
+                                grads_f64, noise)
+            plain, _ = _worst_vs(runs["plain_fp32"][1], grads_f64, noise)
+            ctl, _ = _worst_vs(runs["tf32_control"][1], grads_f64, noise)
+            passes, limit = k5_grad_gate(kern, plain, ctl)
+            gate = dict(hybrid_vs_f64=f"{kern:.3e}",
+                        plain_vs_f64=f"{plain:.3e}",
+                        tf32_control=f"{ctl:.3e}", gate=f"{limit:.3e}")
+            del runs, grads_f64
+        say("resnet-train-hybrid-parity", loss_eager=f"{loss_e:.7f}",
+            loss_hybrid=f"{loss_h:.7f}", loss_rel=f"{loss_rel:.3e}",
+            running_stats_rel=f"{stats_rel:.3e}",
+            running_stats_bitwise=stats_bitwise,
+            worst_grad_rel=f"{worst:.3e}", worst_param=worst_name,
+            bitwise=bitwise, **gate)
+        check(np.isfinite(loss_h) and loss_rel <= RESNET_LOSS_RTOL,
+              "the hybridized ResNet-50 loss disagrees with the eager net's")
+        check(stats_rel <= RESNET_LOSS_RTOL, "the hybridized net's running "
+              f"statistics disagree with the eager net's: {stats_rel:.3e}")
+        check(passes, "the hybridized gradients fail K5's "
+              f"float64 gate: {gate}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del eager, efused, grads_e, grads_h, stats
+    fused.hybridize()
+    _resnet_fwd_bwd(mx, fused, x, y)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    counts = resnet_train_phase(net, fused, x, y, marked, launches, steps,
+                                tag="resnet-train-hybrid")
+    entries = list(net._cached_graph._cache.values())
+    say("resnet-train-hybrid-entries", entries=len(entries),
+        recording=[e.recording for e in entries],
+        graphed=[e.graphed for e in entries],
+        replays=[e.gen for e in entries],
+        fwd_graph_launches=dict(entries[0]._fwd.launches),
+        bwd_graph_launches=dict(entries[0]._bwd.launches))
+    check(len(entries) == 1 and entries[0].recording and entries[0].graphed,
+          f"{len(entries)} entries captured, not one recording entry")
+    recapture_checks("resnet-train-hybrid", net,
+                     lambda xb, yb: _resnet_fwd_bwd(mx, fused, xb, yb), x, y)
     return counts
 
 
@@ -2435,6 +2664,9 @@ def main():
         r["launches"] = counts[r["name"]]
     del bert, x, y
     torch.cuda.empty_cache()
+    train_hybrid_phase(mx.gpu(0), _kernels.LAUNCHES)
+    gc.collect()  # blocks hold themselves in cycles; so do their graphs
+    torch.cuda.empty_cache()
     trainer_fused_phase(mx.gpu(0))
     torch.cuda.empty_cache()
 
@@ -2446,6 +2678,9 @@ def main():
     for r in fused_rows:
         r["launches"] = counts[r["name"]]
     del net, fused, x, y, marked, build
+    torch.cuda.empty_cache()
+    resnet_train_hybrid_phase(mx.gpu(0), _kernels.LAUNCHES)
+    gc.collect()
     torch.cuda.empty_cache()
 
     llama, x, y = llama_setup(mx.gpu(0))

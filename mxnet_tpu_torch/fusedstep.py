@@ -9,7 +9,9 @@ single-device Trainer and ``SPMDTrainStep`` read:
 - ``log_fallback(site, reason)`` — every place the fast path declines
   funnels through here, logged once per (site, reason): the fallback is
   never silent, and never a wrong answer (the per-parameter path takes
-  over).
+  over);
+- ``retrace_budget()`` — how many input-shape signatures a hybridized
+  block may capture before it warns (``gluon/block.py``).
 
 The reference's ``DONATE`` has no counterpart (torch updates in place);
 its bucket, overlap, superstep, pipeline, MoE, ZeRO and elastic knobs
@@ -25,6 +27,8 @@ from .base import getenv
 #: Master switch for the fused update. Flip at runtime with set_enabled().
 ENABLED = bool(getenv("MXTPU_FUSED_STEP", True, dtype=bool))
 
+_RETRACE_BUDGET_DEFAULT = 8
+
 _logger = logging.getLogger("mxnet_tpu_torch.fusedstep")
 _LOGGED: set = set()
 
@@ -38,6 +42,16 @@ def set_enabled(on: bool) -> bool:
     global ENABLED
     prev, ENABLED = ENABLED, bool(on)
     return prev
+
+
+def retrace_budget() -> int:
+    """Per-block budget of distinct input-shape signatures a cached graph
+    may capture before it warns ``shape_wobble`` once
+    (``MXTPU_RETRACE_BUDGET``, default 8): partial last batches and
+    unbucketed lengths otherwise multiply capture time and graph memory
+    silently. 0 disables the check."""
+    return int(getenv("MXTPU_RETRACE_BUDGET", _RETRACE_BUDGET_DEFAULT,
+                      dtype=int))
 
 
 def log_fallback(site: str, reason: str):

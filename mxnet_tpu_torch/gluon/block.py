@@ -4,22 +4,40 @@ PyTorch counterpart of ``mxnet_tpu/gluon/block.py``: name scopes with
 per-scope counters, so ``collect_params()`` keys equal the JAX package's
 (``bertmodel0_encoder_cells_transformer0_attn_query_weight``), child
 registration, ``initialize``, shape inference at the first call for
-deferred parameters, and ``__call__`` -> ``hybrid_forward(F, x,
-**params)`` with ``F`` the ``nd`` namespace.
+deferred parameters, ``__call__`` -> ``hybrid_forward(F, x, **params)``
+with ``F`` the ``nd`` namespace, and ``hybridize()``.
 
-``hybridize()`` is accepted and changes nothing: a HybridBlock always runs
-its eager path here. The JAX package traces the forward into one compiled
-executable (``_CachedGraph``); its counterpart on the card, a captured
-CUDA graph, is not ported yet.
+``hybridize()`` routes a HybridBlock's calls through its
+:class:`_CachedGraph`, the counterpart of the JAX package's CachedOp
+(one compiled forward and backward per input signature). On a CUDA card
+each signature's entry captures the block's forward, and for a call
+under ``autograd.record()`` its backward, as CUDA graphs
+(``gluon/_capture.py``) and replays them: one host call for a whole
+forward or backward instead of one per operator. On the CPU the same
+entry runs both halves eagerly, so the key, the gradient routing and the
+write-back of auxiliary state are the same code on both.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import threading
+import time
+import weakref
 
+import torch
+from torch.autograd.function import once_differentiable
+
+from .. import autograd
+from .. import fusedstep as _fusedstep
+from .. import observability as _obs
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
+from . import _capture
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
+
+_logger = logging.getLogger(__name__)
 
 
 class _NameManager(threading.local):
@@ -144,8 +162,9 @@ class Block:
         self.collect_params().initialize(init, ctx, verbose, force_reinit)
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted for API parity; blocks keep running eagerly (no graph
-        capture yet)."""
+        """Hybridize (or, with ``active=False``, un-hybridize) every
+        HybridBlock among the children; a plain Block itself runs
+        eagerly."""
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
@@ -170,7 +189,32 @@ class Block:
 class HybridBlock(Block):
     """Block written as ``hybrid_forward(F, x, *args, **params)``, where
     ``F`` is the ``nd`` namespace and ``params`` this block's registered
-    parameters on the input's context."""
+    parameters on the input's context. After :meth:`hybridize` its calls
+    go through its cached graph."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._cached_graph = None
+        self._flags = {}
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  inline_limit=2, forward_bulk_size=None,
+                  backward_bulk_size=None):
+        """Route this block's calls through its cached graph (``active``)
+        and drop every entry captured so far. Children are marked too; they
+        run eagerly inside this block's capture. The flags are recorded
+        and change nothing: as in the JAX package, which always compiles,
+        a hybridized block always captures on a CUDA card. A capture reads
+        the settings of its time (an operator swapped for another,
+        ``MXTPU_FLASH_BWD``, the TF32 switches): call ``hybridize()``
+        again after changing one."""
+        del inline_limit, forward_bulk_size, backward_bulk_size
+        self._active = active
+        self._flags = dict(static_alloc=static_alloc,
+                           static_shape=static_shape)
+        self._cached_graph = None
+        Block.hybridize(self, active)
 
     def infer_shape(self, *args):
         """Set shapes of this block's deferred parameters from its inputs;
@@ -195,10 +239,20 @@ class HybridBlock(Block):
         return kwargs
 
     def forward(self, *args, **kwargs):
+        if self._active and not kwargs and not _in_cached_trace():
+            return self._call_cached(*args)
+        return self._eager_forward(*args, **kwargs)
+
+    def _eager_forward(self, *args, **kwargs):
         from .. import ndarray as F
 
         params = self._resolve_params(args)
         return self.hybrid_forward(F, *args, **kwargs, **params)
+
+    def _call_cached(self, *args):
+        if self._cached_graph is None:
+            self._cached_graph = _CachedGraph(self)
+        return self._cached_graph(args)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
@@ -216,3 +270,452 @@ class HybridBlock(Block):
         from .nn.tpu_fusion import optimize_for as _opt
 
         return _opt(self, backend=backend, strict=strict)
+
+
+# ---------------------------------------------------------------------------
+# the cached graph
+# ---------------------------------------------------------------------------
+
+_TRACE_STATE = threading.local()  # .active: inside a cached graph's run
+
+
+def _in_cached_trace():
+    return getattr(_TRACE_STATE, "active", False)
+
+
+@contextlib.contextmanager
+def _bound(handles=(), tensors=()):
+    """Run a forward as part of an enclosing capture or step: nested
+    hybridized blocks run eagerly (``_in_cached_trace``), and each of
+    ``handles`` holds the matching tensor of ``tensors`` until the end,
+    when every handle gets its own tensor back."""
+    prev = _in_cached_trace()
+    saved = [h._t for h in handles]
+    _TRACE_STATE.active = True
+    try:
+        for h, t in zip(handles, tensors):
+            h._t = t
+        yield
+    finally:
+        for h, t in zip(handles, saved):
+            h._t = t
+        _TRACE_STATE.active = prev
+
+
+def signature_causes(old_sig, new_sig):
+    """Why an input signature changed: diff two ``((shape, dtype), ...)``
+    tuples into cause labels (``arity`` / ``shape`` / ``dtype``), named as
+    the JAX package names them."""
+    causes = []
+    if old_sig != new_sig:
+        if len(old_sig) != len(new_sig):
+            causes.append("arity")
+        else:
+            if any(o[0] != n[0] for o, n in zip(old_sig, new_sig)):
+                causes.append("shape")
+            if any(o[1] != n[1] for o, n in zip(old_sig, new_sig)):
+                causes.append("dtype")
+    return causes
+
+
+def _block_name(block):
+    return getattr(block, "_name", block.__class__.__name__)
+
+
+def _rng_state():
+    """The default generators' states: the CPU's, and the current card's
+    once CUDA is in use."""
+    return (torch.get_rng_state(),
+            torch.cuda.get_rng_state() if torch.cuda.is_initialized()
+            else None)
+
+
+@contextlib.contextmanager
+def _rng_restored(state):
+    """Inside: the default generators start from ``state``; after, they
+    are as before."""
+    cpu, cuda = state
+    with torch.random.fork_rng(
+            devices=[torch.cuda.current_device()] if cuda is not None
+            else []):
+        torch.set_rng_state(cpu)
+        if cuda is not None:
+            torch.cuda.set_rng_state(cuda)
+        yield
+
+
+class _Halves:
+    """One call's forward and backward over fixed tensors: ``inputs`` and
+    the parameters' own, each differentiable one through a leaf that
+    aliases its storage (so a captured graph reads the parameter where the
+    optimizer writes it).
+
+    ``forward()`` runs the block's eager forward and returns its output
+    tensors; ``backward(outs, gouts)`` returns the gradients of the
+    differentiable parameters, then of the floating inputs when
+    ``tracked``. The shared-residual form (the default) records the
+    forward and differentiates that graph, keeping it for a second
+    backward. The legacy form (``legacy``: ``MXTPU_FUSED_STEP=0``, the
+    JAX package's remat path) runs the forward unrecorded and has the
+    backward run it again, recorded, over the auxiliary state as the
+    forward found it (the forward copies it into ``scratch``, where the
+    recompute also writes, so the state moves once per call) and, with
+    ``keep_rng``, from the random state the forward started from."""
+
+    def __init__(self, block, args, inputs, handles, diff_mask, training,
+                 tracked, legacy, keep_rng):
+        self.block, self.training = block, training
+        self.legacy, self.keep_rng = legacy, keep_rng
+        it = iter(inputs)
+        self.args = [NDArray(next(it)) if isinstance(a, NDArray) else a
+                     for a in args]
+        self.diff = [h for h, d in zip(handles, diff_mask) if d]
+        self.aux = [h for h, d in zip(handles, diff_mask) if not d]
+        self.leaves = [h._t.detach().requires_grad_() for h in self.diff]
+        self.wrt = self.leaves + [t for t in inputs if tracked
+                                  and t.is_floating_point()]
+        self.scratch = [torch.empty_like(h._t) for h in self.aux] \
+            if legacy else []
+        self.rng = None
+        self.pack = None
+
+    def run(self, recording, aux=()):
+        """The eager forward over the bound tensors (``aux``, when given,
+        in place of the auxiliary state); sets ``pack``, which wraps
+        output tensors as the block returned its outputs."""
+        with _bound(self.diff + (self.aux if aux else []),
+                    self.leaves + list(aux)), \
+                autograd._RecordingStateScope(recording, self.training):
+            outs = self.block._eager_forward(*self.args)
+        if isinstance(outs, NDArray):
+            self.pack = lambda ts: NDArray(ts[0])
+            return [outs._t]
+        kind = type(outs)
+        self.pack = lambda ts: kind(NDArray(t) for t in ts)
+        return [o._t for o in outs]
+
+    def forward(self):
+        if not self.legacy:
+            return self.run(True)
+        with torch.no_grad():
+            for s, h in zip(self.scratch, self.aux):
+                s.copy_(h._t)
+        if self.keep_rng:
+            self.rng = _rng_state()
+        return self.run(False)
+
+    def backward(self, outs, gouts):
+        if self.legacy:
+            with contextlib.ExitStack() as stack:
+                if self.rng is not None:
+                    stack.enter_context(_rng_restored(self.rng))
+                outs = self.run(True, self.scratch)
+        pairs = [(o, g) for o, g in zip(outs, gouts) if o.requires_grad]
+        if not pairs or not self.wrt:
+            return [None] * len(self.wrt)
+        return list(torch.autograd.grad(
+            [o for o, _ in pairs], self.wrt, [g for _, g in pairs],
+            allow_unused=True, retain_graph=not self.legacy))
+
+
+class _EagerCall:
+    """A recorded call run uncaptured: its halves keep their own graph."""
+
+    def __init__(self, halves):
+        self.halves = halves
+        self.outs = None
+
+    @property
+    def pack(self):
+        return self.halves.pack
+
+    def forward(self, inputs):
+        del inputs  # the halves hold aliases of them
+        self.outs = self.halves.forward()
+        return [o.detach() for o in self.outs]
+
+    def backward(self, gouts):
+        return self.halves.backward(self.outs, gouts)
+
+
+class _ReplayCall:
+    """A recorded call that replays its entry's captured graphs."""
+
+    def __init__(self, entry):
+        self.entry = entry
+        self.pack = entry.pack
+        self.gen = None
+
+    def forward(self, inputs):
+        outs = self.entry.replay_forward(inputs)
+        self.gen = self.entry.gen
+        return outs
+
+    def backward(self, gouts):
+        return self.entry.replay_backward(self.gen, gouts)
+
+
+class _CachedFunction(torch.autograd.Function):
+    """One recorded call of a cached graph as one node of torch's autograd
+    graph. Its tensor arguments are the differentiable parameters' own
+    tensors (and the tracked inputs'), so ``autograd.backward`` routes the
+    gradients to their buffers."""
+
+    @staticmethod
+    def forward(ctx, call, inputs, *tensors):
+        del tensors  # edges of the graph; the call reads its own
+        ctx.call = call
+        outs = call.forward(inputs)
+        ctx.mark_non_differentiable(
+            *[o for o in outs if not o.is_floating_point()])
+        return tuple(outs)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *gouts):
+        return (None, None) + tuple(ctx.call.backward(gouts))
+
+
+class _Entry:
+    """One input signature of a cached graph.
+
+    On a CUDA card the entry warms up once (one uncaptured forward, and
+    backward when it records, on a side stream; the auxiliary state is
+    put back after it), then captures the forward, and the backward when
+    it records, into CUDA graphs sharing one memory pool; every call
+    copies its inputs into the entry's static buffers, replays, and
+    returns fresh copies of the outputs, so an output never changes under
+    its holder. A parameter is read where it lies: BatchNorm's running
+    statistics are written by ``copy_`` inside the graph, and the
+    optimizer writes the weights in place. The gradients a replay returns
+    are the backward graph's own buffers, rewritten by its next replay;
+    ``autograd.backward`` copies them into the gradient buffers at once.
+    ``holds`` tells whether every parameter handle still holds the tensor
+    captured. On the CPU each call runs the same halves eagerly.
+
+    Non-NDArray arguments (None, Python scalars) are baked in at the
+    entry's first call and are not part of its key, as in the JAX
+    package: a later call that passes another value gets the first."""
+
+    def __init__(self, block, args, arrays, handles, diff_mask, training,
+                 recording, tracked):
+        self.block, self.args, self.diff_mask = block, args, diff_mask
+        self.training, self.recording, self.tracked = \
+            training, recording, tracked
+        self.legacy = recording and not _fusedstep.ENABLED
+        self.graphed = arrays[0]._t.is_cuda
+        self.name = _block_name(block)
+        self.gen = 0  # forward replays so far
+        self._awaiting = None  # the replayed call whose backward is due
+        self.pack = None
+        if self.graphed:
+            with torch.cuda.device(arrays[0]._t.device):
+                self._capture(arrays, handles)
+        self.tensors = [h._t for h in handles]
+
+    def holds(self, handles):
+        return len(handles) == len(self.tensors) and all(
+            h._t is t for h, t in zip(handles, self.tensors))
+
+    def _halves(self, inputs, handles, keep_rng):
+        return _Halves(self.block, self.args, inputs, handles,
+                       self.diff_mask, self.training, self.tracked,
+                       self.legacy, keep_rng)
+
+    def _leaves(self, arrays, clone):
+        return [(a._t.detach().clone() if clone else a._t.detach())
+                .requires_grad_(self.tracked and a._t.is_floating_point())
+                for a in arrays]
+
+    def _capture(self, arrays, handles):
+        static = self._leaves(arrays, clone=True)
+        halves = self._halves(static, handles, keep_rng=False)
+        aux = [h._t for h in halves.aux]
+        saved = [t.clone() for t in aux]
+        rng = torch.cuda.get_rng_state()
+
+        def forward():
+            return halves.forward() if self.recording \
+                else halves.run(False)
+
+        def once():
+            outs = forward()
+            if self.recording:
+                halves.backward(outs, [torch.ones_like(o) for o in outs])
+
+        _capture.warm_up(once)
+        with torch.no_grad():
+            for t, s in zip(aux, saved):
+                t.copy_(s)
+        if self.legacy and not torch.equal(rng, torch.cuda.get_rng_state()):
+            _fusedstep.log_fallback(
+                "cachedop", f"{self.name} draws random numbers, which a "
+                "captured recompute would draw anew; its backward keeps "
+                "the forward's residuals instead")
+            self.legacy = halves.legacy = False
+        pool = torch.cuda.graph_pool_handle()
+        self._fwd = _capture.Graph(pool, f"the forward of {self.name}")
+        outs = self._fwd.capture(forward)
+        if self.recording:
+            self._gouts = [torch.zeros_like(o) for o in outs]
+            self._bwd = _capture.Graph(pool, f"the backward of {self.name}")
+            self._grads = self._bwd.capture(
+                lambda: halves.backward(outs, self._gouts))
+        self._static = static
+        self._outs = [o.detach() for o in outs]
+        self.pack = halves.pack
+
+    def replay_forward(self, inputs):
+        with torch.no_grad():
+            for s, t in zip(self._static, inputs):
+                s.copy_(t)
+        self._fwd.replay()
+        self.gen += 1
+        return [o.clone() for o in self._outs]
+
+    def replay_backward(self, gen, gouts):
+        if gen != self.gen:
+            raise MXNetError(
+                f"a backward of hybridized {self.name} ran after a later "
+                "recorded call had overwritten the residuals it reads; "
+                "run each backward before the next recorded call")
+        with torch.no_grad():
+            for s, g in zip(self._gouts, gouts):
+                if g is not None and s.is_floating_point():
+                    s.copy_(g)
+        self._bwd.replay()
+        self._awaiting = None
+        return list(self._grads)
+
+    def __call__(self, arrays, handles):
+        if not self.recording:
+            if self.graphed:
+                return self.pack(self.replay_forward(
+                    [a._t for a in arrays]))
+            halves = self._halves([a._t for a in arrays], handles, False)
+            outs = halves.run(False)
+            return halves.pack(outs)
+        pending = self._awaiting is not None and self._awaiting() is not None
+        if self.graphed and not pending:
+            call = _ReplayCall(self)
+            self._awaiting = weakref.ref(call)
+        else:
+            if pending:
+                _fusedstep.log_fallback(
+                    "cachedop", f"{self.name} was called again under "
+                    "record() before the backward of its last call; such "
+                    "a call runs uncaptured")
+            call = _EagerCall(self._halves(self._leaves(arrays, False),
+                                           handles, True))
+        tensors = [h._t for h, d in zip(handles, self.diff_mask) if d]
+        if self.tracked:
+            tensors += [a._t for a in arrays if a._t.is_floating_point()]
+        outs = _CachedFunction.apply(call, [a._t for a in arrays], *tensors)
+        return call.pack(list(outs))
+
+
+class _CachedGraph:
+    """The CachedOp of a hybridized block: one :class:`_Entry` per input
+    signature (reference: ``src/imperative/cached_op.cc``).
+
+    The key: each NDArray input's (shape, dtype), ``training``,
+    ``recording``, ``inputs_tracked`` (an input requires grad) and
+    ``recording and fusedstep.ENABLED``; the JAX package's last field, the
+    AMP policy, is None until AMP is ported. An entry whose parameter
+    handles no longer hold the tensors it captured (``Parameter.cast``, a
+    re-initialisation) is captured again, cause ``params``. The eager path
+    runs only where the JAX package's does: arguments that are not flat
+    (lists, tuples, keyword arguments) and the first call, which resolves
+    deferred shapes. ``retrace_causes`` lists, in order, why each entry
+    after the first was captured."""
+
+    def __init__(self, block):
+        self.block = block
+        self._cache = {}
+        self._last_key = None
+        self._wobble_logged = False
+        self.retrace_causes = []
+
+    def _param_handles(self, ctx):
+        handles, diff_mask = [], []
+        for _, p in sorted(self.block.collect_params().items()):
+            handles.append(p.data(ctx))
+            diff_mask.append(p.grad_req != "null")
+        return handles, diff_mask
+
+    def __call__(self, args):
+        arrays = [a for a in args if isinstance(a, NDArray)]
+        if not arrays or any(isinstance(a, (list, tuple)) for a in args):
+            return self.block._eager_forward(*args)
+        try:
+            handles, diff_mask = self._param_handles(arrays[0].context)
+        except DeferredInitializationError:
+            return self.block._eager_forward(*args)
+        recording = autograd.is_recording()
+        training = autograd.is_training()
+        tracked = recording and any(a._t.requires_grad for a in arrays)
+        key = (tuple((a.shape, str(a.dtype)) for a in arrays), training,
+               recording, tracked, recording and _fusedstep.ENABLED, None)
+        entry = self._cache.get(key)
+        if entry is not None and entry.holds(handles):
+            if _obs.ENABLED:
+                _obs.CACHEDOP_CACHE_HITS.inc(1, block=entry.name)
+            self._last_key = key
+            return entry(arrays, handles)
+        cause = "params" if entry is not None else self._retrace_cause(key)
+        t0 = time.perf_counter()
+        entry = _Entry(self.block, args, arrays, handles, diff_mask,
+                       training, recording, tracked)
+        out = entry(arrays, handles)  # an entry that fails is not kept
+        self._cache[key] = entry
+        self._last_key = key
+        if cause is not None:
+            self.retrace_causes.append(cause)
+            _logger.info("hybridized %s captured again (%s)", entry.name,
+                         cause)
+        self._check_retrace_budget()
+        if _obs.ENABLED:
+            _obs.record_compile(entry.name, time.perf_counter() - t0, cause)
+        return out
+
+    def _check_retrace_budget(self):
+        """Shape-wobble guard (``MXTPU_RETRACE_BUDGET``): a block that
+        captured more distinct input-shape signatures than the budget is
+        almost always fed an unstabilised input pipeline (partial last
+        batches, unbucketed lengths). Warn once per block."""
+        budget = _fusedstep.retrace_budget()
+        if budget <= 0:
+            return
+        n_shapes = len({k[0] for k in self._cache})
+        if n_shapes <= budget:
+            return
+        name = _block_name(self.block)
+        if _obs.ENABLED:
+            _obs.SHAPE_WOBBLE_TOTAL.inc(1, block=name)
+        if not self._wobble_logged:
+            self._wobble_logged = True
+            _logger.warning(
+                "shape_wobble: block %r has captured %d distinct input-"
+                "shape signatures (budget %d, MXTPU_RETRACE_BUDGET). Pad "
+                "partial batches and bucket variable-length inputs.",
+                name, n_shapes, budget)
+
+    def _retrace_cause(self, new_key):
+        """Why a new entry was needed: the new key against the previous
+        call's (None for the first entry)."""
+        if self._last_key is None:
+            return None
+        o_sig, o_train, o_rec, o_tracked, o_fused, o_amp = self._last_key
+        n_sig, n_train, n_rec, n_tracked, n_fused, n_amp = new_key
+        causes = signature_causes(o_sig, n_sig)
+        if o_train != n_train:
+            causes.append("training")
+        if o_rec != n_rec:
+            causes.append("recording")
+        if o_tracked != n_tracked:
+            causes.append("inputs_tracked")
+        if o_fused != n_fused:
+            causes.append("fused_step")
+        if o_amp != n_amp:
+            causes.append("amp")
+        return "+".join(causes) or "unknown"

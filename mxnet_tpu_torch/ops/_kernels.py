@@ -13,7 +13,9 @@ raises; there is no fallback to the plain PyTorch versions.
 Every source exports ``const char* mxtpu_cuda_error_string(int)`` for
 :func:`check`. Wrappers call :func:`library` for their ``ctypes.CDLL`` and
 add one to ``LAUNCHES[name]`` each time they launch a kernel, so a run
-can show which kernels its main path went through.
+can show which kernels its main path went through. Inside a CUDA-graph
+capture a wrapper launches nothing; the capture takes its counts back and
+each replay adds them (``gluon/_capture.py``).
 """
 
 from __future__ import annotations

@@ -21,6 +21,7 @@ import torch
 from .. import autograd
 from .. import fusedstep as _fusedstep
 from ..base import MXNetError
+from ..gluon.block import _bound
 from ..ndarray.ndarray import NDArray, array
 from ..optimizer import multi_tensor
 from ..optimizer.multi_tensor import is_low_precision_dtype
@@ -253,18 +254,14 @@ class SPMDTrainStep:
     # -- the step ---------------------------------------------------------
     def _run_forward(self, params, x, y):
         """The Gluon forward over ``params`` (bound into the parameter
-        handles for the call) and the mean loss, recorded for backward."""
-        handles = self._handles
-        saved = [h._t for h in handles]
-        try:
-            for h, t in zip(handles, params):
-                h._t = t
-            with autograd._RecordingStateScope(True, True):
-                loss = self.loss_fn(self.block(NDArray(x)), NDArray(y))
-            return loss.data.mean()
-        finally:
-            for h, t in zip(handles, saved):
-                h._t = t
+        handles for the call) and the mean loss, recorded for backward.
+        Hybridized blocks inside run eagerly, as in the JAX step's trace:
+        a captured graph reads the tensors the handles held when it was
+        captured, not the step's own."""
+        with _bound(self._handles, params), \
+                autograd._RecordingStateScope(True, True):
+            loss = self.loss_fn(self.block(NDArray(x)), NDArray(y))
+        return loss.data.mean()
 
     def _loss_and_grads(self, x, y):
         """The loss (a 0-d tensor on the device) and the gradients of the
@@ -322,9 +319,10 @@ class SPMDTrainStep:
 
     def __call__(self, x, y, lr=0.01, sync=True):
         if self._state is None:
-            # resolve deferred init with one predict-mode pass on one row
+            # resolve deferred init with one predict-mode pass on one row,
+            # eager even in a hybridized block (nothing worth capturing)
             raw = _raw(x)
-            with autograd.predict_mode():
+            with _bound(), autograd.predict_mode():
                 self.block(NDArray(raw[0:1] if raw.shape[0] > 1 else raw))
             self.init_state()
         loss = self._step(*self._prepare(x, y, lr))
