@@ -26,12 +26,15 @@ Phases (each prints one line of facts; any failure exits non-zero):
    fused backward (K6) at BERT-base's training shape,
    ``bench_flash_attention``'s causal shape, llama3-8B's head layout with
    a sliding window and at its full causal training shape (T = 8192), a
-   ragged and a causal cross shape; head dim 160, which both packages
+   ragged and a causal cross shape, and Transformer-base's three (encoder
+   self, decoder causal self, and the non-causal cross-attention with
+   T = 120 != S = 128); head dim 160, which both packages
    compute with their plain versions (``flash_plain_*`` and
    ``paged_decode_plain`` counts, no kernel launched); then each timed
    with CUDA events beside its bound, its plain version's time and one
    PyTorch library call computing the same function (K1 and K6 beside
-   SDPA and K2 at BERT-base's and Llama-3-8B's shapes, where K1's O and
+   SDPA and K2 at BERT-base's, Transformer-base's three and Llama-3-8B's
+   shapes; at BERT-base's and Llama-3-8B's, K1's O and
    LSE, K2's gradients and K6's gradients must also repeat bit for bit
    over two calls, ``[determinism]``);
 4. serving parity — a StarCoderBase-1B-width decoder (random weights from
@@ -60,6 +63,20 @@ Phases (each prints one line of facts; any failure exits non-zero):
    accounting, the flash kernels in the profile; a half batch captures a
    second entry (cause ``shape``) and a cast captures again (cause
    ``params``) to the same loss;
+7c. params — ``save_parameters`` of the trained BERT-base and
+   ``load_parameters`` into a net from another seed: outputs equal bit
+   for bit; two saves give the same bytes, the parameters' bytes plus the
+   container's header; a load into a hybridized net that has captured
+   an entry captures nothing and replays the loaded weights' output; a
+   bfloat16 net round-trips bit for bit;
+7d. warmup — ``HybridBlock.warmup`` of a hybridized BERT-base at the
+   buckets (64, 64) and (64, 128) with an Adam trainer: returns 2,
+   weights, gradient buffers and handles restored in place, the first
+   real step captures nothing, 3 steps equal to a net that did not warm
+   up, existing Adam states put back in place;
+7e. aot predict — ``aot_predict_fn`` of BERT-base captured into a CUDA
+   graph per bucket (batch 8, 32, 64): each replay equal to the eager
+   forward, K1 12 times a replay, device ms beside the eager forward's;
 8. trainer fused — the Trainer's multi-tensor Adam update
    (``torch._foreach_*``, the default) against its per-parameter path at
    BERT-base's widths, on two nets from one seed fed the same gradients:
@@ -71,6 +88,19 @@ Phases (each prints one line of facts; any failure exits non-zero):
    are parameters); then the net cast to bfloat16 with
    ``multi_precision``, 2 fused steps, every weight its fp32 master
    rounded, the loss finite;
+8b. transformer parity — Transformer-base MT at its published widths
+   (Vaswani et al. 2017 Table 3 "base": 6 + 6 layers, units 512, hidden
+   2048, 8 heads; shared vocabulary 37000; fp32, dropout 0), batch 32 x
+   source 128 / target 120: one forward + backward with the kernels
+   against one with plain attention (loss 1e-5, gradients 1e-4 of their
+   layer's largest), then a ``hybridize()``d net against an eager one
+   from the same seed;
+8c. transformer train — Adam (beta2 0.98, eps 1e-9, lr 1e-4): one
+   warm-up, 10 timed and one profiled step; the loss must fall, K1 launch
+   18 times per forward and K2's two kernels 18 each per backward (6
+   encoder, 6 decoder causal and 6 cross layers), tallied per shape for
+   the Transformer rows of the kernels line; then the same loop on a
+   ``hybridize()``d net (``[transformer-train-hybrid]``);
 9. resnet parity — ResNet-50 v1 at full width (``bench_resnet``'s
    shapes: batch 128, 224 x 224, 1000 classes, fp32) through
    ``optimize_for("tpu_fused_conv_bn")``: one forward + backward with the
@@ -116,8 +146,10 @@ nine 1x1 shapes beside their bounds, their plain versions and
 ``torch.matmul`` of the bare product, and holds K4's three outputs and K5's
 four equal over two calls at each of those shapes (``[determinism]``).
 
-Then one JSON line listing every ported kernel, the card's name and
-power limit, and as the last line ``{"ok": true, "device": {...}}``.
+Then one JSON line listing every ported kernel (K1 and K2 also once per
+Transformer shape, ``flash_fwd@transformer_enc`` and so on, with the
+launches at that shape in phase 8c), the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 import gc
@@ -272,15 +304,15 @@ def queued_ms(fn, iters):
     return start.elapsed_time(end) / iters, host_ms * 1e3 / iters
 
 
-def sdpa_bwd_ms(qs, ks, vs, g, causal, iters):
+def sdpa_bwd_ms(qs, ks, vs, g, causal, iters, timer=cuda_ms):
     """Mean device milliseconds of SDPA's backward alone: one forward
     outside the timed calls, then ``torch.autograd.grad`` of its output
-    over the kept graph."""
+    over the kept graph, timed by ``timer``."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     o = sdpa(qs, ks, vs, is_causal=causal)
-    ms = cuda_ms(lambda: torch.autograd.grad(o, (qs, ks, vs), g,
-                                             retain_graph=True), iters)
+    ms = timer(lambda: torch.autograd.grad(o, (qs, ks, vs), g,
+                                           retain_graph=True), iters)
     del o
     return ms
 
@@ -474,7 +506,23 @@ FLASH_CASES = {
     "ragged": (2, 4, 4, 1000, 1000, 64, False, 0, False),
     "causal_cross": (4, 4, 4, 128, 512, 64, True, 0, False),
     "llama3_8b_causal": (1, 32, 8, 8192, 8192, 128, True, 0, False),
+    # Transformer-base MT (TRANSFORMER below) at batch 32, source 128,
+    # target 120: the encoder's self-attention, the decoder's causal
+    # self-attention and its cross-attention (T != S, T not a multiple of
+    # the kernels' 64-row tile)
+    "transformer_enc": (32, 8, 8, 128, 128, 64, False, 0, False),
+    "transformer_dec_self": (32, 8, 8, 120, 120, 64, True, 0, False),
+    "transformer_cross": (32, 8, 8, 120, 128, 64, False, 0, False),
 }
+# the cases timed beside their bounds, as rows of the kernels line (the
+# BERT-base rows keep the kernels' own names), and whether the calls are
+# queued behind a spin kernel (``queued_ms``): a Transformer-shape call
+# takes the device for less time than the host takes to launch it, so
+# ``cuda_ms`` would time the host
+FLASH_TIMED = {"bert_base": ("", False),
+               "transformer_enc": ("@transformer_enc", True),
+               "transformer_dec_self": ("@transformer_dec_self", True),
+               "transformer_cross": ("@transformer_cross", True)}
 
 
 def visible_pairs(T, S, causal, window):
@@ -521,16 +569,10 @@ def flash_kernel_phase(dev, gen):
     public autograd op (K1 forward, K2 backward), the LSE from K1 itself,
     and K6's gradients (fed the plain forward's O and LSE), all against
     the plain versions on the same tensors; head dim 160 through the
-    plain route. Then, at the training shape in fp32, each kernel timed
-    beside its bound, its plain version and scaled_dot_product_attention
-    (never used by the port; the K2 rows take its backward alone, timed
-    after one forward), and the delta K2's dq kernel wrote held against
-    the torch expression. Returns the rows of K1 and K2 and the errors
-    of every case."""
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
+    plain route. Then each case of FLASH_TIMED timed
+    (:func:`flash_time_rows`). Returns the rows of K1 and K2 and the
+    errors of every case."""
     from mxnet_tpu_torch.ops.flash_attention import (
-        _cuda_flash_bwd,
         _cuda_flash_bwd_fused,
         _cuda_flash_fwd,
         _torch_flash_bwd,
@@ -539,7 +581,6 @@ def flash_kernel_phase(dev, gen):
     )
 
     from mxnet_tpu_torch.ops import _kernels
-    from mxnet_tpu_torch.ops import flash_attention as fa
 
     errs = {}
     for name, (B, H, KVH, T, S, D, causal, window, native) in \
@@ -613,8 +654,35 @@ def flash_kernel_phase(dev, gen):
         f"flash attention at head dim 160: {counts}, rel {rel:.3e}")
     del q, k, v, g, leaves, out, want, want_o, want_lse
 
-    # timing at BERT-base's training shape, fp32 (the training type)
-    B, H, KVH, T, S, D, causal, window, _ = FLASH_CASES["bert_base"]
+    rows = []
+    for case, (suffix, queued) in FLASH_TIMED.items():
+        rows += flash_time_rows(dev, gen, case, suffix, errs, queued)
+        torch.cuda.empty_cache()
+    return rows, errs
+
+
+def flash_time_rows(dev, gen, case, suffix, errs, queued=False):
+    """K1 and K2's two kernels at ``case``'s shape in fp32 (the training
+    type), each timed beside its bound, its plain version and
+    scaled_dot_product_attention (never used by the port; the K2 rows take
+    its backward alone, timed after one forward), by CUDA events around
+    the calls (``cuda_ms``) or, with ``queued``, around calls queued
+    behind a spin kernel (``queued_ms``); and the delta K2's dq kernel
+    wrote held against the torch expression. Returns the three rows of
+    the kernels line, named with ``suffix``."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops.flash_attention import (
+        _cuda_flash_bwd,
+        _cuda_flash_fwd,
+        _torch_flash_bwd,
+        _torch_flash_fwd,
+    )
+
+    B, H, KVH, T, S, D, causal, window, _ = FLASH_CASES[case]
+    timer = (lambda fn, iters: queued_ms(fn, iters)[0]) if queued \
+        else cuda_ms
     q, k, v, g = flash_inputs(gen, dev, B, H, KVH, T, S, D, torch.float32)
     scale = D ** -0.5
     out, lse = _cuda_flash_fwd(q, k, v, scale, causal, window)
@@ -622,7 +690,7 @@ def flash_kernel_phase(dev, gen):
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
 
     def lib_fwd_bwd():
-        o = sdpa(qs, ks, vs)
+        o = sdpa(qs, ks, vs, is_causal=causal)
         torch.autograd.grad(o, (qs, ks, vs), g)
 
     # the dk/dv kernel reads the delta the dq kernel wrote (dq is timed
@@ -641,26 +709,27 @@ def flash_kernel_phase(dev, gen):
                              (dk, dv), scale, causal, window)
 
     times = {
-        "flash_fwd": (cuda_ms(lambda: _cuda_flash_fwd(
+        "flash_fwd": (timer(lambda: _cuda_flash_fwd(
             q, k, v, scale, causal, window), 50),
-            cuda_ms(lambda: _torch_flash_fwd(q, k, v, scale, causal,
+            timer(lambda: _torch_flash_fwd(q, k, v, scale, causal,
                                              window), 20),
-            cuda_ms(lambda: sdpa(q, k, v), 50)),
+            timer(lambda: sdpa(q, k, v, is_causal=causal), 50)),
     }
-    plain_bwd = cuda_ms(lambda: _torch_flash_bwd(
+    plain_bwd = timer(lambda: _torch_flash_bwd(
         q, k, v, plain_o, plain_lse, g, scale, causal, window), 20)
-    lib_fwd_bwd_ms = cuda_ms(lib_fwd_bwd, 20)
-    lib_bwd = sdpa_bwd_ms(qs, ks, vs, g, causal, 20)
-    times["flash_bwd_dq"] = (cuda_ms(dq_only, 50), plain_bwd, lib_bwd)
-    times["flash_bwd_dkv"] = (cuda_ms(dkv_only, 50), plain_bwd, lib_bwd)
+    lib_fwd_bwd_ms = timer(lib_fwd_bwd, 20)
+    lib_bwd = sdpa_bwd_ms(qs, ks, vs, g, causal, 20, timer)
+    times["flash_bwd_dq"] = (timer(dq_only, 50), plain_bwd, lib_bwd)
+    times["flash_bwd_dkv"] = (timer(dkv_only, 50), plain_bwd, lib_bwd)
     want_delta = (g.float() * out.float()).sum(dim=-1)
     delta_rel = float((delta - want_delta).abs().max()
                       / want_delta.abs().max())
-    say("kernel", case="flash_bwd_dq_delta", rel_err=f"{delta_rel:.2e}",
+    say("kernel", case=f"flash_bwd_dq_delta{suffix}",
+        rel_err=f"{delta_rel:.2e}",
         tol_rel=FLASH_TOL[torch.float32])
     check(delta_rel <= FLASH_TOL[torch.float32],
           f"the delta K2's dq kernel wrote is off by {delta_rel:.3e}")
-    both = cuda_ms(lambda: _cuda_flash_bwd(q, k, v, out, lse, g, scale,
+    both = timer(lambda: _cuda_flash_bwd(q, k, v, out, lse, g, scale,
                                            causal, window), 50)
     work = flash_work(B, H, KVH, T, S, D, causal, window, 4)
     replaces = {"flash_fwd": "mxnet_tpu/ops/flash_attention.py:93",
@@ -675,13 +744,13 @@ def flash_kernel_phase(dev, gen):
         t_ops = tf32x3_ms(ops)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         row = {
-            "name": name,
+            "name": name + suffix,
             "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/" + (
                 "flash_fwd.cu" if name == "flash_fwd" else "flash_bwd.cu"),
             "replaces": replaces[name],
             "launches": None,  # filled from the training phase
-            "max_abs_err": max(errs[("bert_base", torch.float32, w)]
+            "max_abs_err": max(errs[(case, torch.float32, w)]
                                for w in err_of[name]),
             "ms": ms,
             "plain_ms": plain_ms,
@@ -690,17 +759,19 @@ def flash_kernel_phase(dev, gen):
             "library_ms": lib_ms,
         }
         rows.append(row)
-        say("kernel-time", kernel=name, shape=f"B{B}_H{H}_T{T}_D{D}_fp32",
+        say("kernel-time", kernel=name + suffix,
+            shape=f"B{B}_H{H}_T{T}_S{S}_D{D}_causal{int(causal)}_fp32",
             ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             library_ms=f"{lib_ms:.4f}", bound_ms=f"{row['bound_ms']:.5f}",
             bound_by=row["bound_by"], tflops=f"{ops / ms / 1e9:.2f}",
             bound_share=f"{row['bound_ms'] / ms:.4f}",
             bound_cuda_cores_ms=f"{t_cores:.5f}")
-    say("kernel-time", kernel="flash_bwd_dq+dkv", ms=f"{both:.4f}",
+    say("kernel-time", kernel="flash_bwd_dq+dkv" + suffix,
+        ms=f"{both:.4f}",
         library_ms=f"{lib_bwd:.4f}", over_library=f"{both / lib_bwd:.4f}",
         sdpa_fwd_bwd_ms=f"{lib_fwd_bwd_ms:.4f}",
         note='"plain_ms/library_ms of each K2 row are the whole backward"')
-    return rows, errs
+    return rows
 
 
 def determinism_check(case, args):
@@ -1332,20 +1403,20 @@ def serving_phase(net, dev, launches, device_line):
 # phases 6 and 7: BERT-base training through the Gluon loop
 # ---------------------------------------------------------------------------
 
-def bert_setup(ctx, **cut):
+def bert_setup(ctx, seed=SEED, **cut):
     """BERT-base as bench_bert builds it on an accelerator (``cut``
     overrides widths for a rehearsal on the host), Normal(0.02) weights
-    from seed SEED, and its fixed batch (ids and labels from numpy seed
-    SEED), with deferred shapes resolved by one forward."""
+    from ``seed`` (SEED), and its fixed batch (ids and labels from numpy
+    seed SEED), with deferred shapes resolved by one forward."""
     import mxnet_tpu_torch as mx
 
     # the position table's own init="normal" draws from the default
     # generator; the rest from the seeded Normal(0.02)
-    torch.manual_seed(SEED)
+    torch.manual_seed(seed)
     t0 = time.perf_counter()
     net = mx.models.bert_base(dropout=0.0, use_pooler=False,
                               use_classifier=False, **cut)
-    net.initialize(init=mx.initializer.Normal(0.02, seed=SEED), ctx=ctx)
+    net.initialize(init=mx.initializer.Normal(0.02, seed=seed), ctx=ctx)
     vocab = cut.get("vocab_size", BERT_VOCAB)
     rs = np.random.RandomState(SEED)
     x = mx.nd.array(rs.randint(0, vocab, (BERT_BATCH, BERT_SEQ)),
@@ -1371,6 +1442,27 @@ def _fwd_bwd(mx, net, x, y):
     return loss.data.detach().mean()
 
 
+class PlainFlash(torch.autograd.Function):
+    """Attention over the plain versions, for the parity phases only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        from mxnet_tpu_torch.ops.flash_attention import _torch_flash_fwd
+
+        out, lse = _torch_flash_fwd(q, k, v, q.shape[-1] ** -0.5, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from mxnet_tpu_torch.ops.flash_attention import _torch_flash_bwd
+
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_torch_flash_bwd(q, k, v, out, lse, g, q.shape[-1] ** -0.5,
+                                  ctx.causal), None)
+
+
 def train_parity_phase(net, x, y):
     """One forward + backward with the kernels, then the same with
     ``F.flash_attention`` swapped, in this script only, for an autograd
@@ -1382,26 +1474,6 @@ def train_parity_phase(net, x, y):
     weight gradient and not against itself."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ndarray.ndarray import apply
-    from mxnet_tpu_torch.ops.flash_attention import (
-        _torch_flash_bwd,
-        _torch_flash_fwd,
-    )
-
-    class PlainFlash(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, q, k, v, causal):
-            out, lse = _torch_flash_fwd(q, k, v, q.shape[-1] ** -0.5,
-                                        causal)
-            ctx.save_for_backward(q, k, v, out, lse)
-            ctx.causal = causal
-            return out
-
-        @staticmethod
-        def backward(ctx, g):
-            q, k, v, out, lse = ctx.saved_tensors
-            return (*_torch_flash_bwd(q, k, v, out, lse, g,
-                                      q.shape[-1] ** -0.5, ctx.causal),
-                    None)
 
     params = net.collect_params()
     loss_k = float(_fwd_bwd(mx, net, x, y))
@@ -1447,20 +1519,13 @@ STEP_GROUPS = (("flash_attention", ("mxtpu_flash",)),
                ("elementwise", ("elementwise", "unrolled")))
 
 
-def train_phase(net, x, y, launches, steps=10, tag="train"):
-    """The Gluon loop of bench_bert: one warm-up step, ``steps`` timed
-    steps (host clock around synchronised work), one profiled step, whose
-    kernels must include the flash kernels. The launch counts are read
-    over exactly these steps. ``tag`` names the printed lines."""
-    import mxnet_tpu_torch as mx
+def profiled_loop(step, launches, steps):
+    """One warm-up ``step()``, ``steps`` timed steps (host clock around
+    synchronised work), one profiled step. Returns the losses, the launch
+    counts over exactly these steps, the seconds per timed step, the
+    profiled step's device microseconds by kernel name, and its window in
+    microseconds on the host clock."""
     from torch.profiler import ProfilerActivity, profile
-
-    trainer = mx.gluon.Trainer(net.collect_params(), "adam", dict(BERT_ADAM))
-
-    def step():
-        loss = _fwd_bwd(mx, net, x, y)
-        trainer.step(BERT_BATCH)
-        return loss
 
     launches.clear()
     torch.cuda.reset_peak_memory_stats()
@@ -1478,13 +1543,47 @@ def train_phase(net, x, y, launches, steps=10, tag="train"):
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t1) * 1e6
     counts = dict(launches)
-    n_steps = steps + 2
-    losses = [float(v) for v in losses]
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us()
+    return [float(v) for v in losses], counts, step_s, by_name, window_us
+
+
+def say_step_split(tag, by_name, busy):
+    """The profiled step's device time by kind of kernel (STEP_GROUPS)
+    and its eight largest kernels."""
+    groups = {}
+    for name, us in by_name.items():
+        group = next((g for g, keys in STEP_GROUPS if any(
+            k in name.lower() for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + us
+    say(f"{tag}-step-split", **{g: f"{us / 1e3:.3f}ms/{us / busy:.4f}"
+                                for g, us in sorted(groups.items(),
+                                                    key=lambda kv: -kv[1])})
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        say(f"{tag}-step-kernel", ms_per_step=f"{us / 1e3:.4f}",
+            share=f"{us / busy:.4f}", name=f'"{name[:90]}"')
+
+
+def train_phase(net, x, y, launches, steps=10, tag="train"):
+    """The Gluon loop of bench_bert: one warm-up step, ``steps`` timed
+    steps (host clock around synchronised work), one profiled step, whose
+    kernels must include the flash kernels. The launch counts are read
+    over exactly these steps. ``tag`` names the printed lines."""
+    import mxnet_tpu_torch as mx
+
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam", dict(BERT_ADAM))
+
+    def step():
+        loss = _fwd_bwd(mx, net, x, y)
+        trainer.step(BERT_BATCH)
+        return loss
+
+    losses, counts, step_s, by_name, window_us = profiled_loop(
+        step, launches, steps)
+    n_steps = steps + 2
     busy = sum(by_name.values())
     check(busy > 0, "the profiler saw no device time")
     flash = sum(us for n, us in by_name.items() if "flash" in n)
@@ -1500,17 +1599,7 @@ def train_phase(net, x, y, launches, steps=10, tag="train"):
         flash_fwd=counts.get("flash_fwd", 0),
         flash_bwd_dq=counts.get("flash_bwd_dq", 0),
         flash_bwd_dkv=counts.get("flash_bwd_dkv", 0))
-    groups = {}
-    for name, us in by_name.items():
-        group = next((g for g, keys in STEP_GROUPS if any(
-            k in name.lower() for k in keys)), "other")
-        groups[group] = groups.get(group, 0.0) + us
-    say(f"{tag}-step-split", **{g: f"{us / 1e3:.3f}ms/{us / busy:.4f}"
-                                for g, us in sorted(groups.items(),
-                                                    key=lambda kv: -kv[1])})
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        say(f"{tag}-step-kernel", ms_per_step=f"{us / 1e3:.4f}",
-            share=f"{us / busy:.4f}", name=f'"{name[:90]}"')
+    say_step_split(tag, by_name, busy)
     check(all(np.isfinite(losses)), f"non-finite training loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -1618,6 +1707,644 @@ def train_hybrid_phase(ctx, launches, steps=10, **cut):
     recapture_checks("train-hybrid", net,
                      lambda xb, yb: _fwd_bwd(mx, net, xb, yb), x, y)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phases 7c-7e: .params save/load, warmup and aot_predict_fn on BERT-base
+# ---------------------------------------------------------------------------
+
+def _predict(mx, net, *inputs):
+    """The predict-mode forward's output tensors."""
+    with mx.autograd.predict_mode():
+        out = net(*inputs)
+    outs = out if isinstance(out, (tuple, list)) else [out]
+    return [o.data for o in outs]
+
+
+def params_header_bytes(net):
+    """The NDARRAY_V2 container's bytes besides the parameters' data for
+    ``net.save_parameters``: the list header (magic, reserved, count),
+    each blob's magic, storage type, ndim, dims, context and type flag,
+    and the name list (count, then each name's length and bytes)."""
+    params = net._collect_params_with_prefix()
+    blobs = sum(4 + 4 + 4 + 4 * len(p.shape) + 8 + 4
+                for p in params.values())
+    names = 8 + sum(8 + len(k.encode()) for k in params)
+    return 24 + blobs + names
+
+
+def params_phase(trained, x, ctx, **cut):
+    """``save_parameters``/``load_parameters`` at BERT-base's widths:
+
+    1. the trained net saved, loaded into a fresh net built from another
+       seed: the predict-mode outputs ``torch.equal``;
+    2. the same net saved twice: the files equal byte for byte, of the
+       parameters' bytes plus the container's header;
+    3. loaded into a hybridized net that has already captured a
+       predict-mode entry: no new entry (the entry count and
+       ``retrace_causes`` unchanged, every handle keeps its tensor), and
+       the replay after the load gives the loaded weights' output;
+    4. a net cast to bfloat16 saved and loaded into a fresh bfloat16
+       net: every parameter and the output equal bit for bit."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_params_")
+    path, again = os.path.join(tmp, "a.params"), os.path.join(tmp, "b.params")
+    want = _predict(mx, trained, x)
+    t0 = time.perf_counter()
+    trained.save_parameters(path)
+    save_s = time.perf_counter() - t0
+    trained.save_parameters(again)
+    size = os.path.getsize(path)
+    with open(path, "rb") as f1, open(again, "rb") as f2:
+        same_bytes = f1.read() == f2.read()
+    data_bytes = sum(p.data().data.numel() * p.data().data.element_size()
+                     for p in trained.collect_params().values())
+    header = params_header_bytes(trained)
+
+    fresh, _, _ = bert_setup(ctx, seed=SEED + 1, **cut)
+    before = _predict(mx, fresh, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.load_parameters(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = _predict(mx, fresh, x)
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    changed = not all(torch.equal(a, b) for a, b in zip(before, want))
+    del fresh, before, got
+
+    hyb, _, _ = bert_setup(ctx, seed=SEED + 2, **cut)
+    hyb.hybridize()
+    _predict(mx, hyb, x)  # captures the predict-mode entry
+    graph = hyb._cached_graph
+    entries, causes = len(graph._cache), list(graph.retrace_causes)
+    tensors = [p.data().data for p in hyb.collect_params().values()]
+    hyb.load_parameters(path)
+    replayed = _predict(mx, hyb, x)
+    causes_after = list(graph.retrace_causes)
+    same_tensors = all(p.data().data is t for p, t in
+                       zip(hyb.collect_params().values(), tensors))
+    hyb_rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(replayed, want))
+    hyb_bitwise = all(torch.equal(a, b) for a, b in zip(replayed, want))
+    new_entries = len(graph._cache) - entries
+    del hyb, replayed, graph
+
+    trained_bf16 = os.path.join(tmp, "bf16.params")
+    src, _, _ = bert_setup(ctx, seed=SEED + 3, **cut)
+    src.cast("bfloat16")
+    src.save_parameters(trained_bf16)
+    dst, _, _ = bert_setup(ctx, seed=SEED + 4, **cut)
+    dst.cast("bfloat16")
+    dst.load_parameters(trained_bf16)
+    bf16_params = all(torch.equal(a.data().data, b.data().data) for a, b in
+                      zip(src.collect_params().values(),
+                          dst.collect_params().values()))
+    bf16_dtypes = {str(p.data().data.dtype)
+                   for p in dst.collect_params().values()}
+    bf16_out = all(torch.equal(a, b) for a, b in
+                   zip(_predict(mx, src, x), _predict(mx, dst, x)))
+    bf16_size = os.path.getsize(trained_bf16)
+    del src, dst
+    for f in (path, again, trained_bf16):
+        os.remove(f)
+    os.rmdir(tmp)
+    say("params", file_bytes=size, param_bytes=data_bytes,
+        header_bytes=header, save_s=f"{save_s:.3f}", load_s=f"{load_s:.3f}",
+        loaded_equal=equal, fresh_net_differed=changed,
+        saved_twice_same_bytes=same_bytes,
+        hybrid_new_entries=new_entries, hybrid_causes=causes_after,
+        hybrid_handles_kept=same_tensors,
+        hybrid_replay_rel=f"{hyb_rel:.3e}", hybrid_bitwise=hyb_bitwise,
+        bf16_params_equal=bf16_params, bf16_out_equal=bf16_out,
+        bf16_dtypes=sorted(bf16_dtypes), bf16_file_bytes=bf16_size)
+    check(changed, "the fresh net's output already equalled the trained one")
+    check(equal, "the loaded net's output differs from the saved net's")
+    check(same_bytes, "two saves of one net differ")
+    check(size == data_bytes + header, f"file of {size} bytes, want "
+          f"{data_bytes} + {header}")
+    check(new_entries == 0 and causes_after == causes and same_tensors,
+          f"loading into a hybridized net captured {new_entries} entries "
+          f"(causes {causes_after}) or replaced tensors")
+    check(hyb_rel <= 1e-6, f"the replay after the load is off by {hyb_rel}")
+    check(bf16_params and bf16_out and bf16_dtypes == {"torch.bfloat16"},
+          "the bfloat16 net did not round-trip bit for bit")
+
+
+def warmup_phase(ctx, **cut):
+    """``HybridBlock.warmup`` on a hybridized BERT-base with the Adam
+    trainer, at the two buckets (64, 64) and (64, 128), on zero ids and
+    zero labels (the loss reads the labels of the output's length):
+
+    1. it returns 2;
+    2. every weight and gradient buffer equals its value before and each
+       handle holds the same tensor object; the Trainer keeps no state of
+       the warm-up steps and its update counts are as before;
+    3. the first real step at (64, 128) captures no new entry;
+    4. after 3 steps the loss and every weight ``torch.equal`` those of a
+       net from the same seed that did not warm up (dropout 0);
+    5. on that second net, after its steps, a warmup puts its Adam
+       states back in place, every state tensor the same object;
+    and prints the host seconds to the end of step 1 with and without
+    warmup."""
+    import mxnet_tpu_torch as mx
+
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def mlm_loss(out, label):
+        logits = out[-1]
+        return sce(logits, label[:, :logits.shape[1]])
+
+    def steps(net, trainer, n):
+        losses = []
+        for _ in range(n):
+            loss = _fwd_bwd(mx, net, x, y)
+            trainer.step(BERT_BATCH)
+            losses.append(loss)
+        return losses
+
+    buckets = [(BERT_BATCH, BERT_SEQ // 2), (BERT_BATCH, BERT_SEQ)]
+    warm = dict(dtype="int32", ctx=ctx, loss_fn=mlm_loss,
+                label_shape=(BERT_BATCH, BERT_SEQ))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net, x, y = bert_setup(ctx, **cut)
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam", dict(BERT_ADAM))
+    params = list(net.collect_params().values())
+    handles = [(p.data(), p.data().data, p.data().grad.data) for p in params]
+    weights = [p.data().data.clone() for p in params]
+    grads = [p.data().grad.data.clone() for p in params]
+    counts = dict(trainer._optimizer._index_update_count)
+    t1 = time.perf_counter()
+    n = net.warmup(buckets, trainer=trainer, **warm)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    graph = net._cached_graph
+    entries, causes = len(graph._cache), list(graph.retrace_causes)
+    restored = all(torch.equal(p.data().data, w) and
+                   torch.equal(p.data().grad.data, g)
+                   for p, w, g in zip(params, weights, grads))
+    same_objects = all(p.data() is h and p.data().data is t and
+                       p.data().grad.data is g
+                       for p, (h, t, g) in zip(params, handles))
+    no_state = not trainer._fused_states and \
+        trainer._optimizer._index_update_count == counts
+    first = steps(net, trainer, 1)
+    torch.cuda.synchronize()
+    to_step1_warm = time.perf_counter() - t0
+    step1_entries = len(graph._cache) - entries
+    step1_causes = graph.retrace_causes[len(causes):]
+    losses = first + steps(net, trainer, 2)
+    final = [p.data().data.clone() for p in params]
+    losses = [float(v) for v in losses]
+    del net, trainer, graph, handles, weights, grads, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain, _, _ = bert_setup(ctx, **cut)
+    plain.hybridize()
+    ptrainer = mx.gluon.Trainer(plain.collect_params(), "adam",
+                                dict(BERT_ADAM))
+    pfirst = steps(plain, ptrainer, 1)
+    torch.cuda.synchronize()
+    to_step1_plain = time.perf_counter() - t0
+    plosses = [float(v) for v in pfirst + steps(plain, ptrainer, 2)]
+    same_weights = all(torch.equal(a, p.data().data) for a, p in
+                       zip(final, plain.collect_params().values()))
+
+    # a warmup over existing Adam states puts them back in place
+    states = {k: tuple(st) for k, st in ptrainer._fused_states.items()}
+    values = {k: [t.clone() for t in st] for k, st in states.items()}
+    plain.warmup(buckets, trainer=ptrainer, **warm)
+    states_kept = sorted(ptrainer._fused_states) == sorted(states) and all(
+        all(a is b and torch.equal(a, c) for a, b, c in
+            zip(ptrainer._fused_states[k], states[k], values[k]))
+        for k in states)
+    del plain, ptrainer, states, values, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("warmup", returned=n, buckets=buckets, warmup_s=f"{warm_s:.3f}",
+        entries_after_warmup=entries, weights_grads_restored=restored,
+        handles_same_objects=same_objects, trainer_state_restored=no_state,
+        step1_new_entries=step1_entries, step1_causes=step1_causes,
+        loss_warm=[f"{v:.7f}" for v in losses],
+        loss_plain=[f"{v:.7f}" for v in plosses],
+        weights_equal=same_weights, adam_states_kept_in_place=states_kept,
+        host_s_to_step1_warm=f"{to_step1_warm:.3f}",
+        host_s_to_step1_plain=f"{to_step1_plain:.3f}")
+    check(n == 2, f"warmup returned {n}")
+    check(entries == 2, f"warmup left {entries} entries, not 2")
+    check(restored and same_objects and no_state,
+          "warmup did not restore the training state in place")
+    check(step1_entries == 0 and not step1_causes,
+          f"the first step after warmup captured {step1_causes}")
+    check(losses == plosses and same_weights,
+          f"3 steps after warmup differ from 3 without: {losses} {plosses}")
+    check(states_kept, "warmup replaced or changed existing Adam states")
+
+
+AOT_BATCHES = (8, 32, 64)
+
+
+def aot_predict_phase(net, launches, ctx, iters=20):
+    """``aot_predict_fn`` on BERT-base: its function captured per bucket
+    (batch 8, 32, 64 at sequence BERT_SEQ) into a CUDA graph through
+    ``gluon._capture.Graph``, with a static input buffer. Each replay
+    ``torch.equal`` to the eager predict-mode forward; K1 launches once
+    per layer per replay, from the replays' accounting; device ms per
+    replay beside the eager forward's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import _capture
+
+    fn, params = net.aot_predict_fn(ctx=ctx)
+    rs = np.random.RandomState(SEED + 5)
+    for batch in AOT_BATCHES:
+        ids = mx.nd.array(rs.randint(0, BERT_VOCAB, (batch, BERT_SEQ)),
+                          dtype="int32", ctx=ctx).data
+        static = torch.zeros_like(ids)
+        _capture.warm_up(lambda: fn(params, static))
+        graph = _capture.Graph(torch.cuda.graph_pool_handle(),
+                               f"aot_predict_fn at batch {batch}")
+        outs = graph.capture(lambda: fn(params, static))
+        static.copy_(ids)
+        launches.clear()
+        graph.replay()
+        replay_counts = dict(launches)
+        got = [o.clone() for o in outs]
+        want = _predict(mx, net, mx.nd.NDArray(ids))
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        replay_ms = cuda_ms(graph.replay, iters)
+        eager_ms = cuda_ms(lambda: _predict(mx, net, mx.nd.NDArray(ids)),
+                           iters)
+        say("aot-predict", batch=batch, seq=BERT_SEQ, equal_eager=equal,
+            graph_launches=dict(graph.launches),
+            replay_launches=replay_counts, replay_ms=f"{replay_ms:.3f}",
+            eager_ms=f"{eager_ms:.3f}", outputs=len(got))
+        check(equal, f"the captured aot_predict_fn at batch {batch} differs "
+              "from the eager forward")
+        check(replay_counts.get("flash_fwd", 0) == BERT_LAYERS,
+              f"K1 launched {replay_counts} times in one replay")
+        del graph, outs, got, want, static, ids
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 7f-7g: Transformer-base MT (Vaswani et al. 2017), trained
+# ---------------------------------------------------------------------------
+
+# "Attention Is All You Need", Table 3 row "base": 6 + 6 layers, d_model
+# 512, d_ff 2048, 8 heads; §5.1's shared BPE vocabulary of about 37000
+# tokens; the JAX package's max_length 512. Adam with the paper's beta1
+# 0.9, beta2 0.98, eps 1e-9 at lr 1e-4. Batch 32 x source 128 / target
+# 120 tokens: 4096 + 3840 tokens a step
+TRANSFORMER = dict(src_vocab=37000, tgt_vocab=37000, num_layers=6,
+                   units=512, hidden_size=2048, num_heads=8, max_length=512)
+TRANSFORMER_BATCH, TRANSFORMER_SRC, TRANSFORMER_TGT = 32, 128, 120
+TRANSFORMER_ADAM = {"learning_rate": 1e-4, "beta1": 0.9, "beta2": 0.98,
+                    "epsilon": 1e-9}
+
+
+def transformer_setup(ctx, **cut):
+    """Transformer-base at its published widths (``cut`` overrides them
+    for a rehearsal on the host), Normal(0.02) weights from seed SEED,
+    and one fixed batch of source and target tokens and labels from numpy
+    seed SEED, with deferred shapes resolved by one forward. Cuts, all
+    for parity: dropout 0 (the paper has 0.1), no label smoothing and no
+    lr warm-up schedule (the JAX module trains with plain softmax
+    cross-entropy), one fixed batch; depth not cut."""
+    import mxnet_tpu_torch as mx
+
+    cfg = dict(TRANSFORMER, **cut)
+    torch.manual_seed(SEED)  # the position table's own init="normal"
+    t0 = time.perf_counter()
+    net = mx.models.Transformer(dropout=0.0, **cfg)
+    net.initialize(init=mx.initializer.Normal(0.02, seed=SEED), ctx=ctx)
+    rs = np.random.RandomState(SEED)
+    B, S, T = TRANSFORMER_BATCH, TRANSFORMER_SRC, TRANSFORMER_TGT
+    src = mx.nd.array(rs.randint(0, cfg["src_vocab"], (B, S)),
+                      dtype="int32", ctx=ctx)
+    tgt = mx.nd.array(rs.randint(0, cfg["tgt_vocab"], (B, T)),
+                      dtype="int32", ctx=ctx)
+    y = mx.nd.array(rs.randint(0, cfg["tgt_vocab"], (B, T))
+                    .astype(np.float32), ctx=ctx)
+    net(src, tgt)
+    mx.nd.waitall()
+    n_params = sum(p.data().size for p in net.collect_params().values())
+    say("transformer-model", config='"Transformer-base (Vaswani et al. '
+        '2017 Table 3 base, vocab 37000)"', params=n_params, batch=B,
+        src_len=S, tgt_len=T, dtype="float32",
+        init_s=f"{time.perf_counter() - t0:.2f}", ctx=ctx)
+    return net, src, tgt, y
+
+
+def _transformer_fwd_bwd(mx, net, src, tgt, y):
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = sce(net(src, tgt), y)
+    loss.backward()
+    return loss.data.detach().mean()
+
+
+def _relu_masks(net, sink):
+    """Forward hooks on every ReLU activation block of ``net`` that
+    append its output's mask (``out > 0``) to ``sink``; returns the hook
+    handles."""
+    handles = []
+
+    def hook(block, args, out):
+        sink.append(out.data > 0)
+
+    def attach(block):
+        if getattr(block, "_act_type", None) == "relu":
+            handles.append(block.register_forward_hook(hook))
+
+    net.apply(attach)
+    return handles
+
+
+def _checked_flash_calls(errs):
+    """Wrap K1's and K2's launchers so that each call on the path is also
+    held against the plain version on the same tensors (the worst error
+    relative to the largest |value| kept in ``errs``); returns a function
+    that unwraps them."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    fwd, bwd = fa._cuda_flash_fwd, fa._cuda_flash_bwd
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    def checked_fwd(q, k, v, scale, causal, window):
+        out, lse = fwd(q, k, v, scale, causal, window)
+        want = fa._torch_flash_fwd(q, k, v, scale, causal, window)
+        errs["k1"] = max(errs.get("k1", 0.0), rel(out, want[0]),
+                         rel(lse, want[1]))
+        errs["k1_calls"] = errs.get("k1_calls", 0) + 1
+        return out, lse
+
+    def checked_bwd(q, k, v, out, lse, g, scale, causal, window):
+        grads = bwd(q, k, v, out, lse, g, scale, causal, window)
+        want = fa._torch_flash_bwd(q, k, v, out, lse, g, scale, causal,
+                                   window)
+        errs["k2"] = max([errs.get("k2", 0.0)] + [
+            rel(a, b) for a, b in zip(grads, want)])
+        errs["k2_calls"] = errs.get("k2_calls", 0) + 1
+        return grads
+
+    fa._cuda_flash_fwd, fa._cuda_flash_bwd = checked_fwd, checked_bwd
+
+    def undo():
+        fa._cuda_flash_fwd, fa._cuda_flash_bwd = fwd, bwd
+
+    return undo
+
+
+def transformer_parity_phase(ctx, **cut):
+    """Transformer-base with the kernels against attention swapped for
+    the plain versions:
+
+    1. one forward + backward with the kernels, every K1 and K2 call also
+       held against its plain version on the same tensors (FLASH_TOL),
+       then one with ``PlainFlash``: the loss within 1e-5 relative. The
+       gradients of these two runs are printed and not gated: the
+       decoder's FFN is a ReLU, so a pre-activation within rounding of 0
+       takes the other side of the mask when attention sums in another
+       order, and each such flip moves its weight's gradient by a whole
+       token's term (about 1e-2 of the largest in one layer on the H100,
+       no kernel at fault; the flipped masks are counted through forward
+       hooks);
+    2. one forward with the kernels, then its backward twice over the same
+       graph: with K2, and with the plain backward. The masks are the
+       same, so every gradient must agree within TRAIN_GRAD_RTOL of its
+       layer's largest;
+    then a ``hybridize()``d net against an eager one from the same seed,
+    bit for bit expected (the same kernels in the same order): loss 1e-5,
+    gradients TRAIN_GRAD_RTOL."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray.ndarray import apply
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    net, src, tgt, y = transformer_setup(ctx, **cut)
+    params = net.collect_params()
+    masks = {"kernels": [], "plain": []}
+
+    def run(tag):
+        handles = _relu_masks(net, masks[tag])
+        try:
+            loss = float(_transformer_fwd_bwd(mx, net, src, tgt, y))
+        finally:
+            for h in handles:
+                h.detach()
+        return loss, _grads(params)
+
+    errs = {}
+    undo = _checked_flash_calls(errs)
+    try:
+        loss_k, grads_k = run("kernels")
+    finally:
+        undo()
+    kernel_op = mx.nd.flash_attention
+    mx.nd.flash_attention = lambda q, k, v, causal=False, **kw: apply(
+        PlainFlash.apply, q, k, v, causal)
+    try:
+        loss_p, grads_p = run("plain")
+    finally:
+        mx.nd.flash_attention = kernel_op
+    torch.cuda.synchronize()
+    flips = sum(int((a != b).sum()) for a, b in
+                zip(masks["kernels"], masks["plain"]))
+    units = sum(a.numel() for a in masks["kernels"])
+    two_fwd, two_fwd_name = _layer_grad_errors(grads_p, grads_k)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    del grads_p, masks
+
+    with mx.autograd.record():
+        loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(net(src, tgt), y)
+    loss.backward(retain_graph=True)
+    grads_k2 = _grads(params)
+    repeat = all(torch.equal(a, b) for a, b in zip(grads_k2.values(),
+                                                   grads_k.values()))
+    kernel_bwd = fa._cuda_flash_bwd
+    fa._cuda_flash_bwd = fa._torch_flash_bwd
+    try:
+        loss.backward()
+    finally:
+        fa._cuda_flash_bwd = kernel_bwd
+    grads_pb = _grads(params)
+    worst, worst_name = _layer_grad_errors(grads_pb, grads_k2)
+    layers = len(net.encoder)
+    k1, k2 = errs.get("k1", float("inf")), errs.get("k2", float("inf"))
+    say("transformer-parity", loss_kernels=f"{loss_k:.7f}",
+        loss_plain=f"{loss_p:.7f}", loss_rel=f"{loss_rel:.3e}",
+        k1_calls=errs.get("k1_calls", 0), k1_worst_rel=f"{k1:.2e}",
+        k2_calls=errs.get("k2_calls", 0), k2_worst_rel=f"{k2:.2e}",
+        relu_mask_flips=flips, relu_units=units,
+        grad_rel_two_forwards=f"{two_fwd:.3e}",
+        two_forwards_param=two_fwd_name,
+        grad_rel_same_forward=f"{worst:.3e}", worst_param=worst_name,
+        tol_rel=TRAIN_GRAD_RTOL, kernel_grads_repeat=repeat,
+        params=len(grads_k))
+    check(np.isfinite(loss_k) and loss_rel <= 1e-5,
+          "[transformer-parity] kernel loss disagrees with plain attention")
+    check(errs.get("k1_calls", 0) == 3 * layers
+          and errs.get("k2_calls", 0) == 3 * layers,
+          f"[transformer-parity] {errs} kernel calls, not {3 * layers} each")
+    check(k1 <= FLASH_TOL[torch.float32] and k2 <= FLASH_TOL[torch.float32],
+          f"[transformer-parity] a kernel call on the path disagrees with "
+          f"its plain version: {errs}")
+    check(worst <= TRAIN_GRAD_RTOL, f"[transformer-parity] {worst_name} "
+          f"gradient of the plain backward disagrees with K2's: {worst}")
+    del net, grads_k, grads_k2, grads_pb, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    eager, src, tgt, y = transformer_setup(ctx, **cut)
+    loss_e = float(_transformer_fwd_bwd(mx, eager, src, tgt, y))
+    grads_e = _grads(eager.collect_params())
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    hyb, src, tgt, y = transformer_setup(ctx, **cut)
+    hyb.hybridize()
+    loss_h = float(_transformer_fwd_bwd(mx, hyb, src, tgt, y))
+    grads_h = _grads(hyb.collect_params())
+    worst, worst_name = _layer_grad_errors(grads_h, grads_e)
+    bitwise = loss_h == loss_e and all(
+        torch.equal(a, b) for a, b in zip(grads_h.values(), grads_e.values()))
+    loss_rel = abs(loss_h - loss_e) / abs(loss_e)
+    entries = list(hyb._cached_graph._cache.values())
+    say("transformer-hybrid-parity", loss_eager=f"{loss_e:.7f}",
+        loss_hybrid=f"{loss_h:.7f}", loss_rel=f"{loss_rel:.3e}",
+        worst_grad_rel=f"{worst:.3e}", worst_param=worst_name,
+        tol_rel=TRAIN_GRAD_RTOL, bitwise=bitwise, params=len(grads_e),
+        entries=len(entries), graphed=[e.graphed for e in entries],
+        fwd_graph_launches=dict(entries[0]._fwd.launches)
+        if entries and entries[0].graphed else {},
+        bwd_graph_launches=dict(entries[0]._bwd.launches)
+        if entries and entries[0].graphed else {})
+    check(np.isfinite(loss_h) and loss_rel <= 1e-5,
+          "the hybridized Transformer's loss disagrees with the eager net's")
+    check(worst <= TRAIN_GRAD_RTOL, f"hybridized Transformer {worst_name} "
+          f"gradient disagrees with the eager net's: {worst}")
+    del hyb, grads_e, grads_h, entries
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _flash_shape_tally(tally):
+    """Wrap K1's and K2's launchers so that each call is also tallied by
+    (kernel, T, S, causal); returns a function that unwraps them. The
+    kernels' own ``LAUNCHES`` counts are untouched."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    fwd, bwd = fa._cuda_flash_fwd, fa._launch_flash_bwd
+
+    def tally_fwd(q, k, v, scale, causal, window):
+        key = ("flash_fwd", q.shape[2], k.shape[2], bool(causal))
+        tally[key] = tally.get(key, 0) + 1
+        return fwd(q, k, v, scale, causal, window)
+
+    def tally_bwd(kernel, q, k, *args, **kw):
+        causal = args[-2] if len(args) >= 2 else kw.get("causal")
+        key = (f"flash_bwd_{kernel}", q.shape[2], k.shape[2], bool(causal))
+        tally[key] = tally.get(key, 0) + 1
+        return bwd(kernel, q, k, *args, **kw)
+
+    fa._cuda_flash_fwd, fa._launch_flash_bwd = tally_fwd, tally_bwd
+
+    def undo():
+        fa._cuda_flash_fwd, fa._launch_flash_bwd = fwd, bwd
+
+    return undo
+
+
+def transformer_train_phase(ctx, launches, steps=10, hybrid=False, **cut):
+    """Transformer-base through the Gluon loop (Adam as the paper's): one
+    warm-up step, ``steps`` timed steps, one profiled step. The loss must
+    be finite and fall; K1 must launch 18 times per forward and K2's two
+    kernels 18 times each per backward (6 encoder self, 6 decoder causal
+    self and 6 decoder cross layers), and the flash kernels must be in
+    the profile. Returns the launch counts and, per Transformer case of
+    FLASH_CASES, the launches of each kernel at its shape, tallied as the
+    eager loop calls the launchers. With ``hybrid`` the net is
+    ``hybridize()``d and captured by one forward + backward before the
+    counted steps (every step a replay of the captured graphs, the counts
+    from the replays' accounting, no tally)."""
+    import mxnet_tpu_torch as mx
+
+    tag = "transformer-train-hybrid" if hybrid else "transformer-train"
+    net, src, tgt, y = transformer_setup(ctx, **cut)
+    if hybrid:
+        net.hybridize()
+        # the entry's capture (and its uncaptured warm-up run) before the
+        # counted steps, as train_hybrid_phase's parity call does
+        _transformer_fwd_bwd(mx, net, src, tgt, y)
+    layers = len(net.encoder)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               dict(TRANSFORMER_ADAM))
+
+    def step():
+        loss = _transformer_fwd_bwd(mx, net, src, tgt, y)
+        trainer.step(TRANSFORMER_BATCH)
+        return loss
+
+    tally = {}
+    undo = _flash_shape_tally(tally) if not hybrid else (lambda: None)
+    try:
+        losses, counts, step_s, by_name, window_us = profiled_loop(
+            step, launches, steps)
+    finally:
+        undo()
+    n_steps = steps + 2
+    busy = sum(by_name.values())
+    check(busy > 0, "the profiler saw no device time")
+    flash = sum(us for n, us in by_name.items() if "flash" in n)
+    B, S, T = TRANSFORMER_BATCH, TRANSFORMER_SRC, TRANSFORMER_TGT
+    say(tag, device_steps=n_steps,
+        step_ms=f"{step_s * 1e3:.3f}",
+        src_tokens_per_s=f"{B * S / step_s:.1f}",
+        tgt_tokens_per_s=f"{B * T / step_s:.1f}",
+        loss_first=f"{losses[0]:.5f}", loss_last=f"{losses[-1]:.5f}",
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        reserved_gb=f"{torch.cuda.memory_reserved() / 1e9:.2f}",
+        profiled_busy_ms=f"{busy / 1e3:.3f}",
+        profiled_idle_share=f"{1 - busy / window_us:.4f}",
+        flash_share=f"{flash / busy:.4f}",
+        flash_fwd=counts.get("flash_fwd", 0),
+        flash_bwd_dq=counts.get("flash_bwd_dq", 0),
+        flash_bwd_dkv=counts.get("flash_bwd_dkv", 0),
+        by_shape={f"{k[0]}:T{k[1]}_S{k[2]}_c{int(k[3])}": v
+                  for k, v in sorted(tally.items())})
+    say_step_split(tag, by_name, busy)
+    check(flash > 0, f"[{tag}] the profiler saw no flash kernel")
+    check(all(np.isfinite(losses)), f"non-finite Transformer loss {losses}")
+    check(losses[-1] < losses[0], f"Transformer loss did not fall: {losses}")
+    per_step = 3 * layers
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(counts.get(name, 0) == per_step * n_steps,
+              f"{name} launched {counts.get(name, 0)} times in {n_steps} "
+              f"Transformer steps, not {per_step} per step")
+        check(hybrid or sum(v for k, v in tally.items() if k[0] == name)
+              == counts.get(name, 0), f"{name}'s shape tally {tally} does "
+              "not add up to its launches")
+    by_case = {}
+    for case in ("transformer_enc", "transformer_dec_self",
+                 "transformer_cross"):
+        _, _, _, cT, cS, _, causal, _, _ = FLASH_CASES[case]
+        by_case[case] = {name: tally.get((name, cT, cS, causal), 0)
+                         for name in ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv")}
+    del net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, by_case
 
 
 # ---------------------------------------------------------------------------
@@ -2661,14 +3388,29 @@ def main():
     train_parity_phase(bert, x, y)
     counts = train_phase(bert, x, y, _kernels.LAUNCHES)
     for r in flash_rows:
-        r["launches"] = counts[r["name"]]
-    del bert, x, y
-    torch.cuda.empty_cache()
+        if "@" not in r["name"]:
+            r["launches"] = counts[r["name"]]
     train_hybrid_phase(mx.gpu(0), _kernels.LAUNCHES)
     gc.collect()  # blocks hold themselves in cycles; so do their graphs
     torch.cuda.empty_cache()
+    params_phase(bert, x, mx.gpu(0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    warmup_phase(mx.gpu(0))
+    aot_predict_phase(bert, _kernels.LAUNCHES, mx.gpu(0))
+    del bert, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
     trainer_fused_phase(mx.gpu(0))
     torch.cuda.empty_cache()
+
+    transformer_parity_phase(mx.gpu(0))
+    counts, by_case = transformer_train_phase(mx.gpu(0), _kernels.LAUNCHES)
+    transformer_train_phase(mx.gpu(0), _kernels.LAUNCHES, hybrid=True)
+    for r in flash_rows:
+        kernel, _, case = r["name"].partition("@")
+        if case:
+            r["launches"] = by_case[case][kernel]
 
     net, fused, x, y, marked, build = resnet_setup(mx.gpu(0))
     resnet_parity_phase(net, fused, x, y, marked, build, _kernels.LAUNCHES,

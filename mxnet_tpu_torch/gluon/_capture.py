@@ -19,6 +19,11 @@ K-step superstep, the serving decode chunk) can reuse it:
   it as the graph's own count; each replay adds that count. So
   ``LAUNCHES`` counts the launches that ran, captured or not.
 
+Python's garbage collector is off while a graph is captured: blocks sit
+in reference cycles, and a collection that frees a dropped block's
+graphs in the middle of a capture releases their memory pool, which the
+stream capture refuses (``cudaErrorStreamCaptureInvalidated``).
+
 A capture that fails (an operation that synchronises with the host, such
 as ``.item()``, or anything else the stream capture refuses) raises
 ``MXNetError``; nothing falls back to the eager path. torch ends the
@@ -30,6 +35,7 @@ gives the generator a fresh state at the same seed and offset.
 from __future__ import annotations
 
 import collections
+import gc
 
 import torch
 
@@ -73,6 +79,8 @@ class Graph:
         """Capture ``fn()`` and return what it returned (tensors in the
         pool, rewritten by every replay)."""
         before = collections.Counter(_kernels.LAUNCHES)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self._graph, pool=self._pool):
                 out = fn()
@@ -81,6 +89,8 @@ class Graph:
             raise MXNetError(f"capturing {self._what} as a CUDA graph failed: "
                              f"{type(err).__name__}: {err}") from err
         finally:
+            if collecting:
+                gc.enable()
             self.launches = _kernels.LAUNCHES - before
             _kernels.LAUNCHES.clear()
             _kernels.LAUNCHES.update(before)

@@ -16,12 +16,19 @@ under ``autograd.record()`` its backward, as CUDA graphs
 forward or backward instead of one per operator. On the CPU the same
 entry runs both halves eagerly, so the key, the gradient routing and the
 write-back of auxiliary state are the same code on both.
+
+``save_parameters``/``load_parameters`` write and read the NDARRAY_V2
+``.params`` container keyed by the structural names of
+``_collect_params_with_prefix`` (``encoder.transformer_cells.0.ln1.gamma``),
+the same keys and bytes as the JAX package, so a file either package
+writes loads in the other.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import re
 import threading
 import time
 import weakref
@@ -33,7 +40,8 @@ from .. import autograd
 from .. import fusedstep as _fusedstep
 from .. import observability as _obs
 from ..base import MXNetError
-from ..ndarray.ndarray import NDArray
+from ..context import current_context
+from ..ndarray.ndarray import NDArray, zeros
 from . import _capture
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
@@ -115,12 +123,23 @@ class Block:
         self._empty_prefix = prefix == ""
         self._prefix, self._params = _BlockScope.create(prefix, params,
                                                         self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
         self._scope = _BlockScope(self)
         self._children = {}
         self._reg_params = {}
+        self._forward_hooks = []
+        self._forward_pre_hooks = []
 
     def _alias(self):
         return self.__class__.__name__.lower()
+
+    def __repr__(self):
+        s = "{name}(\n{modstr}\n)"
+        modstr = "\n".join(
+            f"  ({key}): {_indent(repr(block), 2)}"
+            for key, block in self._children.items())
+        return s.format(name=self.__class__.__name__, modstr=modstr)
 
     def __setattr__(self, name, value):
         if isinstance(value, Block):
@@ -134,25 +153,57 @@ class Block:
         return self._prefix
 
     @property
+    def name(self):
+        return self._name
+
+    @property
     def params(self):
         return self._params
 
     def name_scope(self):
         return self._scope
 
-    def collect_params(self) -> ParameterDict:
+    def collect_params(self, select=None) -> ParameterDict:
         """This block's and its children's parameters, keyed by full
-        name."""
+        name; ``select``, a regular expression, keeps the names it
+        matches (``re.match``)."""
         ret = ParameterDict(self._params.prefix)
-        ret.update(self.params)
+        if not select:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({k: v for k, v in self.params.items()
+                        if pattern.match(k)})
         for child in self._children.values():
-            ret.update(child.collect_params())
+            ret.update(child.collect_params(select=select))
         return ret
 
     def register_child(self, block, name=None):
         if name is None:
             name = str(len(self._children))
         self._children[name] = block
+
+    def register_forward_hook(self, hook):
+        """``hook(block, args, out)`` after each call; returns a handle
+        whose ``detach()`` removes it. Inside a hybridized block's cached
+        graph a child's hooks run when an entry is built, not on its
+        replays, as they run at trace time in the JAX package."""
+        self._forward_hooks.append(hook)
+        return _HookHandle(self._forward_hooks, hook)
+
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, args)`` before each call (see
+        :meth:`register_forward_hook`)."""
+        self._forward_pre_hooks.append(hook)
+        return _HookHandle(self._forward_pre_hooks, hook)
+
+    def apply(self, fn):
+        """``fn(block)`` on every child, depth first, then on this
+        block; returns this block."""
+        for child in self._children.values():
+            child.apply(fn)
+        fn(self)
+        return self
 
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):
@@ -179,11 +230,134 @@ class Block:
     def zero_grad(self):
         self.collect_params().zero_grad()
 
+    def reset_ctx(self, ctx):
+        """Move every parameter to ``ctx`` (new handles)."""
+        self.collect_params().reset_ctx(ctx)
+
+    def _collect_params_with_prefix(self, prefix=""):
+        """Parameters keyed by their structural names: the attribute
+        names of the registered parameters, behind the children's
+        registration names (attribute names, or ``"0"``, ``"1"``, ... for
+        ``add``), joined by dots: the keys of a ``.params`` file."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + k: v for k, v in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Write every parameter's data to ``filename`` in the NDARRAY_V2
+        container, keyed by structural name, from the host; committed
+        through ``resilience.checkpoint.atomic_replace``, so a process
+        stopped mid-write leaves the previous file whole."""
+        del deduplicate
+        from ..ndarray import ndarray as nd
+        from ..resilience.checkpoint import atomic_replace
+
+        params = self._collect_params_with_prefix()
+        arrays = {}
+        for k, p in params.items():
+            p._check_initialized()
+            arrays[k] = next(iter(p._data.values()))
+        atomic_replace(filename, lambda tmp: nd.save(tmp, arrays))
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load a ``.params`` file written by :meth:`save_parameters` (of
+        either package). A parameter that holds tensors is written in
+        place (``Parameter._load_init``); a file of full parameter names
+        goes through ``collect_params().load`` with this block's prefix
+        restored, as in the JAX package."""
+        from ..ndarray.ndarray import _load_host
+
+        loaded = _load_host(filename)
+        params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
+        # legacy full-prefix format fallback
+        if loaded and (not params or (
+                next(iter(loaded)) not in params
+                and next(iter(loaded)) in self.collect_params().keys())):
+            self.collect_params().load(
+                filename, ctx, allow_missing, ignore_extra, self.prefix,
+                cast_dtype=cast_dtype, dtype_source=dtype_source)
+            return
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise MXNetError(
+                        f"Parameter {name} is missing in file {filename}")
+        for name in loaded:
+            if name not in params:
+                if not ignore_extra:
+                    raise MXNetError(
+                        f"Parameter {name} loaded from file {filename} is "
+                        "not present in the Block")
+                continue
+            params[name]._load_init(loaded[name], ctx, cast_dtype=cast_dtype,
+                                    dtype_source=dtype_source)
+
+    def save(self, prefix):
+        self.save_parameters(prefix + "-model.params")
+
     def __call__(self, *args, **kwargs):
-        return self.forward(*args, **kwargs)
+        fire = not getattr(_TRACE_STATE, "mute_hooks", False)
+        if fire:
+            for hook in self._forward_pre_hooks:
+                hook(self, args)
+        out = self.forward(*args, **kwargs)
+        if fire:
+            for hook in self._forward_hooks:
+                hook(self, args, out)
+        return out
 
     def forward(self, *args):
         raise NotImplementedError
+
+    def summary(self, *inputs):
+        """Print (and return) a table of every block, indented by depth,
+        with the number of elements of the parameters it owns."""
+        del inputs
+        summary = []
+
+        def walk(block, depth):
+            n_params = 0
+            for p in block.params.values():
+                if p.shape and all(s > 0 for s in p.shape):
+                    n = 1
+                    for s in p.shape:
+                        n *= s
+                    n_params += n
+            summary.append(("  " * depth + block.__class__.__name__,
+                            n_params))
+            for c in block._children.values():
+                walk(c, depth + 1)
+
+        walk(self, 0)
+        lines = ["-" * 50, f"{'Layer':<38}{'Params':>12}", "=" * 50]
+        total = 0
+        for name, n in summary:
+            lines.append(f"{name:<38}{n:>12}")
+            total += n
+        lines += ["=" * 50, f"Total params: {total}", "-" * 50]
+        out = "\n".join(lines)
+        print(out)
+        return out
+
+
+class _HookHandle:
+    def __init__(self, hooks, hook):
+        self._hooks, self._hook = hooks, hook
+
+    def detach(self):
+        if self._hook in self._hooks:
+            self._hooks.remove(self._hook)
+
+
+def _indent(s, num):
+    return ("\n" + " " * num).join(s.split("\n"))
 
 
 class HybridBlock(Block):
@@ -271,6 +445,108 @@ class HybridBlock(Block):
 
         return _opt(self, backend=backend, strict=strict)
 
+    def warmup(self, shapes, dtype="float32", ctx=None, loss_fn=None,
+               trainer=None, label_shape=None, label_dtype="float32"):
+        """Build this block's cached-graph entries for a declared set of
+        input shapes, so that the first real step (or request) replays.
+
+        ``shapes``: one full input shape (batch dimension included) or a
+        list of them. With only ``shapes`` the predict-mode forward runs
+        once per shape. With ``loss_fn`` the recording forward and
+        backward run (``loss_fn(out, label)`` on zero inputs and zero
+        labels of ``label_shape``, default ``(batch,)``), and with
+        ``trainer`` also ``trainer.step``. The weights, the gradient
+        buffers, the optimizer's states and update counts and the random
+        generators' states are put back afterwards, in place: every
+        parameter handle keeps its tensor, so the entries built here stay
+        valid. Returns the number of shapes run."""
+        if isinstance(shapes, (tuple, list)) and shapes and \
+                not isinstance(shapes[0], (tuple, list)):
+            shapes = [tuple(shapes)]  # one bare shape, tuple or list
+        ctx = ctx or current_context()
+        if trainer is not None and loss_fn is None:
+            raise MXNetError("warmup(trainer=...) requires loss_fn")
+        params = [p for _, p in sorted(self.collect_params().items())]
+        if any(p._data is None for p in params):
+            # resolve deferred shapes with one eager predict pass
+            with autograd.predict_mode():
+                self(zeros(tuple(shapes[0]), ctx, dtype))
+            params = [p for _, p in sorted(self.collect_params().items())]
+        rng = _rng_state()
+        saved = _snapshot_training_state(params, trainer) \
+            if loss_fn is not None else None
+        try:
+            for shape in shapes:
+                x = zeros(tuple(shape), ctx, dtype)
+                if loss_fn is None:
+                    with autograd.predict_mode():
+                        out = self(x)
+                    outs = out if isinstance(out, (list, tuple)) else [out]
+                    for o in outs:
+                        o.wait_to_read()
+                    continue
+                lshape = tuple(label_shape) if label_shape is not None \
+                    else (int(shape[0]),)
+                y = zeros(lshape, ctx, label_dtype)
+                with autograd.record():
+                    loss = loss_fn(self(x), y)
+                loss.backward()
+                if trainer is not None:
+                    trainer.step(int(shape[0]))
+                loss.wait_to_read()
+            return len(shapes)
+        finally:
+            if saved is not None:
+                _restore_training_state(params, trainer, saved)
+            _set_rng_state(rng)
+
+    def aot_predict_fn(self, ctx=None, dtype="float32", sample_shape=None):
+        """This block's predict-mode forward as a function of its
+        parameters: returns ``(fn, param_tensors)`` where
+        ``fn(param_tensors, x)`` runs the forward with the parameter
+        handles bound to ``param_tensors`` (the current parameters'
+        tensors, in sorted-name order, by default) and returns the output
+        tensor (a tuple for several outputs).
+
+        ``fn`` records nothing (``torch.no_grad()``, predict mode: dropout
+        off, BatchNorm on its running statistics), runs nested hybridized
+        blocks eagerly (it never touches a cached graph), puts every
+        handle back when it returns or raises, and draws any random
+        number from the CPU generator seeded 0 (and from the card's,
+        seeded 0, outside a capture). It can be captured as it stands into
+        a CUDA graph (``gluon._capture.Graph``), one per input shape, with
+        a static input buffer. ``sample_shape`` (batch dimension
+        included) resolves deferred shapes with one eager pass."""
+        ctx = ctx or current_context()
+        params = [p for _, p in sorted(self.collect_params().items())]
+        if sample_shape is not None and any(p._data is None for p in params):
+            with autograd.predict_mode():
+                self(zeros(tuple(sample_shape), ctx, dtype))
+            params = [p for _, p in sorted(self.collect_params().items())]
+        handles = [p.data(ctx) for p in params]
+
+        def fn(param_tensors, x):
+            if not isinstance(x, torch.Tensor):
+                x = torch.as_tensor(x, device=handles[0].data.device
+                                    if handles else None)
+            with torch.no_grad(), _fixed_rng(x.device), \
+                    _bound(handles, param_tensors), \
+                    autograd._RecordingStateScope(False, False):
+                outs = self._eager_forward(NDArray(x))
+            if isinstance(outs, NDArray):
+                return outs._t
+            return tuple(o._t for o in outs)
+
+        return fn, [h.data for h in handles]
+
+    def export(self, path, epoch=0):
+        """Not in the port yet: ``export`` traces ``hybrid_forward`` with
+        symbols, and the port has no ``symbol/`` layer (ROADMAP A13)."""
+        raise MXNetError(
+            f"{self.__class__.__name__}.export({path!r}, {epoch}) needs the "
+            "symbol/ layer (symbol JSON + .params, ROADMAP A13), which the "
+            "port does not have yet; save_parameters writes the weights")
+
 
 # ---------------------------------------------------------------------------
 # the cached graph
@@ -344,6 +620,126 @@ def _rng_restored(state):
         yield
 
 
+def _set_rng_state(state):
+    """Put the default generators back to ``state`` (from
+    :func:`_rng_state`)."""
+    cpu, cuda = state
+    torch.set_rng_state(cpu)
+    if cuda is not None:
+        torch.cuda.set_rng_state(cuda)
+
+
+@contextlib.contextmanager
+def _fixed_rng(device):
+    """Inside: the CPU generator (and, outside a CUDA-graph capture, the
+    card's) starts from seed 0; after, both are as before."""
+    cuda = device.type == "cuda" and \
+        not torch.cuda.is_current_stream_capturing()
+    with torch.random.fork_rng(devices=[device] if cuda else []):
+        torch.default_generator.manual_seed(0)
+        if cuda:
+            torch.cuda.default_generators[
+                device.index if device.index is not None
+                else torch.cuda.current_device()].manual_seed(0)
+        yield
+
+
+@contextlib.contextmanager
+def _hooks_muted(muted=True):
+    """Inside (when ``muted``): blocks called skip their forward hooks,
+    as an entry's replays and re-runs do."""
+    prev = getattr(_TRACE_STATE, "mute_hooks", False)
+    _TRACE_STATE.mute_hooks = muted or prev
+    try:
+        yield
+    finally:
+        _TRACE_STATE.mute_hooks = prev
+
+
+def _copy_opt_state(st):
+    if isinstance(st, (list, tuple)):
+        return type(st)(_copy_opt_state(s) for s in st)
+    if isinstance(st, NDArray):
+        return NDArray(st.data.detach().clone())
+    if isinstance(st, torch.Tensor):
+        return st.detach().clone()
+    return st
+
+
+def _put_back_opt_state(st, saved):
+    """Write ``saved`` (from :func:`_copy_opt_state`) into ``st`` in
+    place; False when their structures differ."""
+    if isinstance(st, (list, tuple)):
+        return isinstance(saved, (list, tuple)) and len(st) == len(saved) \
+            and all([_put_back_opt_state(a, b) for a, b in zip(st, saved)])
+    t = st.data if isinstance(st, NDArray) else st
+    v = saved.data if isinstance(saved, NDArray) else saved
+    if isinstance(t, torch.Tensor):
+        if not isinstance(v, torch.Tensor) or t.shape != v.shape:
+            return False
+        with torch.no_grad():
+            t.copy_(v)
+        return True
+    return st is saved or st == saved
+
+
+def _snapshot_training_state(params, trainer):
+    """Copies of the weights, gradient buffers and optimizer state (the
+    eager per-parameter ``_opt_state``, the Trainer's fused states, its
+    update counts) before warmup steps run."""
+    weights, grads, opt = [], [], []
+    for p in params:
+        hs = p.list_data() if p._data is not None else []
+        weights.append([h.data.detach().clone() for h in hs])
+        grads.append([h.grad.data.detach().clone() for h in hs
+                      if h.grad is not None])
+        had = "_opt_state" in p.__dict__
+        opt.append((had, _copy_opt_state(p.__dict__.get("_opt_state"))))
+    saved = {"w": weights, "g": grads, "opt": opt}
+    if trainer is not None:
+        saved["fused"] = {name: _copy_opt_state(st)
+                          for name, st in trainer._fused_states.items()}
+        saved["counts"] = dict(trainer._optimizer._index_update_count)
+        saved["num_update"] = trainer._optimizer.num_update
+    return saved
+
+
+def _restore_training_state(params, trainer, saved):
+    """Put back what :func:`_snapshot_training_state` copied, into the
+    same tensors: every handle keeps its tensor and gradient buffer, and
+    an optimizer state that existed keeps its tensors, so neither a
+    captured graph nor the Trainer's plan sees a new tensor. A state
+    created during warmup is dropped; the Trainer's plan is rebuilt over
+    the states kept at its next step."""
+    with torch.no_grad():
+        for p, ws, gs, (had, st) in zip(params, saved["w"], saved["g"],
+                                        saved["opt"]):
+            if p._data is None:
+                continue
+            hs = p.list_data()
+            for h, w in zip(hs, ws):
+                h.data.copy_(w)
+            for h, g in zip([h for h in hs if h.grad is not None], gs):
+                h.grad.data.copy_(g)
+            cur = p.__dict__.get("_opt_state")
+            if had and not ("_opt_state" in p.__dict__
+                            and _put_back_opt_state(cur, st)):
+                p._opt_state = st
+            elif not had and "_opt_state" in p.__dict__:
+                del p._opt_state
+    if trainer is not None:
+        fused = saved["fused"]
+        for name in list(trainer._fused_states):
+            st = trainer._fused_states[name]
+            if name not in fused or not _put_back_opt_state(st, fused[name]):
+                del trainer._fused_states[name]
+        for name, st in fused.items():
+            trainer._fused_states.setdefault(name, st)
+        trainer._optimizer._index_update_count = dict(saved["counts"])
+        trainer._optimizer.num_update = saved["num_update"]
+        trainer._invalidate_fused()
+
+
 class _Halves:
     """One call's forward and backward over fixed tensors: ``inputs`` and
     the parameters' own, each differentiable one through a leaf that
@@ -409,6 +805,7 @@ class _Halves:
             with contextlib.ExitStack() as stack:
                 if self.rng is not None:
                     stack.enter_context(_rng_restored(self.rng))
+                stack.enter_context(_hooks_muted())
                 outs = self.run(True, self.scratch)
         pairs = [(o, g) for o, g in zip(outs, gouts) if o.requires_grad]
         if not pairs or not self.wrt:
@@ -506,6 +903,7 @@ class _Entry:
         self.graphed = arrays[0]._t.is_cuda
         self.name = _block_name(block)
         self.gen = 0  # forward replays so far
+        self.calls = 0
         self._awaiting = None  # the replayed call whose backward is due
         self.pack = None
         if self.graphed:
@@ -555,12 +953,14 @@ class _Entry:
             self.legacy = halves.legacy = False
         pool = torch.cuda.graph_pool_handle()
         self._fwd = _capture.Graph(pool, f"the forward of {self.name}")
-        outs = self._fwd.capture(forward)
-        if self.recording:
-            self._gouts = [torch.zeros_like(o) for o in outs]
-            self._bwd = _capture.Graph(pool, f"the backward of {self.name}")
-            self._grads = self._bwd.capture(
-                lambda: halves.backward(outs, self._gouts))
+        with _hooks_muted():  # the warm-up ran them
+            outs = self._fwd.capture(forward)
+            if self.recording:
+                self._gouts = [torch.zeros_like(o) for o in outs]
+                self._bwd = _capture.Graph(pool,
+                                           f"the backward of {self.name}")
+                self._grads = self._bwd.capture(
+                    lambda: halves.backward(outs, self._gouts))
         self._static = static
         self._outs = [o.detach() for o in outs]
         self.pack = halves.pack
@@ -588,6 +988,14 @@ class _Entry:
         return list(self._grads)
 
     def __call__(self, arrays, handles):
+        # the children's hooks run while the entry is built (its first
+        # eager run or its warm-up), never again, as at trace time in the
+        # JAX package
+        with _hooks_muted(self.graphed or self.calls > 0):
+            self.calls += 1
+            return self._call(arrays, handles)
+
+    def _call(self, arrays, handles):
         if not self.recording:
             if self.graphed:
                 return self.pack(self.replay_forward(

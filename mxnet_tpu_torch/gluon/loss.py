@@ -1,4 +1,11 @@
-"""Gluon losses (reference: ``mxnet_tpu/gluon/loss.py``)."""
+"""Gluon losses (reference: ``mxnet_tpu/gluon/loss.py``).
+
+Each loss computes what the JAX package's computes, its quirks included
+(``L2Loss`` halves ``weight``; ``TripletLoss`` sums over every axis but
+the batch axis and weights after the margin; ``CTCLoss`` returns the
+per-example loss without a mean), so that both packages give the same
+numbers on the same inputs.
+"""
 
 from __future__ import annotations
 
@@ -13,14 +20,44 @@ def _apply_weighting(F, loss, weight=None, sample_weight=None):
     return loss
 
 
+def _reshape_like(F, x, y):
+    return F.reshape_like(x, y)
+
+
 class Loss(HybridBlock):
     def __init__(self, weight, batch_axis, **kwargs):
         super().__init__(**kwargs)
         self._weight = weight
         self._batch_axis = batch_axis
 
+    def __repr__(self):
+        return (f"{self.__class__.__name__}(batch_axis={self._batch_axis}, "
+                f"w={self._weight})")
+
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+class L2Loss(Loss):
+    def __init__(self, weight=1.0, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.square(label - pred)
+        loss = _apply_weighting(F, loss, self._weight / 2, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class L1Loss(Loss):
+    def __init__(self, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.abs(label - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
 class SoftmaxCrossEntropyLoss(Loss):
@@ -48,10 +85,177 @@ class SoftmaxCrossEntropyLoss(Loss):
             if self._sparse_label:
                 loss = -F.pick(pred, label, axis=self._axis, keepdims=True)
             else:
-                label = F.reshape_like(label, pred)
+                label = _reshape_like(F, label, pred)
                 loss = -F.sum(pred * label, axis=self._axis, keepdims=True)
         loss = _apply_weighting(F, loss, self._weight, sample_weight)
         return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_sigmoid = from_sigmoid
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None,
+                       pos_weight=None):
+        label = _reshape_like(F, label, pred)
+        if not self._from_sigmoid:
+            if pos_weight is None:
+                loss = F.relu(pred) - pred * label + \
+                    F.Activation(-F.abs(pred), act_type="softrelu")
+            else:
+                log_weight = 1 + F.broadcast_mul(pos_weight - 1, label)
+                loss = pred - pred * label + log_weight * (
+                    F.Activation(-F.abs(pred), act_type="softrelu")
+                    + F.relu(-pred))
+        else:
+            eps = 1e-12
+            if pos_weight is None:
+                loss = -(F.log(pred + eps) * label
+                         + F.log(1. - pred + eps) * (1. - label))
+            else:
+                loss = -(F.broadcast_mul(F.log(pred + eps) * label,
+                                         pos_weight)
+                         + F.log(1. - pred + eps) * (1. - label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
+
+
+class KLDivLoss(Loss):
+    def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._axis = axis
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        loss = label * (F.log(label + 1e-12) - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification loss over ``ops/ctc.py``
+    (blank 0, labels padded with 0); the per-example loss, shape (N,)."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        batch_axis = label_layout.find("N")
+        super().__init__(weight, batch_axis, **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.transpose(pred, axes=(1, 0, 2))  # -> (T, N, C)
+        if self._label_layout == "TN":
+            label = F.transpose(label, axes=(1, 0))
+        loss = F.ctc_loss(pred, label, pred_lengths, label_lengths)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class HuberLoss(Loss):
+    def __init__(self, rho=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._rho = rho
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.abs(label - pred)
+        loss = F.where(loss > self._rho,
+                       loss - 0.5 * self._rho,
+                       (0.5 / self._rho) * F.square(loss))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class HingeLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.relu(self._margin - pred * label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class SquaredHingeLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.square(F.relu(self._margin - pred * label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class LogisticLoss(Loss):
+    def __init__(self, weight=None, batch_axis=0, label_format="signed",
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._label_format = label_format
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        if self._label_format == "signed":
+            label = (label + 1.0) / 2.0
+        loss = F.relu(pred) - pred * label + \
+            F.Activation(-F.abs(pred), act_type="softrelu")
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class TripletLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, positive, negative,
+                       sample_weight=None):
+        positive = _reshape_like(F, positive, pred)
+        negative = _reshape_like(F, negative, pred)
+        loss = F.sum(F.square(positive - pred) - F.square(negative - pred),
+                     axis=self._batch_axis, exclude=True)
+        loss = F.relu(loss + self._margin)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class CosineEmbeddingLoss(Loss):
+    def __init__(self, weight=None, batch_axis=0, margin=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, input1, input2, label, sample_weight=None):
+        input1 = F.reshape(input1, shape=(
+            -1, input1.shape[-1] if input1.ndim > 1 else 1))
+        input2 = F.reshape(input2, shape=(
+            -1, input2.shape[-1] if input2.ndim > 1 else 1))
+        label = F.reshape(label, shape=(-1, 1))
+        cos_sim = self._cosine_similarity(F, input1, input2)
+        y_1 = label == 1
+        y_minus_1 = label == -1
+        loss = y_1 * (1 - cos_sim) + y_minus_1 * F.relu(
+            cos_sim - self._margin)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+    def _cosine_similarity(self, F, x, y, axis=-1):
+        x_norm = F.norm(x, axis=axis).reshape((-1, 1))
+        y_norm = F.norm(y, axis=axis).reshape((-1, 1))
+        xy = F.sum(x * y, axis=axis).reshape((-1, 1))
+        eps_arr = F.full((1, 1), 1e-12, ctx=x.context)
+        return xy / F.broadcast_maximum(x_norm * y_norm, eps_arr)

@@ -101,6 +101,12 @@ class Dense(HybridBlock):
                                num_hidden=self._units, flatten=self._flatten)
         return self.act(out) if self.act is not None else out
 
+    def __repr__(self):
+        shape = self.weight.shape
+        return (f"Dense({shape[1] if shape and len(shape) > 1 else None} -> "
+                f"{shape[0] if shape else None}, "
+                f"{'linear' if self.act is None else self.act._act_type})")
+
 
 class Activation(HybridBlock):
     def __init__(self, activation, **kwargs):
@@ -118,6 +124,9 @@ class Activation(HybridBlock):
                 return x.with_relu()
         return F.Activation(x, act_type=self._act_type)
 
+    def __repr__(self):
+        return f"Activation({self._act_type})"
+
 
 class Dropout(HybridBlock):
     """Dropout in training mode only; rate 0 is the identity."""
@@ -131,6 +140,9 @@ class Dropout(HybridBlock):
         if self._rate > 0:
             return F.Dropout(x, p=self._rate, axes=self._axes)
         return F.identity(x)
+
+    def __repr__(self):
+        return f"Dropout(p = {self._rate}, axes={self._axes})"
 
 
 class LayerNorm(HybridBlock):
@@ -216,6 +228,10 @@ class BatchNorm(HybridBlock):
         return F.BatchNorm(x, gamma, beta, running_mean, running_var,
                            **dict(k, axis=self._effective_axis(x)))
 
+    def __repr__(self):
+        in_channels = self.gamma.shape[0] if self.gamma.shape else None
+        return f"BatchNorm(axis={self._axis}, in_channels={in_channels})"
+
 
 class Flatten(HybridBlock):
     """Collapse every axis but the first."""
@@ -226,6 +242,9 @@ class Flatten(HybridBlock):
             # order so the flattened vector matches NCHW-trained weights
             x = F.transpose(x, axes=(0, 3, 1, 2))
         return F.flatten(x)
+
+    def __repr__(self):
+        return "Flatten"
 
 
 class Embedding(HybridBlock):
@@ -244,3 +263,6 @@ class Embedding(HybridBlock):
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim,
                            output_dim=self._output_dim)
+
+    def __repr__(self):
+        return f"Embedding({self._input_dim} -> {self._output_dim})"

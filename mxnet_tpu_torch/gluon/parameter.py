@@ -16,7 +16,7 @@ import torch
 from .. import initializer
 from ..base import MXNetError
 from ..context import Context, current_context
-from ..ndarray.ndarray import NDArray, _device, torch_dtype
+from ..ndarray.ndarray import NDArray, _device, array, torch_dtype
 
 
 class DeferredInitializationError(MXNetError):
@@ -25,6 +25,13 @@ class DeferredInitializationError(MXNetError):
 
 def _shape_known(shape):
     return shape is not None and all(s > 0 for s in shape)
+
+
+def _dtype_name(dtype):
+    """``"float32"`` for a torch dtype, a numpy dtype or a name."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).split(".")[1]
+    return dtype if isinstance(dtype, str) else _np.dtype(dtype).name
 
 
 def _contexts(ctx):
@@ -121,6 +128,50 @@ class Parameter:
             data[c] = arr
         self._data = data
 
+    def _load_init(self, data, ctx=None, cast_dtype=False,
+                   dtype_source="current"):
+        """Load from a saved array (an NDArray or a tensor; reference:
+        ``Parameter._load_init``). A known shape must match. With
+        ``cast_dtype`` and ``dtype_source="current"`` the data is cast to
+        the parameter's dtype; otherwise the parameter takes the saved
+        dtype's name, as the JAX package does. A parameter that already
+        holds tensors is written in place (converted to each tensor's
+        type), so its handles keep their tensors and a captured graph or
+        a Trainer's plan over them stays valid; one that does not is
+        created from the data on ``ctx`` (default: the contexts it was
+        initialised or deferred on), ending a deferred initialisation."""
+        t = data.data if isinstance(data, NDArray) else data
+        if _shape_known(self._shape):
+            if tuple(t.shape) != tuple(self._shape):
+                raise MXNetError(
+                    f"Failed loading Parameter {self.name}: shape mismatch "
+                    f"saved {tuple(t.shape)} vs expected {self._shape}")
+        else:
+            self._shape = tuple(t.shape)
+        if cast_dtype and dtype_source == "current":
+            t = t.to(torch_dtype(self.dtype))
+        else:
+            self.dtype = _dtype_name(t.dtype)
+        if ctx is None:
+            ctx = list(self._data) if self._data is not None else (
+                self._deferred_init[1] if self._deferred_init is not None
+                else None)
+        ctx = _contexts(ctx)
+        self._deferred_init = None
+        t = t.detach()
+        with torch.no_grad():
+            if self._data is not None:
+                for arr in self._data.values():
+                    arr.data.copy_(t)
+                return
+            data = {}
+            for c in ctx:
+                arr = NDArray(t.to(_device(c), copy=True))
+                if self.grad_req != "null":
+                    arr.attach_grad(self.grad_req)
+                data[c] = arr
+            self._data = data
+
     # -- access ----------------------------------------------------------
     def _check_initialized(self):
         if self._data is not None:
@@ -162,6 +213,26 @@ class Parameter:
     def list_grad(self):
         self._check_initialized()
         return [d.grad for d in self._data.values()]
+
+    def list_ctx(self):
+        """The contexts the parameter lives on (or is deferred to)."""
+        if self._data is None and self._deferred_init is not None:
+            return self._deferred_init[1]
+        self._check_initialized()
+        return list(self._data)
+
+    def reset_ctx(self, ctx):
+        """Move the parameter to ``ctx`` (a context or a list): new
+        handles holding the current values; a deferred parameter is
+        deferred to ``ctx`` instead."""
+        ctx = _contexts(ctx)
+        if self._data is not None:
+            host = next(iter(self._data.values())).data.detach()
+            self._data = None
+            self._load_init(host, ctx)
+        elif self._deferred_init is not None:
+            init, _, default_init = self._deferred_init
+            self._deferred_init = (init, ctx, default_init)
 
     def set_data(self, data):
         """Overwrite every copy with ``data`` (an NDArray, tensor or numpy
@@ -205,6 +276,35 @@ class Parameter:
                 arr.grad._t = arr.grad._t.to(dt)
 
 
+class Constant(Parameter):
+    """Non-differentiable constant parameter (reference:
+    ``gluon.Constant``); ``value`` is an NDArray, a tensor or an array
+    on the host."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = NDArray(value.detach().cpu()) if isinstance(
+                value, torch.Tensor) else array(value, ctx=Context("cpu"))
+        self.value = value
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=_dtype_name(value.data.dtype),
+                         init=_ConstantInit(value))
+
+
+class _ConstantInit(initializer.Initializer):
+    """Writes the constant's value (by name suffix as every initializer
+    dispatches, so only weight-like names take it, as in the JAX
+    package)."""
+
+    def __init__(self, value):
+        super().__init__()
+        self.value = value
+
+    def _init_weight(self, _, arr):
+        with torch.no_grad():
+            arr.data.copy_(self.value.data)
+
+
 class ParameterDict:
     """Prefix-scoped parameter dictionary (reference: ``ParameterDict``)."""
 
@@ -216,6 +316,10 @@ class ParameterDict:
     @property
     def prefix(self):
         return self._prefix
+
+    def __repr__(self):
+        s = "\n".join(repr(p) for p in self._params.values())
+        return f"{self._prefix}(\n{s}\n)"
 
     def __getitem__(self, key):
         return self._params[key]
@@ -250,6 +354,17 @@ class ParameterDict:
         param = self._params[name] = Parameter(name, **kwargs)
         return param
 
+    def get_constant(self, name, value=None):
+        """The constant ``prefix + name``, created from ``value`` if it
+        does not exist."""
+        name = self._prefix + name
+        if name in self._params:
+            return self._params[name]
+        if value is None:
+            raise MXNetError(f"No constant named {name}")
+        c = self._params[name] = Constant(name, value)
+        return c
+
     def update(self, other):
         for k, v in other.items():
             if k in self._params and self._params[k] is not v:
@@ -267,3 +382,50 @@ class ParameterDict:
     def zero_grad(self):
         for p in self._params.values():
             p.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for p in self._params.values():
+            p.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` (``grad_req``, ``lr_mult``, ...) of
+        every parameter."""
+        for p in self._params.values():
+            setattr(p, name, value)
+
+    def save(self, filename, strip_prefix=""):
+        """Save every parameter's data under its full name, less
+        ``strip_prefix``, in the NDARRAY_V2 container."""
+        from ..ndarray import ndarray as nd
+
+        arg_dict = {}
+        for param in self._params.values():
+            name = param.name
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            arg_dict[name] = param.list_data()[0]
+        nd.save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix="", cast_dtype=False,
+             dtype_source="current"):
+        """Load a file of full names (``arg:``/``aux:`` prefixes dropped,
+        ``restore_prefix`` put in front) into the parameters."""
+        from ..ndarray.ndarray import _load_host
+
+        loaded = _load_host(filename)
+        loaded = {restore_prefix + k.replace("arg:", "").replace("aux:", ""):
+                  v for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in loaded:
+                    raise MXNetError(
+                        f"Parameter {name} missing in file {filename}")
+        for name, data in loaded.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise MXNetError(
+                        f"Parameter {name} in file but not in dict")
+                continue
+            self._params[name]._load_init(data, ctx, cast_dtype=cast_dtype,
+                                          dtype_source=dtype_source)

@@ -8,7 +8,10 @@ host).
 from .ndarray import (  # noqa: F401
     NDArray,
     array,
+    full,
+    load,
     ones,
+    save,
     waitall,
     zeros,
 )

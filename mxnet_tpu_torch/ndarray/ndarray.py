@@ -236,6 +236,40 @@ class NDArray:
     def __neg__(self):
         return apply(torch.neg, self)
 
+    def __abs__(self):
+        return apply(torch.abs, self)
+
+    # comparisons return the input's floating type (1.0 / 0.0), as MXNet's
+    # broadcast_equal family does (float32 for integer inputs)
+    def _compare(self, fn, other):
+        def op(a, b):
+            r = fn(a, b)
+            dt = a.dtype if a.is_floating_point() else torch.float32
+            return r.to(dt)
+
+        return self._binop(op, other)
+
+    def __eq__(self, o):
+        return self._compare(torch.eq, o)
+
+    def __ne__(self, o):
+        return self._compare(torch.ne, o)
+
+    def __lt__(self, o):
+        return self._compare(torch.lt, o)
+
+    def __le__(self, o):
+        return self._compare(torch.le, o)
+
+    def __gt__(self, o):
+        return self._compare(torch.gt, o)
+
+    def __ge__(self, o):
+        return self._compare(torch.ge, o)
+
+    def __hash__(self):
+        return id(self)
+
 
 # ---------------------------------------------------------------------------
 # creation
@@ -276,8 +310,85 @@ def ones(shape, ctx=None, dtype="float32") -> NDArray:
     return _filled(1, shape, ctx, dtype)
 
 
+def full(shape, val, ctx=None, dtype="float32") -> NDArray:
+    return _filled(val, shape, ctx, dtype)
+
+
 def waitall():
     """Wait for all queued device work (a CUDA sync, where deferred
     device errors surface); nothing to wait for on the CPU."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# save / load: the NDARRAY_V2 container shared with the JAX package
+# ---------------------------------------------------------------------------
+
+
+def save(fname, data):
+    """Save NDArrays (one, a list, or a ``{name: NDArray}`` dict) in the
+    reference binary format (``NDArray::Save``, magic ``NDARRAY_V2``
+    inside the 0x112 list container), written from the host. The file
+    loads in the JAX package's ``mx.nd.load`` and in reference MXNet. A
+    dtype the container has no flag for (bool) makes the whole file an
+    ``.npz``, as in the JAX package; ``load`` reads both (bfloat16 is
+    written as float32 there)."""
+    from . import serialization
+
+    if isinstance(data, NDArray):
+        arrays, names = [data], []
+    elif isinstance(data, (list, tuple)):
+        arrays, names = list(data), []
+    elif isinstance(data, dict):
+        names = list(data.keys())
+        arrays = [data[k] for k in names]
+    else:
+        raise TypeError(f"cannot save type {type(data)}")
+    if not all(isinstance(a, NDArray) for a in arrays):
+        raise TypeError("nd.save takes NDArrays")
+    tensors = [a._t for a in arrays]
+    try:
+        for t in tensors:
+            serialization.flag_of(t.dtype)
+    except MXNetError:
+        payload = ({f"__mxtpu_list_{i}": a.asnumpy()
+                    for i, a in enumerate(arrays)} if not names else
+                   {k: a.asnumpy() for k, a in zip(names, arrays)})
+        with open(fname, "wb") as f:  # exact fname (savez appends .npz)
+            _np.savez(f, **payload)
+        return
+    serialization.save_params(fname, tensors, names)
+
+
+def _load_host(fname):
+    """What ``fname`` holds, as CPU tensors: a list, or a dict when the
+    file names its arrays."""
+    from . import serialization
+
+    fmt = serialization.sniff_format(fname)
+    if fmt == "ndarray_v2":
+        tensors, names = serialization.load_params(fname)
+        return dict(zip(names, tensors)) if names else tensors
+    if fmt != "npz":
+        raise MXNetError(f"{fname} is neither an MXNet .params file nor "
+                         "an .npz")
+    with _np.load(fname, allow_pickle=False) as z:
+        keys = list(z.keys())
+        if keys and all(k.startswith("__mxtpu_list_") for k in keys):
+            keys.sort(key=lambda k: int(k.rsplit("_", 1)[1]))
+            return [torch.from_numpy(_np.array(z[k])) for k in keys]
+        return {k: torch.from_numpy(_np.array(z[k])) for k in keys}
+
+
+def load(fname):
+    """Load what :func:`save` (or the JAX package, or reference MXNet)
+    wrote: a list of NDArrays, or a dict when the file names them. The
+    arrays keep the file's dtypes and are placed on the current context
+    (the first CUDA card unless a ``with mx.cpu():`` block says
+    otherwise)."""
+    dev = _device(None)
+    res = _load_host(fname)
+    if isinstance(res, dict):
+        return {k: NDArray(t.to(dev)) for k, t in res.items()}
+    return [NDArray(t.to(dev)) for t in res]

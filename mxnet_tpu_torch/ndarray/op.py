@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from .. import autograd
+from ..ops import ctc as _ctc
 from ..ops import flash_attention as _fa
 from ..ops import fused_conv_bn as _fcbn
 from ..ops import math as _math
@@ -50,6 +51,13 @@ Convolution = _wrapped(_nn.convolution, "Convolution")
 Pooling = _wrapped(_nn.pooling, "Pooling")
 flatten = _wrapped(_shape.flatten, "flatten")
 Flatten = flatten
+norm = _wrapped(_math.norm, "norm")
+where = _wrapped(_math.where, "where")
+abs = _wrapped(torch.abs, "abs")  # noqa: A001
+square = _wrapped(torch.square, "square")
+log = _wrapped(torch.log, "log")
+broadcast_maximum = _wrapped(torch.maximum, "broadcast_maximum")
+ctc_loss = _wrapped(_ctc.ctc_loss, "ctc_loss")
 relu = _wrapped(torch.relu, "relu")
 sigmoid = _wrapped(torch.sigmoid, "sigmoid")
 maximum = _wrapped(torch.maximum, "maximum")
@@ -94,6 +102,7 @@ def broadcast_mul(lhs, rhs):
     return lhs * rhs
 
 
+
 def Dropout(data, p=0.5, axes=()):
     """Dropout in training mode (``autograd.record()`` or
     ``train_mode()``); the identity otherwise."""
@@ -126,9 +135,10 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
 
 __all__ = ["Activation", "BatchNorm", "Convolution", "Dropout",
            "Embedding", "Flatten", "FullyConnected", "LayerNorm",
-           "LeakyReLU", "Pooling", "broadcast_mul", "cast", "expand_dims",
-           "flash_attention", "flatten", "identity", "log_softmax",
-           "logsumexp", "maximum", "mean", "pick", "relu", "reshape",
-           "reshape_like", "sigmoid", "slice_axis", "sum", "take",
-           "transpose", "zeros_like"] + sorted(
+           "LeakyReLU", "Pooling", "abs", "broadcast_maximum",
+           "broadcast_mul", "cast", "ctc_loss", "expand_dims",
+           "flash_attention", "flatten", "identity", "log", "log_softmax",
+           "logsumexp", "maximum", "mean", "norm", "pick", "relu",
+           "reshape", "reshape_like", "sigmoid", "slice_axis", "square",
+           "sum", "take", "transpose", "where", "zeros_like"] + sorted(
                n for n in _optimizer_ops.OPS if not n.startswith("_"))

@@ -46,3 +46,17 @@ def log_softmax(data, axis=-1):
 def cast(data, dtype="float32"):
     return data.to(torch_dtype(dtype))
 
+
+
+def norm(data, ord=2, axis=None, keepdims=False):  # noqa: A002
+    """The L2 norm (``ord=1``: the sum of absolute values) over ``axis``
+    (every axis when None), as the JAX package's ``norm``."""
+    ax = _axes(axis, False, data.dim())
+    if ord == 1:
+        return data.abs().sum(dim=ax, keepdim=keepdims)
+    return torch.sqrt(torch.square(data).sum(dim=ax, keepdim=keepdims))
+
+
+def where(condition, x, y):
+    """``x`` where ``condition`` is non-zero, else ``y``."""
+    return torch.where(condition.bool(), x, y)
