@@ -126,6 +126,37 @@ Phases (each prints one line of facts; any failure exits non-zero):
    within 1e-5, gradients bit for bit or within K5's float64 gate), one
    recording entry, K4, K5-dW and K5-dX 30 times per step from the
    replays, and the same shape and cast recaptures;
+10c. nn layers — each layer of the rest of ``gluon.nn`` (the 1-D and 3-D
+   convs, the transposed convs, the 1-D and 3-D pools, ReflectionPad2D,
+   SyncBatchNorm, InstanceNorm, GroupNorm, LeakyReLU, PReLU, ELU, SELU,
+   Swish, Lambda and a captured HybridLambda) at a width users run: one
+   forward and backward on the card against the same block loaded from
+   its ``.params`` on the host in float64 (NN_LAYER_RTOL); plain PyTorch,
+   no kernel of the port, and each line says so;
+10d. zoo — each family's canonical net at full width (ZOO_NETS: alexnet,
+   vgg16, vgg16_bn, squeezenet1.0/1.1, densenet121, mobilenet1.0,
+   mobilenetv2_1.0 at 224 x 224, inceptionv3 at 299 x 299; 1000 classes,
+   batch ZOO_BATCH) built with ``get_model``: its parameter count equal to
+   the JAX package's (ZOO_PARAMS); an eager and a ``hybridize()``d net
+   from one seed, one SGD step each with every Dropout at rate 0, loss
+   and gradients equal (bit for bit expected); then with the Dropout
+   rates restored, the ms and images/s of an eager and of a replayed step
+   and the device's busy ms and idle share of each;
+10e. mobilenet parity — MobileNet v1 and MobileNetV2 1.0 at batch 128 x
+   224 x 224 through ``optimize_for`` with phase 9's checks (every K4/K5
+   call against plain and float64, ``k5_grad_gate`` with its TF32
+   control, the loss against plain K4/K5 and the un-fused net): 13 and
+   36 K4 calls a forward and as many of K5's two kernels a backward; in
+   v2 7 of the K4 calls take a prologue, all with relu off, and the K4
+   calls and the prologue calls have MOBILENETV2_1X1's shapes;
+10f. mobilenet train — MobileNetV2 1.0 as phase 10 trains ResNet-50
+   (MOBILENET_SGD: SGD momentum 0.9, wd 4e-5, the lr where the JAX
+   reference's loss falls): one warm-up step, 10 timed steps, one profiled
+   step, the device time split (cuDNN convs, the depthwise 3x3s among
+   them, K4, K5 dW, K5 dX, BN and element-wise kernels, the SGD update),
+   idle share and peak memory; the loss must fall, 36 launches of each of
+   K4, K5-dW and K5-dX a step;
+10g. mobilenet train hybrid — phase 10b on MobileNetV2 1.0;
 11. llama parity — Llama-3-8B at its published widths cut to 2 decoder
    layers (meta-llama/Meta-Llama-3-8B ``config.json``: vocab 128256,
    hidden 4096, intermediate 14336, 32 heads over 8 kv heads, rope theta
@@ -141,15 +172,20 @@ Phases (each prints one line of facts; any failure exits non-zero):
 
 Phase 3 also checks K4 and K5's two kernels against their plain versions
 (fp32, bf16 and fp16, with and without the BatchNorm prologue, at ResNet-50's
-stage shapes and two ragged ones), times them at each of ResNet-50's
-nine 1x1 shapes beside their bounds, their plain versions and
-``torch.matmul`` of the bare product, and holds K4's three outputs and K5's
-four equal over two calls at each of those shapes (``[determinism]``).
+stage shapes, two ragged ones, MobileNetV2 1.0's extremes and
+mobilenetv2_0.75's 12 channels), times them at each of ResNet-50's nine
+and MobileNetV2 1.0's 21 1x1 shapes (its 7 prologue calls with their
+prologue, relu off) beside their bounds, their plain
+versions and ``torch.matmul`` of the bare product, and holds K4's three
+outputs and K5's four equal over two calls at each of ResNet-50's shapes
+(``[determinism]``).
 
 Then one JSON line listing every ported kernel (K1 and K2 also once per
 Transformer shape, ``flash_fwd@transformer_enc`` and so on, with the
-launches at that shape in phase 8c), the card's name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``.
+launches at that shape in phase 8c; K4 and K5 also per MobileNetV2 1.0
+step, ``fused_fwd@mobilenetv2_1.0`` and so on, with the launches of phase
+10f), the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.
 """
 
 import gc
@@ -217,6 +253,60 @@ RESNET_1X1 = ((401408, 64, 64, 1), (401408, 64, 256, 4),
               (100352, 512, 128, 3), (25088, 256, 1024, 6),
               (25088, 1024, 256, 5), (6272, 512, 2048, 3),
               (6272, 2048, 512, 2))
+# MobileNet v1 and v2 at multiplier 1.0 (phases 10e-10g) as bench_resnet
+# feeds ResNet-50: batch 128 at 224 x 224, labels in [0, 10), fp32; SGD
+# momentum 0.9 with Sandler et al. 2018's weight decay 4e-5 (section 6.1;
+# their RMSProp is not in the port's path) at bench_resnet's lr 0.05: on
+# this seed-0 batch from Xavier init the JAX reference's own loss falls
+# over 12 steps from 7.096 to 2.242 at 0.05 (to 3.058 at 0.005)
+# (tools/resnet_loss_trajectory.py --model mobilenetv2_1.0, PERF.md)
+MOBILENET_BATCH, MOBILENET_SIZE = 128, 224
+MOBILENET_SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 4e-5}
+# stride-1 1x1 convs optimize_for marks: v1's 13 pointwise convs; v2's
+# 17 expansions, 17 projections, the 320 -> 1280 conv and the classifier
+MOBILENET_FUSED = {"mobilenet1.0": 13, "mobilenetv2_1.0": 36}
+# MobileNetV2 1.0's fused convs as (M = N * H * W, K -> N, calls per step,
+# of them with a prologue) at batch 128, from the net's own calls (36 in
+# 21 shapes, 72.2 GFLOP a forward); the prologue calls, all with relu
+# off, are the expansion after each bottleneck without a shortcut (6) and
+# the 320 -> 1280 conv; [mobilenet-parity] holds the forward's K4 calls
+# and its prologue calls to this table
+MOBILENETV2_1X1 = (
+    (1605632, 32, 32, 1, 0), (1605632, 32, 16, 1, 0),
+    (1605632, 16, 96, 1, 1), (401408, 96, 24, 1, 0),
+    (401408, 24, 144, 2, 1), (401408, 144, 24, 1, 0),
+    (100352, 144, 32, 1, 0), (100352, 32, 192, 3, 1),
+    (100352, 192, 32, 2, 0), (25088, 192, 64, 1, 0),
+    (25088, 64, 384, 4, 1), (25088, 384, 64, 3, 0),
+    (25088, 384, 96, 1, 0), (25088, 96, 576, 3, 1),
+    (25088, 576, 96, 2, 0), (6272, 576, 160, 1, 0),
+    (6272, 160, 960, 3, 1), (6272, 960, 160, 2, 0),
+    (6272, 960, 320, 1, 0), (6272, 320, 1280, 1, 1),
+    (128, 1280, 1000, 1, 0))
+MOBILENETV2_PROLOGUE = sum(row[4] for row in MOBILENETV2_1X1)
+# the classification zoo (phase 10d): each family's canonical net at full
+# width, 1000 classes, batch ZOO_BATCH, at its input size; ZOO_PARAMS are
+# the JAX package's parameter counts of the same names, from a CPU run of
+# `JAX_PLATFORMS=cpu python tools/zoo_param_counts.py --side jax`
+ZOO_BATCH = 32
+ZOO_NETS = (("alexnet", 224), ("vgg16", 224), ("vgg16_bn", 224),
+            ("squeezenet1.0", 224), ("squeezenet1.1", 224),
+            ("densenet121", 224), ("mobilenet1.0", 224),
+            ("mobilenetv2_1.0", 224), ("inceptionv3", 299))
+ZOO_PARAMS = {"alexnet": 61100840, "vgg16": 138357544,
+              "vgg16_bn": 138374440, "squeezenet1.0": 1248424,
+              "squeezenet1.1": 1235496, "densenet121": 8062504,
+              "mobilenet1.0": 4253864, "mobilenetv2_1.0": 3539136,
+              "inceptionv3": 23869000}
+# a hybridized net against the eager net from the same seed, one SGD
+# step with every Dropout at rate 0: the same kernels in the same order,
+# so bit for bit expected; loss 1e-5 relative, each gradient 1e-4 of its
+# layer's largest
+ZOO_LOSS_RTOL, ZOO_GRAD_RTOL = 1e-5, 1e-4
+# each layer of the rest of gluon.nn on the card against the same block
+# (same .params) in float64 on the host: float32 sums in another order,
+# 1e-5 of each output's largest |value|
+NN_LAYER_RTOL = 1e-5
 # K4/K5 vs plain, relative to the largest |value| of each output, as
 # (storage-type outputs y/dx/dw, fp32 statistics): fp32 differs by
 # summation order only (~1e-6 measured over 401408 rows); in bf16 and fp16
@@ -972,6 +1062,13 @@ FUSED_CASES = {
     "stage3_256_1024": (25088, 256, 1024),
     "stage4_2048_512": (6272, 2048, 512),
     "ragged_72_40": (1000, 72, 40), "ragged_37_23": (1000, 37, 23),
+    # MobileNetV2 1.0's extremes at batch 128: its widest M at its
+    # narrowest K and N, a stage-4 shape and the classifier (M = batch);
+    # and mobilenetv2_0.75's 12 channels (24 bytes a bf16 row, not a
+    # multiple of 16) as N and as K
+    "mnv2_32_16": (1605632, 32, 16), "mnv2_16_96": (1605632, 16, 96),
+    "mnv2_384_96": (25088, 384, 96), "mnv2_1280_1000": (128, 1280, 1000),
+    "mnv2_075_24_12": (1605632, 24, 12), "mnv2_075_12_72": (1605632, 12, 72),
 }
 FUSED_MODES = {"plain": (False, False), "prologue": (True, False),
                "prologue_relu": (True, True)}
@@ -982,6 +1079,17 @@ FUSED_MODES = {"plain": (False, False), "prologue": (True, False),
 # float16 cases scale the cotangents (dy, dsum, dssq) by 2^-6 as a loss
 # scale would (a power of two: the same values, shifted in exponent)
 FP16_COTANGENT_SCALE = 2.0 ** -6
+
+
+def _fused_case_path(name, prologue, relu):
+    """The training path a fused case stands for, or None: ResNet-50's
+    stage shapes without a prologue; MobileNetV2 1.0's shapes without one
+    and with one, relu off."""
+    if name.startswith("mnv2_") and "075" not in name:
+        return None if relu else "mobilenetv2"
+    if name.startswith("stage") and not prologue:
+        return "resnet50"
+    return None
 
 
 def fused_inputs(gen, dev, M, K, N, dtype, prologue):
@@ -1002,11 +1110,13 @@ def fused_kernel_phase(dev, gen):
     """K4 and K5's dW and dX kernels against their plain versions on the
     same tensors, every case in fp32, bf16 and fp16, with no prologue and
     with one (relu off and on). Returns the largest absolute error of each
-    kernel over the fp32 ResNet-50 cases without a prologue (the path's
-    variant)."""
+    kernel in fp32 on the paths' variants: ``{"resnet50": ...}`` over
+    ResNet-50's cases without a prologue, ``{"mobilenetv2": ...}`` over
+    MobileNetV2 1.0's without one and with one, relu off."""
     from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
 
-    worst = {"fused_fwd": 0.0, "fused_dw": 0.0, "fused_dx": 0.0}
+    worst = {path: {"fused_fwd": 0.0, "fused_dw": 0.0, "fused_dx": 0.0}
+             for path in ("resnet50", "mobilenetv2")}
     for name, (M, K, N) in FUSED_CASES.items():
         for dtype in DTYPES:
             for mode, (pro, relu) in FUSED_MODES.items():
@@ -1042,9 +1152,10 @@ def fused_kernel_phase(dev, gen):
                               f"output {i} disagrees with plain: {rel:.3e} > "
                               f"{lim}")
                         facts[f"{kernel[6:]}{i}"] = f"{rel:.1e}"
-                        if dtype == torch.float32 and not pro \
-                                and not name.startswith("ragged"):
-                            worst[kernel] = max(worst[kernel], diff)
+                        path = _fused_case_path(name, pro, relu)
+                        if dtype == torch.float32 and path is not None:
+                            worst[path][kernel] = max(worst[path][kernel],
+                                                      diff)
                 say("fused-kernel", case=name, shape=f"M{M}_K{K}_N{N}",
                     dtype=str(dtype).split(".")[1], mode=mode,
                     rel_err=",".join(f"{k}:{v}" for k, v in facts.items()),
@@ -1053,14 +1164,18 @@ def fused_kernel_phase(dev, gen):
     return worst
 
 
-def fused_work(M, K, N, item=4):
+def fused_work(M, K, N, item=4, prologue=False):
     """Operations (2 M K N) and bytes (each input read once, each output
-    written once) of K4 and K5's two kernels without a prologue."""
+    written once) of K4 and K5's two kernels. A prologue adds its scale
+    and shift (read by all three) and dX's dscale and dbias (written); its
+    M K multiply-adds on the CUDA cores, under 1/N of the product's
+    operations, are not counted."""
     x, w, mn, vec = M * K * item, K * N * item, M * N * item, 2 * N * 4
+    kvec = 2 * K * 4 if prologue else 0
     ops = 2 * M * K * N
-    return {"fused_fwd": (ops, x + w + mn + vec),
-            "fused_dw": (ops, x + 2 * mn + vec + w),
-            "fused_dx": (ops, 2 * mn + w + vec + x)}
+    return {"fused_fwd": (ops, x + w + mn + vec + kvec),
+            "fused_dw": (ops, x + 2 * mn + vec + w + kvec),
+            "fused_dx": (ops, 2 * mn + w + vec + x + 2 * kvec)}
 
 
 def fused_bound(ops, nbytes):
@@ -1104,13 +1219,16 @@ def fused_determinism(dev, gen):
             **{k: "equal" for k in same})
 
 
-def fused_time_phase(dev, gen, worst):
-    """K4, K5-dW and K5-dX timed at each of ResNet-50's 1x1 shapes (fp32,
-    no prologue, as the training path runs them) with CUDA events, beside
-    their bounds (on the 3xTF32 route, with the CUDA cores' beside it),
-    their plain versions and torch.matmul of the bare product. The
-    kernels line gets each kernel's totals over the 30 calls of one
-    training step, the bound summed call by call."""
+def fused_time_phase(dev, gen, worst, table=RESNET_1X1, path="resnet50"):
+    """K4, K5-dW and K5-dX timed at each 1x1 shape of a training step
+    (``table``: ResNet-50's, whose calls run no prologue, or MobileNetV2
+    1.0's with ``path`` "mobilenetv2", whose rows' fifth field counts the
+    calls with a prologue, relu off, timed with it; fp32) with CUDA
+    events, beside their bounds (on the 3xTF32 route, with the CUDA cores'
+    beside it), their plain versions and torch.matmul of the bare product.
+    The kernels line gets each kernel's totals over the calls of one
+    training step, the bound summed call by call (MobileNetV2's rows named
+    ``<kernel>@mobilenetv2_1.0``); ``worst`` is ``fused_kernel_phase``'s."""
     from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
 
     replaces = {"fused_fwd": "mxnet_tpu/ops/fused_conv_bn.py:105",
@@ -1119,25 +1237,35 @@ def fused_time_phase(dev, gen, worst):
     total = {k: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "ops": 0, "bytes": 0,
                  "bound": 0.0, "by_bytes": 0.0, "cores": 0.0}
              for k in replaces}
-    for M, K, N, calls in RESNET_1X1:
-        x, w, _, _, y, dy, ds, dq = fused_inputs(gen, dev, M, K, N,
-                                                 torch.float32, False)
+    suffix = "" if path == "resnet50" else "@mobilenetv2_1.0"
+    n_calls = sum(row[3] for row in table)
+    n_prologue = sum(row[4] for row in table if len(row) > 4)
+    variants = []  # (M, K, N, calls, prologue)
+    for M, K, N, calls, *pro in table:
+        p = pro[0] if pro else 0
+        variants += [(M, K, N, c, v) for c, v in ((calls - p, False),
+                                                   (p, True)) if c]
+    for M, K, N, calls, pro in variants:
+        x, w, s, t, y, dy, ds, dq = fused_inputs(gen, dev, M, K, N,
+                                                 torch.float32, pro)
         runs = {
-            "fused_fwd": (lambda: fcbn._cuda_fused_fwd(x, w, None, None),
-                          lambda: fcbn._torch_fused_fwd(x, w, None, None),
+            "fused_fwd": (lambda: fcbn._cuda_fused_fwd(x, w, s, t),
+                          lambda: fcbn._torch_fused_fwd(x, w, s, t),
                           lambda: torch.matmul(x, w)),
-            "fused_dw": (lambda: fcbn._cuda_fused_dw(x, w, y, None, None, dy,
-                                                     ds, dq),
-                         lambda: fcbn._torch_fused_dw(x, y, None, None, dy,
-                                                      ds, dq, False, w.dtype),
+            "fused_dw": (lambda: fcbn._cuda_fused_dw(x, w, y, s, t, dy, ds,
+                                                     dq),
+                         lambda: fcbn._torch_fused_dw(x, y, s, t, dy, ds, dq,
+                                                      False, w.dtype),
                          lambda: torch.matmul(x.t(), dy)),
-            "fused_dx": (lambda: fcbn._cuda_fused_dx(x, w, y, None, None, dy,
-                                                     ds, dq),
-                         lambda: fcbn._torch_fused_dx(x, w, y, None, None, dy,
-                                                      ds, dq, False),
+            "fused_dx": (lambda: fcbn._cuda_fused_dx(x, w, y, s, t, dy, ds,
+                                                     dq),
+                         lambda: fcbn._torch_fused_dx(x, w, y, s, t, dy, ds,
+                                                      dq, False),
                          lambda: torch.matmul(dy, w.t())),
         }
-        work = fused_work(M, K, N)
+        work = fused_work(M, K, N, prologue=pro)
+        label = f"M{M}_K{K}_N{N}_fp32" + ("_prologue_relu_off" if pro
+                                          else "")
         for name, (kern, plain, lib) in runs.items():
             ms, plain_ms, lib_ms = (cuda_ms(kern, 20), cuda_ms(plain, 10),
                                     cuda_ms(lib, 20))
@@ -1152,7 +1280,7 @@ def fused_time_phase(dev, gen, worst):
             tot["bound"] += calls * bound
             tot["by_bytes"] += calls * bound * (by == "bytes")
             tot["cores"] += calls * t_cores
-            say("kernel-time", kernel=name, shape=f"M{M}_K{K}_N{N}_fp32",
+            say("kernel-time", kernel=name, shape=label,
                 calls_per_step=calls, ms=f"{ms:.4f}",
                 plain_ms=f"{plain_ms:.4f}",
                 matmul_product_only_ms=f"{lib_ms:.4f}",
@@ -1160,16 +1288,16 @@ def fused_time_phase(dev, gen, worst):
                 bound_cuda_cores_ms=f"{t_cores:.5f}",
                 tflops=f"{ops / ms / 1e9:.2f}",
                 bound_share=f"{bound / ms:.4f}")
-        del x, w, y, dy
+        del x, w, s, t, y, dy
     rows = []
     for name, tot in total.items():
         rows.append({
-            "name": name,
+            "name": name + suffix,
             "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/fused_conv_bn.cu",
             "replaces": replaces[name],
-            "launches": None,  # filled from the ResNet training phase
-            "max_abs_err": worst[name],
+            "launches": None,  # filled from the path's training phase
+            "max_abs_err": worst[path][name],
             "ms": tot["ms"],
             "plain_ms": tot["plain"],
             "bound_ms": tot["bound"],
@@ -1180,8 +1308,8 @@ def fused_time_phase(dev, gen, worst):
             # statistics; the bare product's time is in the lines above
             "library_ms": None,
         })
-        say("kernel-time", kernel=name, shape="resnet50_step_30_calls",
-            math='"3xTF32 tensor cores"',
+        say("kernel-time", kernel=name, shape=f"{path}_step_{n_calls}_calls",
+            math='"3xTF32 tensor cores"', prologue_relu_off_calls=n_prologue,
             ms=f"{tot['ms']:.4f}", plain_ms=f"{tot['plain']:.4f}",
             matmul_product_only_ms=f"{tot['lib']:.4f}",
             bound_ms=f"{tot['bound']:.4f}", bound_by=rows[-1]["bound_by"],
@@ -2515,17 +2643,22 @@ def trainer_fused_phase(ctx, **cut):
 # phases 9 and 10: ResNet-50 v1 training through optimize_for
 # ---------------------------------------------------------------------------
 
-def resnet_setup(ctx, batch=RESNET_BATCH, size=RESNET_SIZE, spec=None):
+def resnet_setup(ctx, batch=RESNET_BATCH, size=RESNET_SIZE, spec=None,
+                 model=None):
     """ResNet-50 v1 as bench_resnet builds it on an accelerator (``spec`` =
     (layers, channels, classes) builds a smaller ResNetV1 for a rehearsal
-    on the host), Xavier weights from seed SEED, and its fixed batch
-    (images and labels from numpy seed SEED). Returns the net, its
+    on the host; ``model`` names another net of the zoo, built with
+    ``get_model(model, classes=1000)`` unless ``spec`` gives its
+    ``get_model`` keywords), Xavier weights from seed SEED, and its fixed
+    batch (images and labels from numpy seed SEED). Returns the net, its
     ``optimize_for("tpu_fused_conv_bn")`` adapter, the batch, the fused
     convs and a builder of the same architecture."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.gluon.model_zoo import vision
 
     def build():
+        if model is not None:
+            return vision.get_model(model, **(spec or {"classes": 1000}))
         return vision.resnet50_v1(classes=1000) if spec is None else \
             vision.ResNetV1(vision.BottleneckV1, *spec)
 
@@ -2549,12 +2682,16 @@ def resnet_setup(ctx, batch=RESNET_BATCH, size=RESNET_SIZE, spec=None):
 
     walk(net)
     if spec is None:
-        check(len(marked) == RESNET_FUSED, f"optimize_for marked "
-              f"{len(marked)} convs of ResNet-50, expected {RESNET_FUSED}")
+        want = RESNET_FUSED if model is None else MOBILENET_FUSED[model]
+        check(len(marked) == want, f"optimize_for marked {len(marked)} "
+              f"convs of {model or 'ResNet-50'}, expected {want}")
     mx.nd.waitall()
     n_params = sum(p.data().size for p in net.collect_params().values())
-    say("resnet-model", config="ResNet-50 v1 (resnet50_v1, 1000 classes)"
-        if spec is None else f"ResNetV1{spec}", params=n_params,
+    config = f"{model} ({spec or '1000 classes'})" if model is not None \
+        else "ResNet-50 v1 (resnet50_v1, 1000 classes)" if spec is None \
+        else f"ResNetV1{spec}"
+    say("resnet-model" if model is None else "mobilenet-model",
+        config=config, params=n_params,
         fused_convs=len(marked), batch=batch, image=size, dtype="float32",
         init_s=f"{time.perf_counter() - t0:.2f}", ctx=ctx)
     return net, fused, x, y, marked, build
@@ -2598,12 +2735,15 @@ def _with_tf32(fn, *args, **kw):
         torch.backends.cuda.matmul.allow_tf32 = was
 
 
-def _rel(got, ref):
-    """max |got - ref| relative to max |ref| (None: 0)."""
+def _rel(got, ref, scale=None):
+    """max |got - ref| relative to max |ref|, or to ``scale`` when given
+    (None: 0)."""
     if ref is None:
         return 0.0
+    if scale is None:
+        scale = float(ref.double().abs().max())
     return float((got.double() - ref.double()).abs().max()) / max(
-        float(ref.double().abs().max()), 1e-30)
+        scale, 1e-30)
 
 
 def _grad_errors(grads, ref, skip=()):
@@ -2630,22 +2770,60 @@ class _CheckedCalls:
     N), per run, the worst of y, ysum and yssq each; ``f64`` the same for
     K5, the worst of dW and of dX with its statistics. The plain versions
     launch no kernel of the port, so the launch counts stay the main
-    path's."""
+    path's.
 
-    def __init__(self):
+    With ``sums_vs_terms`` (MobileNet's phases) each sum over the M rows
+    of terms of both signs, K4's ysum and K5's dW, dscale and dbias, is
+    judged against the largest sum of its terms' magnitudes instead of its
+    own largest value: where a 1x1 conv reads a BatchNorm's output with
+    relu off, as MobileNetV2's do, the rows of its input sum to beta (0 at
+    initialisation) and dbias is 0 behind a training-mode BatchNorm, so
+    those sums are 0 in exact arithmetic and float noise on every side;
+    and dW = xa^T dY sums over the rows a dY whose columns the next
+    BatchNorm centres against an xa that relu keeps positive
+    (MobileNet v1), so dW is far below its terms."""
+
+    def __init__(self, sums_vs_terms=False):
         from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
 
         self._fcbn = fcbn
+        self.sums_vs_terms = sums_vs_terms
         self.worst = {"fused_fwd": 0.0, "fused_dw": 0.0, "fused_dx": 0.0}
         self.calls = {k: 0 for k in self.worst}
+        # K4 calls with a prologue, by whether its relu is on, and by shape
+        self.prologue = {"relu_off": 0, "relu_on": 0}
+        self.prologue_shapes = {}
         self.f64 = {}
         self.f64_fwd = {}
 
-    def _note(self, kernel, outs, refs):
+    def _scales(self, kernel, refs, args):
+        """Per output of ``kernel``, the magnitude its error is judged
+        against: None for its own largest |value|, else (with
+        ``sums_vs_terms``) the largest sum of |terms| of a column sum."""
+        none = [None] * len(refs)
+        if not self.sums_vs_terms:
+            return none
+        if kernel == "fused_fwd":  # y, ysum, yssq
+            return [None, float(refs[0].double().abs().sum(0).max()), None]
+        if kernel == "fused_dw":  # max over (k, n) of sum_m |xa| |dY|
+            f = self._fcbn
+            x, _, y, scale, shift, dy, dsum, dssq, relu = args
+            xa = x.float() if scale is None \
+                else f._prologue(x, scale, shift, relu, torch.float32)
+            d_y = f._form_dy(y, dy, dsum, dssq, torch.float32, torch.float32)
+            return [float(torch.matmul(xa.abs().t(), d_y.abs()).max())]
+        if kernel == "fused_dx" and args[3] is not None:  # dx, dscale, dbias
+            dxa = refs[0].double() / args[3].double()
+            return [None, float((dxa * args[0].double()).abs().sum(0).max()),
+                    float(dxa.abs().sum(0).max())]
+        return none
+
+    def _note(self, kernel, outs, refs, args):
         self.calls[kernel] += 1
-        for g, r in zip(outs, refs):
+        for g, r, sc in zip(outs, refs, self._scales(kernel, refs, args)):
             if r is not None:
-                self.worst[kernel] = max(self.worst[kernel], _rel(g, r))
+                self.worst[kernel] = max(self.worst[kernel],
+                                         _rel(g, r, sc))
 
     def _note_f64(self, args, runs):
         f = self._fcbn
@@ -2654,13 +2832,16 @@ class _CheckedCalls:
         shape = (args[0].shape[0], args[0].shape[1], args[1].shape[1])
         rec = self.f64.setdefault(shape, {"calls": 0})
         rec["calls"] += 1
+        dx_refs = (exact[0],) + exact[2:]
+        scales = {"dw": self._scales("fused_dw", exact[1:2], args),
+                  "dx": self._scales("fused_dx", dx_refs, args)}
         for run, (dx, dw, dsc, dbi) in runs.items():
             for out, got, ref in (("dw", (dw,), exact[1:2]),
-                                  ("dx", (dx, dsc, dbi),
-                                   (exact[0],) + exact[2:])):
+                                  ("dx", (dx, dsc, dbi), dx_refs)):
                 key = f"{run}_{out}"
                 rec[key] = max([rec.get(key, 0.0)] + [
-                    _rel(g, r) for g, r in zip(got, ref) if r is not None])
+                    _rel(g, r, sc) for g, r, sc in zip(got, ref, scales[out])
+                    if r is not None])
 
     def _note_f64_fwd(self, args, runs):
         f = self._fcbn
@@ -2669,10 +2850,12 @@ class _CheckedCalls:
         shape = (args[0].shape[0], args[0].shape[1], args[1].shape[1])
         rec = self.f64_fwd.setdefault(shape, {"calls": 0})
         rec["calls"] += 1
+        scales = self._scales("fused_fwd", exact, args)
         for run, outs in runs.items():
-            for out, got, ref in zip(("y", "ysum", "yssq"), outs, exact):
+            for out, got, ref, sc in zip(("y", "ysum", "yssq"), outs, exact,
+                                         scales):
                 key = f"{run}_{out}"
-                rec[key] = max(rec.get(key, 0.0), _rel(got, ref))
+                rec[key] = max(rec.get(key, 0.0), _rel(got, ref, sc))
 
     def __enter__(self):
         f = self._fcbn
@@ -2680,17 +2863,23 @@ class _CheckedCalls:
         fwd, bwd = self._saved
 
         def fwd_checked(*args):
+            if args[2] is not None:
+                self.prologue["relu_on" if args[4] else "relu_off"] += 1
+                shape = (args[0].shape[0], args[0].shape[1],
+                         args[1].shape[1])
+                self.prologue_shapes[shape] = \
+                    self.prologue_shapes.get(shape, 0) + 1
             out = fwd(*args)
             plain = f._torch_fused_fwd(*args)
-            self._note("fused_fwd", out, plain)
+            self._note("fused_fwd", out, plain, args)
             self._note_f64_fwd(args, {"kernel": out, "plain_fp32": plain})
             return out
 
         def bwd_checked(*args):
             dx, dw, dsc, dbi = bwd(*args)
             rdx, rdw, rsc, rbi = f._torch_fused_bwd(*args)
-            self._note("fused_dw", (dw,), (rdw,))
-            self._note("fused_dx", (dx, dsc, dbi), (rdx, rsc, rbi))
+            self._note("fused_dw", (dw,), (rdw,), args)
+            self._note("fused_dx", (dx, dsc, dbi), (rdx, rsc, rbi), args)
             self._note_f64(args, {"kernel": (dx, dw, dsc, dbi),
                                   "plain_fp32": (rdx, rdw, rsc, rbi)})
             return dx, dw, dsc, dbi
@@ -2703,12 +2892,12 @@ class _CheckedCalls:
         return False
 
 
-def _f64_report(check_name, records):
+def _f64_report(check_name, records, tag="resnet-parity"):
     """Print each shape's record of a ``_CheckedCalls`` float64 check and
     return them merged: the calls summed, every distance its worst."""
     every = {"calls": 0}
     for (M, K, N), rec in sorted(records.items()):
-        say("resnet-parity", check=check_name, shape=f"M{M}_K{K}_N{N}",
+        say(tag, check=check_name, shape=f"M{M}_K{K}_N{N}",
             calls=rec["calls"],
             **{k: f"{rec[k]:.3e}" for k in rec if k != "calls"})
         for k, v in rec.items():
@@ -2717,9 +2906,10 @@ def _f64_report(check_name, records):
     return every
 
 
-def _swapped_op(forward, exact=False, tf32=False):
-    """An ``nd`` operator for ``_contrib_fused_matmul_stats`` whose forward
-    is ``forward(x, w)`` and whose backward is K5's plain version
+def _swapped_ops(forward, exact=False, tf32=False):
+    """``nd`` operators for ``_contrib_fused_matmul_stats`` and
+    ``_contrib_fused_scaled_matmul_stats`` whose forward is ``forward(x,
+    w, scale, shift, relu)`` and whose backward is K5's plain version
     (``exact``: its products and sums in float64, outputs cast back to
     fp32; ``tf32``: its float32 products on TF32, the gate's control)."""
     from mxnet_tpu_torch.ndarray.ndarray import apply
@@ -2727,20 +2917,27 @@ def _swapped_op(forward, exact=False, tf32=False):
 
     class Swapped(torch.autograd.Function):
         @staticmethod
-        def forward(ctx_, a, w):
-            out = forward(a, w)
-            ctx_.save_for_backward(a, w, out[0])
+        def forward(ctx_, a, scale, shift, w, relu):
+            out = forward(a, w, scale, shift, relu)
+            ctx_.save_for_backward(a, scale, shift, w, out[0])
+            ctx_.relu = relu
             return out
 
         @staticmethod
         def backward(ctx_, dy, dsum, dssq):
-            a, w, out = ctx_.saved_tensors
-            args = (a, w, out, None, None, dy, dsum, dssq)
-            dx, dw, _, _ = _with_tf32(_torch_fused_bwd, *args) if tf32 \
+            a, scale, shift, w, out = ctx_.saved_tensors
+            args = (a, w, out, scale, shift, dy, dsum, dssq, ctx_.relu)
+            dx, dw, dsc, dbi = _with_tf32(_torch_fused_bwd, *args) if tf32 \
                 else _torch_fused_bwd(*args, exact=exact)
-            return dx, dw
+            if scale is not None:
+                dsc, dbi = dsc.to(scale.dtype), dbi.to(shift.dtype)
+            return dx, dsc, dbi, dw, None
 
-    return lambda a, w: apply(Swapped.apply, a, w)
+    return {"_contrib_fused_matmul_stats": lambda a, w: apply(
+                Swapped.apply, a, None, None, w, False),
+            "_contrib_fused_scaled_matmul_stats":
+                lambda a, scale, shift, w, relu=True: apply(
+                    Swapped.apply, a, scale, shift, w, bool(relu))}
 
 
 def _conv_bias_noise(grads):
@@ -2763,16 +2960,43 @@ def _worst_vs(grads, ref, noise):
     return worst, worst_name
 
 
-def _swapped_run(mx, fused, x, y, op, expect, launches):
-    """One step with ``op`` in place of the fused operator; the kernels
-    launched must be ``expect``. Returns the loss."""
-    kernel_op = mx.nd._contrib_fused_matmul_stats
-    mx.nd._contrib_fused_matmul_stats = op
+def _layer_l2(grads, ref):
+    """The worst layer's gradient distance, ``|g - ref| / |ref|`` in the
+    L2 norm over the layer's parameters (a conv's weight and bias, a
+    BatchNorm's gamma and beta), and that layer: MobileNet's gradient
+    gate. At Xavier init MobileNet's single gradient elements are noise:
+    on MobileNet 1.0 at batch 128 the stem BatchNorm's beta moves 9.1e-3
+    of its gamma's largest between K5's fp32 plain version and float64
+    (cuBLAS's rounding alone), while each layer's gradient as a whole is
+    fixed to 1.3e-5 by fp32 arithmetic and TF32 moves it 1.3e-3."""
+    layers = {}
+    for name, want in ref.items():
+        layer = name.rsplit("_", 1)[0]
+        diff, norm = layers.get(layer, (0.0, 0.0))
+        layers[layer] = (diff + float((grads[name].double()
+                                       - want.double()).pow(2).sum()),
+                         norm + float(want.double().pow(2).sum()))
+    worst, worst_name = 0.0, ""
+    for layer, (diff, norm) in layers.items():
+        rel = (diff / max(norm, 1e-300)) ** 0.5
+        if rel > worst:
+            worst, worst_name = rel, layer
+    return worst, worst_name
+
+
+def _swapped_run(mx, fused, x, y, ops, expect, launches):
+    """One step with ``ops`` (``_swapped_ops``) in place of the fused
+    operators; the kernels launched must be ``expect``. Returns the
+    loss."""
+    kernel_ops = {name: getattr(mx.nd, name) for name in ops}
+    for name, op in ops.items():
+        setattr(mx.nd, name, op)
     launches.clear()
     try:
         loss = float(_resnet_fwd_bwd(mx, fused, x, y))
     finally:
-        mx.nd._contrib_fused_matmul_stats = kernel_op
+        for name, op in kernel_ops.items():
+            setattr(mx.nd, name, op)
     got = {k: v for k, v in launches.items() if v}
     check(got == expect, f"the swapped run launched {got}, not {expect}")
     return loss
@@ -2785,18 +3009,18 @@ def k5_anchor_runs(mx, net, fused, x, y, launches, n):
     grads)}``."""
     from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
 
-    def k4(a, w):
-        return fcbn._fused_fwd(a, w, None, None, False)
-
+    k4 = fcbn._fused_fwd
     params = net.collect_params()
-    return {run: (_swapped_run(mx, fused, x, y, op, {"fused_fwd": n},
+    return {run: (_swapped_run(mx, fused, x, y, ops, {"fused_fwd": n},
                                launches), _grads(params))
-            for run, op in (("plain_fp32", _swapped_op(k4)),
-                            ("float64", _swapped_op(k4, exact=True)),
-                            ("tf32_control", _swapped_op(k4, tf32=True)))}
+            for run, ops in (("plain_fp32", _swapped_ops(k4)),
+                             ("float64", _swapped_ops(k4, exact=True)),
+                             ("tf32_control", _swapped_ops(k4, tf32=True)))}
 
 
-def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
+def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx,
+                        tag="resnet-parity", prologue=None, table=None,
+                        sums_vs_terms=False, grad_dist=None):
     """ResNet-50 through optimize_for with the kernels against the same
     net with K4/K5 swapped, in this script only, for their plain versions,
     and against the un-fused net, all in training mode with cuDNN's
@@ -2826,7 +3050,17 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
       ``chaos_floor``, the kernel run against itself with its input moved
       by one rounding.
     - Losses: with K4/K5 swapped, within RESNET_LOSS_RTOL; the un-fused
-      net, within UNFUSED_LOSS_RTOL (its gradient difference printed)."""
+      net, within UNFUSED_LOSS_RTOL (its gradient difference printed).
+
+    MobileNet's phases run the same checks (``tag`` names the lines): with
+    ``prologue`` the K4 calls with a prologue must be that many, all with
+    relu off, and with ``table`` ((M, K, N, calls, prologue calls), ...)
+    the K4 calls of the forward, and those with a prologue, must have
+    exactly those shapes and counts;
+    ``sums_vs_terms`` is ``_CheckedCalls``', and ``grad_dist(grads, ref)``
+    measures the gradient gate's distances (``_layer_l2``; by default the
+    worst element, each against its own largest |grad|, a conv bias before
+    a BatchNorm against its weight's)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ndarray.ndarray import NDArray
     from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
@@ -2837,23 +3071,36 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
     torch.backends.cudnn.deterministic = True
     try:
         launches.clear()
-        with _CheckedCalls() as calls:
+        with _CheckedCalls(sums_vs_terms) as calls:
             loss_k = float(_resnet_fwd_bwd(mx, fused, x, y))
         counts = dict(launches)
         lim = FUSED_TOL[torch.float32][0]
-        say("resnet-parity", check="every_call_vs_plain",
-            calls=calls.calls,
+        say(tag, check="every_call_vs_plain",
+            calls=calls.calls, k4_prologue_calls=calls.prologue,
             worst_rel={k: f"{v:.2e}" for k, v in calls.worst.items()},
             tol_rel=lim)
+        if prologue is not None:
+            check(calls.prologue == {"relu_off": prologue, "relu_on": 0},
+                  f"K4 ran its prologue {calls.prologue} times in one "
+                  f"forward, not {prologue} with relu off")
+        if table is not None:
+            shapes = {k: rec["calls"] for k, rec in calls.f64_fwd.items()}
+            want = {(M, K, N): c for M, K, N, c, _ in table}
+            check(shapes == want, f"the forward's K4 shapes {shapes} are "
+                  f"not the table's {want}")
+            want = {(M, K, N): p for M, K, N, _, p in table if p}
+            check(calls.prologue_shapes == want, "the forward's prologue "
+                  f"calls {calls.prologue_shapes} are not the table's "
+                  f"{want}")
         for k in ("fused_fwd", "fused_dw", "fused_dx"):
             check(counts.get(k, 0) == n and calls.calls[k] == n,
                   f"{k} launched {counts.get(k, 0)} times in one step of "
                   f"{n} fused convs")
             check(calls.worst[k] <= lim, f"{k} disagrees with its plain "
                   f"version on the main path's tensors: {calls.worst[k]:.3e}")
-        every = _f64_report("k5_calls_vs_float64", calls.f64)
+        every = _f64_report("k5_calls_vs_float64", calls.f64, tag)
         control = min(every["tf32_control_dw"], every["tf32_control_dx"])
-        say("resnet-parity", check="k5_calls_vs_float64", shape="all",
+        say(tag, check="k5_calls_vs_float64", shape="all",
             tol_rel=lim, **{k: every[k] if k == "calls" else f"{every[k]:.3e}"
                             for k in every},
             control_room=f"{control / lim:.1f}")
@@ -2864,10 +3111,10 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
                   f"{lim} from float64: {every[f'kernel_{out}']:.3e}")
         check(control > lim, f"the TF32 control is within {lim} of float64 "
               f"({control:.3e}): the per-call check has no teeth")
-        every = _f64_report("k4_calls_vs_float64", calls.f64_fwd)
+        every = _f64_report("k4_calls_vs_float64", calls.f64_fwd, tag)
         outs = ("y", "ysum", "yssq")
         control = max(every.get(f"tf32_control_{o}", 0.0) for o in outs)
-        say("resnet-parity", check="k4_calls_vs_float64", shape="all",
+        say(tag, check="k4_calls_vs_float64", shape="all",
             tol_rel=lim, **{k: every[k] if k == "calls" else f"{every[k]:.3e}"
                             for k in every},
             control_room=f"{control / lim:.1f}")
@@ -2880,22 +3127,23 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
               f"float64 ({control:.3e}): the per-call check has no teeth")
         grads_k = _grads(params)
         noise = _conv_bias_noise(grads_k)
+        dist = grad_dist or (lambda g, r: _worst_vs(g, r, noise))
         runs = k5_anchor_runs(mx, net, fused, x, y, launches, n)
         loss_b, grads_b = runs["plain_fp32"]
         loss_e, grads_e = runs["float64"]
-        worst, worst_name = _worst_vs(grads_b, grads_k, noise)
-        kern, kern_name = _worst_vs(grads_k, grads_e, noise)
-        plain, plain_name = _worst_vs(grads_b, grads_e, noise)
-        ctl, ctl_name = _worst_vs(runs["tf32_control"][1], grads_e, noise)
+        worst, worst_name = dist(grads_b, grads_k)
+        kern, kern_name = dist(grads_k, grads_e)
+        plain, plain_name = dist(grads_b, grads_e)
+        ctl, ctl_name = dist(runs["tf32_control"][1], grads_e)
         passes, gate = k5_grad_gate(kern, plain, ctl)
-        say("resnet-parity", vs="float64_K5_same_forward",
+        say(tag, vs="float64_K5_same_forward",
             loss_kernels=f"{loss_k:.7f}", loss_float64_k5=f"{loss_e:.7f}",
             worst_grad_rel=f"{kern:.3e}", worst_param=kern_name,
             plain_fp32_k5_grad_rel=f"{plain:.3e}", plain_param=plain_name,
             tf32_control_grad_rel=f"{ctl:.3e}", tf32_control_param=ctl_name,
             gate=f"{gate:.3e}", control_room=f"{ctl / gate:.1f}",
             tol_floor=RESNET_GRAD_RTOL, params=len(grads_k))
-        say("resnet-parity", vs="plain_K5_same_forward",
+        say(tag, vs="plain_K5_same_forward",
             loss_kernels=f"{loss_k:.7f}", loss_plain_k5=f"{loss_b:.7f}",
             worst_grad_rel=f"{worst:.3e}", worst_param=worst_name,
             tol_grad=RESNET_GRAD_RTOL, params=len(grads_k))
@@ -2908,9 +3156,7 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
         del runs, grads_b, grads_e
 
         loss_p = _swapped_run(
-            mx, fused, x, y,
-            _swapped_op(lambda a, w: fcbn._torch_fused_fwd(a, w, None,
-                                                           None)), {},
+            mx, fused, x, y, _swapped_ops(fcbn._torch_fused_fwd), {},
             launches)
         chaos, chaos_name = _grad_errors(_grads(params), grads_k, noise)
         xp = NDArray(x.data * (1.0 + 2.0 ** -24 * torch.randn(
@@ -2919,7 +3165,7 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
         _resnet_fwd_bwd(mx, fused, xp, y)
         floor, floor_name = _grad_errors(_grads(params), grads_k, noise)
         loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-        say("resnet-parity", vs="plain_K4_K5", loss_kernels=f"{loss_k:.7f}",
+        say(tag, vs="plain_K4_K5", loss_kernels=f"{loss_k:.7f}",
             loss_plain=f"{loss_p:.7f}", loss_rel=f"{loss_rel:.3e}",
             tol_loss=RESNET_LOSS_RTOL, worst_grad_rel=f"{chaos:.3e}",
             worst_param=chaos_name, chaos_floor=f"{floor:.3e}",
@@ -2939,7 +3185,7 @@ def resnet_parity_phase(net, fused, x, y, marked, build, launches, ctx):
             if p.grad_req != "null"}
         worst, worst_name = _grad_errors(grads_u, grads_k, noise)
         loss_rel = abs(loss_k - loss_u) / abs(loss_u)
-        say("resnet-parity", vs="unfused_net", loss_fused=f"{loss_k:.7f}",
+        say(tag, vs="unfused_net", loss_fused=f"{loss_k:.7f}",
             loss_unfused=f"{loss_u:.7f}", loss_rel=f"{loss_rel:.3e}",
             tol_loss=UNFUSED_LOSS_RTOL, worst_grad_rel=f"{worst:.3e}",
             worst_param=worst_name, chaos_floor=f"{floor:.3e}")
@@ -2973,19 +3219,19 @@ def _device_us(prof):
 
 
 def resnet_train_phase(net, fused, x, y, marked, launches, steps=10,
-                       tag="resnet-train"):
-    """The Gluon loop with bench_resnet's settings: one warm-up step,
-    ``steps`` timed steps (host clock around synchronised work), one
-    profiled step (its forward + backward and its SGD update in two
-    profiler windows), whose kernels must include K4 and K5's. The launch
-    counts are read over exactly these steps. ``tag`` names the printed
-    lines."""
+                       tag="resnet-train", sgd=RESNET_SGD):
+    """The Gluon loop with bench_resnet's settings (``sgd``: MobileNet's
+    phases pass MOBILENET_SGD): one warm-up step, ``steps`` timed steps
+    (host clock around synchronised work), one profiled step (its forward
+    + backward and its SGD update in two profiler windows), whose kernels
+    must include K4 and K5's. The launch counts are read over exactly
+    these steps. ``tag`` names the printed lines."""
     import mxnet_tpu_torch as mx
     from torch.profiler import ProfilerActivity, profile
 
     batch = x.shape[0]
     params = net.collect_params()
-    trainer = mx.gluon.Trainer(params, "sgd", dict(RESNET_SGD))
+    trainer = mx.gluon.Trainer(params, "sgd", dict(sgd))
     stats = {k: p.data().data.clone() for k, p in params.items()
              if "running" in k}
 
@@ -3060,7 +3306,8 @@ def resnet_train_phase(net, fused, x, y, marked, launches, steps=10,
     return counts
 
 
-def resnet_train_hybrid_phase(ctx, launches, steps=10, **setup):
+def resnet_train_hybrid_phase(ctx, launches, steps=10, prefix="resnet",
+                              sgd=RESNET_SGD, grad_dist=None, **setup):
     """ResNet-50 through ``optimize_for`` and ``hybridize()``d: two nets
     from the same seed, one eager and one hybridized, one forward +
     backward each with cuDNN's deterministic algorithms. The loss within
@@ -3073,7 +3320,10 @@ def resnet_train_hybrid_phase(ctx, launches, steps=10, **setup):
     capturing forward + backward, and the Gluon loop as
     ``resnet_train_phase`` runs it, every step a replay: one captured
     recording entry, K4/K5-dW/dX once per fused conv per step from the
-    replays' launch accounting. Then ``recapture_checks``."""
+    replays' launch accounting. Then ``recapture_checks``. MobileNetV2's
+    phase passes ``prefix`` "mobilenet", its ``sgd``, ``grad_dist``
+    (``_layer_l2``, as ``resnet_parity_phase`` takes it) and ``setup``
+    (``model=...``)."""
     import mxnet_tpu_torch as mx
 
     eager, efused, x, y, marked, _ = resnet_setup(ctx, **setup)
@@ -3093,8 +3343,9 @@ def resnet_train_hybrid_phase(ctx, launches, steps=10, **setup):
         stats_bitwise = all(torch.equal(a, b) for a, b in zip(
             stats[0].values(), stats[1].values()))
         noise = _conv_bias_noise(grads_e)
-        worst, worst_name = _worst_vs(
-            dict(zip(grads_e, grads_h.values())), grads_e, noise)
+        dist = grad_dist or (lambda g, r: _worst_vs(g, r, noise))
+        worst, worst_name = dist(dict(zip(grads_e, grads_h.values())),
+                                 grads_e)
         bitwise = loss_h == loss_e and worst == 0.0
         loss_rel = abs(loss_h - loss_e) / abs(loss_e)
         gate, passes = {}, bitwise
@@ -3102,16 +3353,15 @@ def resnet_train_hybrid_phase(ctx, launches, steps=10, **setup):
             runs = k5_anchor_runs(mx, eager, efused, x, y, launches,
                                   len(marked))
             grads_f64 = runs["float64"][1]
-            kern, _ = _worst_vs(dict(zip(grads_e, grads_h.values())),
-                                grads_f64, noise)
-            plain, _ = _worst_vs(runs["plain_fp32"][1], grads_f64, noise)
-            ctl, _ = _worst_vs(runs["tf32_control"][1], grads_f64, noise)
+            kern, _ = dist(dict(zip(grads_e, grads_h.values())), grads_f64)
+            plain, _ = dist(runs["plain_fp32"][1], grads_f64)
+            ctl, _ = dist(runs["tf32_control"][1], grads_f64)
             passes, limit = k5_grad_gate(kern, plain, ctl)
             gate = dict(hybrid_vs_f64=f"{kern:.3e}",
                         plain_vs_f64=f"{plain:.3e}",
                         tf32_control=f"{ctl:.3e}", gate=f"{limit:.3e}")
             del runs, grads_f64
-        say("resnet-train-hybrid-parity", loss_eager=f"{loss_e:.7f}",
+        say(f"{prefix}-train-hybrid-parity", loss_eager=f"{loss_e:.7f}",
             loss_hybrid=f"{loss_h:.7f}", loss_rel=f"{loss_rel:.3e}",
             running_stats_rel=f"{stats_rel:.3e}",
             running_stats_bitwise=stats_bitwise,
@@ -3131,9 +3381,9 @@ def resnet_train_hybrid_phase(ctx, launches, steps=10, **setup):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     counts = resnet_train_phase(net, fused, x, y, marked, launches, steps,
-                                tag="resnet-train-hybrid")
+                                tag=f"{prefix}-train-hybrid", sgd=sgd)
     entries = list(net._cached_graph._cache.values())
-    say("resnet-train-hybrid-entries", entries=len(entries),
+    say(f"{prefix}-train-hybrid-entries", entries=len(entries),
         recording=[e.recording for e in entries],
         graphed=[e.graphed for e in entries],
         replays=[e.gen for e in entries],
@@ -3141,9 +3391,267 @@ def resnet_train_hybrid_phase(ctx, launches, steps=10, **setup):
         bwd_graph_launches=dict(entries[0]._bwd.launches))
     check(len(entries) == 1 and entries[0].recording and entries[0].graphed,
           f"{len(entries)} entries captured, not one recording entry")
-    recapture_checks("resnet-train-hybrid", net,
+    recapture_checks(f"{prefix}-train-hybrid", net,
                      lambda xb, yb: _resnet_fwd_bwd(mx, fused, xb, yb), x, y)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 10c: the rest of gluon.nn at users' widths
+# ---------------------------------------------------------------------------
+
+# name: (layer given the nn module, input shape); widths users run: a
+# text/audio conv stack, video convs and pools, a decoder's upsampling,
+# a style-transfer net's padding and instance norm, ResNet-stage norms
+# and activations
+NN_LAYERS = {
+    "Conv1D": (lambda nn: nn.Conv1D(256, 3, padding=1), (32, 128, 1024)),
+    "Conv3D": (lambda nn: nn.Conv3D(64, 3), (8, 32, 16, 56, 56)),
+    "Conv1DTranspose": (lambda nn: nn.Conv1DTranspose(
+        128, 4, strides=2, padding=1), (32, 256, 512)),
+    "Conv2DTranspose": (lambda nn: nn.Conv2DTranspose(
+        256, 4, strides=2, padding=1), (32, 512, 28, 28)),
+    "Conv3DTranspose": (lambda nn: nn.Conv3DTranspose(
+        32, 4, strides=2, padding=1, output_padding=0), (4, 64, 8, 28, 28)),
+    "MaxPool1D": (lambda nn: nn.MaxPool1D(3, 2, ceil_mode=True),
+                  (32, 256, 1023)),
+    "AvgPool1D": (lambda nn: nn.AvgPool1D(3, 2, padding=1,
+                                          count_include_pad=False),
+                  (32, 256, 1024)),
+    "GlobalMaxPool1D": (lambda nn: nn.GlobalMaxPool1D(), (32, 256, 1024)),
+    "GlobalAvgPool1D": (lambda nn: nn.GlobalAvgPool1D(), (32, 256, 1024)),
+    "MaxPool3D": (lambda nn: nn.MaxPool3D((1, 3, 3), (1, 2, 2), (0, 1, 1)),
+                  (8, 64, 16, 56, 56)),
+    "AvgPool3D": (lambda nn: nn.AvgPool3D(3, 2, 1, ceil_mode=True,
+                                          count_include_pad=False),
+                  (8, 64, 16, 56, 56)),
+    "GlobalMaxPool3D": (lambda nn: nn.GlobalMaxPool3D(),
+                        (8, 256, 8, 14, 14)),
+    "GlobalAvgPool3D": (lambda nn: nn.GlobalAvgPool3D(),
+                        (8, 256, 8, 14, 14)),
+    "ReflectionPad2D": (lambda nn: nn.ReflectionPad2D(3),
+                        (16, 64, 128, 128)),
+    "SyncBatchNorm": (lambda nn: nn.SyncBatchNorm(), (32, 256, 56, 56)),
+    "InstanceNorm": (lambda nn: nn.InstanceNorm(scale=True),
+                     (16, 64, 128, 128)),
+    "GroupNorm": (lambda nn: nn.GroupNorm(32), (32, 256, 56, 56)),
+    "LeakyReLU": (lambda nn: nn.LeakyReLU(0.2), (32, 256, 56, 56)),
+    "PReLU": (lambda nn: nn.PReLU(in_channels=256), (32, 256, 56, 56)),
+    "ELU": (lambda nn: nn.ELU(), (32, 256, 56, 56)),
+    "SELU": (lambda nn: nn.SELU(), (32, 256, 56, 56)),
+    "Swish": (lambda nn: nn.Swish(), (32, 256, 56, 56)),
+    "Lambda": (lambda nn: nn.Lambda("relu"), (32, 256, 56, 56)),
+    "HybridLambda": (lambda nn: nn.HybridLambda(
+        lambda F, x: F.LeakyReLU(x, act_type="elu", slope=0.5)),
+        (32, 256, 56, 56)),
+}
+
+
+def _nn_layer_run(mx, block, x, head):
+    """A recorded forward and a backward of ``head``: the output, the
+    input's gradient and each trainable parameter's gradient."""
+    x.attach_grad()
+    with mx.autograd.record():
+        out = block(x)
+    out.backward(head)
+    return [out.data, x.grad.data] + [
+        p.grad().data for p in block.collect_params().values()
+        if p.grad_req != "null"]
+
+
+def nn_layers_phase(ctx, launches, layers=None):
+    """Each layer of the rest of ``gluon.nn`` (the 1-D and 3-D convs, the
+    transposed convs, the 1-D and 3-D pools, ReflectionPad2D,
+    SyncBatchNorm, InstanceNorm, GroupNorm, the activations, Lambda and
+    HybridLambda, the last hybridized and so captured) at a width users
+    run: one forward and backward of a seeded head gradient on the card,
+    against the same block loaded from its ``.params`` on the host in
+    float64; the output, the input's gradient and every parameter's
+    gradient within NN_LAYER_RTOL of its largest |value|. These layers are
+    plain PyTorch (cuDNN and ATen): no kernel of the port launches, and
+    each line says so."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import _kernels
+
+    cpu = mx.cpu()
+    worst_all = 0.0
+    with tempfile.TemporaryDirectory(dir=_kernels.BUILD_DIR) as tmp:
+        for name, (factory, shape) in (layers or NN_LAYERS).items():
+            rs = np.random.RandomState(SEED)
+            xn = rs.randn(*shape).astype(np.float32)
+            torch.manual_seed(SEED)
+            block = factory(mx.gluon.nn)
+            block.initialize(ctx=ctx)
+            x = mx.nd.array(xn, ctx=ctx)
+            block(x)  # resolve deferred shapes (predict mode)
+            path = os.path.join(tmp, f"{name}.params")
+            block.save_parameters(path)
+            host = factory(mx.gluon.nn)
+            host.load_parameters(path, ctx=cpu)
+            host.cast("float64")
+            if name == "HybridLambda":
+                block.hybridize()
+            hn = rs.randn(*block(x).shape).astype(np.float32)
+            launches.clear()
+            t0 = time.perf_counter()
+            got = _nn_layer_run(mx, block, x, mx.nd.array(hn, ctx=ctx))
+            torch.cuda.synchronize()
+            dev_s = time.perf_counter() - t0
+            ours = {k: v for k, v in launches.items() if v}
+            want = _nn_layer_run(
+                mx, host, mx.nd.array(xn, ctx=cpu, dtype="float64"),
+                mx.nd.array(hn, ctx=cpu, dtype="float64"))
+            errs = [_rel(g.cpu(), w) for g, w in zip(got, want)]
+            worst = max(errs)
+            worst_all = max(worst_all, worst)
+            say("nn-layers", layer=name, shape=tuple(shape),
+                out_shape=tuple(got[0].shape),
+                params=len(got) - 2, worst_rel=f"{worst:.3e}",
+                out_rel=f"{errs[0]:.3e}", dx_rel=f"{errs[1]:.3e}",
+                tol_rel=NN_LAYER_RTOL, card_first_call_s=f"{dev_s:.3f}",
+                kernels="none (plain PyTorch: cuDNN and ATen)"
+                if not ours else ours,
+                captured=name == "HybridLambda")
+            check(len(got) == len(want), f"{name}: gradients differ in "
+                  "number between the card and the host")
+            check(worst <= NN_LAYER_RTOL, f"{name} on the card disagrees "
+                  f"with the host's float64: {worst:.3e}")
+            check(not ours, f"{name} launched the port's kernels {ours}")
+            del block, host, got, want, x
+            gc.collect()
+            torch.cuda.empty_cache()
+    return worst_all
+
+
+# ---------------------------------------------------------------------------
+# phase 10d: the classification zoo at full width, eager and hybridized
+# ---------------------------------------------------------------------------
+
+def _dropouts(block, rate=None):
+    """Every Dropout's rate under ``block``, set to ``rate`` if given
+    (a list of rates: each Dropout in walk order)."""
+    found = []
+
+    def walk(b):
+        if hasattr(b, "_rate"):
+            found.append(b)
+        for c in b._children.values():
+            walk(c)
+
+    walk(block)
+    old = [b._rate for b in found]
+    if rate is not None:
+        for b, r in zip(found, rate if isinstance(rate, list)
+                        else [rate] * len(found)):
+            b._rate = r
+    return old
+
+
+def zoo_phase(ctx, launches, nets=ZOO_NETS, batch=ZOO_BATCH, steps=5,
+              classes=1000, params=ZOO_PARAMS):
+    """Each family's canonical net at full width, built with ``get_model``
+    on the card, Xavier weights from seed SEED, a batch of ``batch``
+    images and labels from numpy seed SEED, fp32:
+
+    - its parameter count equals the JAX package's (ZOO_PARAMS);
+    - two nets from the same seed, one eager and one ``hybridize()``d,
+      each Dropout at rate 0 (a captured graph draws its own random
+      numbers): one forward + backward + SGD step each with cuDNN's
+      deterministic algorithms; the loss within ZOO_LOSS_RTOL and each
+      gradient within ZOO_GRAD_RTOL of its layer's largest (bit for bit
+      expected), the loss finite;
+    - with the Dropout rates restored (0.5 in AlexNet, VGG, SqueezeNet,
+      Inception) and the hybridized net captured anew: ``steps`` timed
+      steps of each net after a warm-up (host clock around synchronised
+      work) and one profiled step: ms and images/s of an eager step and a
+      replayed step, the device's busy ms and idle share of each.
+    Each net and its graphs are freed (``gc.collect()``) before the next
+    is built."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    sgd = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+    rows = {}
+    for name, size in nets:
+        rs = np.random.RandomState(SEED)
+        x = mx.nd.array(rs.rand(batch, 3, size, size).astype(np.float32),
+                        ctx=ctx)
+        y = mx.nd.array(rs.randint(0, classes, (batch,)).astype(np.float32),
+                        ctx=ctx)
+        pair, rates = [], None
+        for hybrid in (False, True):
+            torch.manual_seed(SEED)
+            net = vision.get_model(name, classes=classes)
+            net.initialize(init=mx.initializer.Xavier(seed=SEED), ctx=ctx)
+            net(x[0:2])  # resolve deferred shapes (predict mode)
+            rates = _dropouts(net, 0.0)
+            if hybrid:
+                net.hybridize()
+            pair.append((net, mx.gluon.Trainer(net.collect_params(), "sgd",
+                                               dict(sgd))))
+        n_params = sum(p.data().size
+                       for p in pair[0][0].collect_params().values())
+
+        def step(net, trainer):
+            loss = _resnet_fwd_bwd(mx, net, x, y)
+            trainer.step(batch)
+            return loss
+
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            losses, grads = [], []
+            for net, trainer in pair:
+                loss = _resnet_fwd_bwd(mx, net, x, y)
+                grads.append(_grads(net.collect_params()))
+                trainer.step(batch)
+                losses.append(float(loss))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        worst, worst_name = _layer_grad_errors(grads[1], grads[0])
+        bitwise = losses[0] == losses[1] and worst == 0.0
+        loss_rel = abs(losses[1] - losses[0]) / abs(losses[0])
+        del grads
+        timing = {}
+        for (net, trainer), kind in zip(pair, ("eager", "replay")):
+            _dropouts(net, rates)
+            if kind == "replay":
+                net.hybridize()  # capture anew with the restored rates
+            out = profiled_loop(lambda: step(net, trainer), launches, steps)
+            step_s, by_name, window_us = out[2], out[3], out[4]
+            busy = sum(by_name.values())
+            timing[kind] = (step_s, busy, window_us, out[0])
+        say("zoo", net=name, image=size, batch=batch, params=n_params,
+            jax_params=params[name], loss_eager=f"{losses[0]:.7f}",
+            loss_hybrid=f"{losses[1]:.7f}", loss_rel=f"{loss_rel:.3e}",
+            worst_grad_rel=f"{worst:.3e}", worst_param=worst_name,
+            bitwise=bitwise, dropout_in_parity=0.0,
+            dropout_in_timing=sorted(set(rates)) or None,
+            **{f"{k}_step_ms": f"{t[0] * 1e3:.3f}"
+               for k, t in timing.items()},
+            **{f"{k}_images_per_s": f"{batch / t[0]:.2f}"
+               for k, t in timing.items()},
+            **{f"{k}_busy_ms": f"{t[1] / 1e3:.3f}"
+               for k, t in timing.items()},
+            **{f"{k}_idle_share": f"{1 - t[1] / t[2]:.4f}"
+               for k, t in timing.items()},
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        check(n_params == params[name], f"{name} has {n_params} parameters, "
+              f"the JAX package's {params[name]}")
+        check(np.isfinite(losses[0]) and loss_rel <= ZOO_LOSS_RTOL,
+              f"the hybridized {name} loss {losses[1]} disagrees with the "
+              f"eager net's {losses[0]}")
+        check(worst <= ZOO_GRAD_RTOL, f"hybridized {name} gradient "
+              f"{worst_name} disagrees with the eager net's: {worst:.3e}")
+        check(all(np.isfinite(t[3]).all() for t in timing.values()),
+              f"{name}: non-finite training loss")
+        rows[name] = {k: t[0] * 1e3 for k, t in timing.items()}
+        del pair, net, trainer, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3365,7 +3873,10 @@ def main():
     row, pools = kernel_phase(dev, gen)
     flash_rows, flash_errs = flash_kernel_phase(dev, gen)
     k6_row = fused_bwd_time_phase(dev, gen, flash_errs)
-    fused_rows = fused_time_phase(dev, gen, fused_kernel_phase(dev, gen))
+    fused_worst = fused_kernel_phase(dev, gen)
+    fused_rows = fused_time_phase(dev, gen, fused_worst)
+    mnv2_rows = fused_time_phase(dev, gen, fused_worst, MOBILENETV2_1X1,
+                                 "mobilenetv2")
     fused_determinism(dev, gen)
     torch.cuda.empty_cache()
 
@@ -3425,6 +3936,38 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    nn_layers_phase(mx.gpu(0), _kernels.LAUNCHES)
+    zoo_phase(mx.gpu(0), _kernels.LAUNCHES)
+    mobilenet = dict(batch=MOBILENET_BATCH, size=MOBILENET_SIZE)
+    for model in ("mobilenet1.0", "mobilenetv2_1.0"):
+        v2 = model == "mobilenetv2_1.0"
+        net, fused, x, y, marked, build = resnet_setup(
+            mx.gpu(0), model=model, **mobilenet)
+        resnet_parity_phase(net, fused, x, y, marked, build,
+                            _kernels.LAUNCHES, mx.gpu(0),
+                            tag="mobilenet-parity",
+                            prologue=MOBILENETV2_PROLOGUE if v2 else 0,
+                            table=MOBILENETV2_1X1 if v2 else None,
+                            sums_vs_terms=True, grad_dist=_layer_l2)
+        del net, fused, x, y, marked, build
+        gc.collect()
+        torch.cuda.empty_cache()
+    net, fused, x, y, marked, _ = resnet_setup(
+        mx.gpu(0), model="mobilenetv2_1.0", **mobilenet)
+    counts = resnet_train_phase(net, fused, x, y, marked, _kernels.LAUNCHES,
+                                tag="mobilenet-train", sgd=MOBILENET_SGD)
+    for r in mnv2_rows:
+        r["launches"] = counts[r["name"].partition("@")[0]]
+    del net, fused, x, y, marked
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_train_hybrid_phase(mx.gpu(0), _kernels.LAUNCHES,
+                              prefix="mobilenet", sgd=MOBILENET_SGD,
+                              grad_dist=_layer_l2,
+                              model="mobilenetv2_1.0", **mobilenet)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     llama, x, y = llama_setup(mx.gpu(0))
     llama_parity_phase(llama, x, y, _kernels.LAUNCHES)
     torch.cuda.empty_cache()
@@ -3432,7 +3975,7 @@ def main():
     k6_row["launches"] = counts["flash_bwd_fused"]
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [row] + flash_rows + fused_rows
-                      + [k6_row]}))
+                      + mnv2_rows + [k6_row]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -21,6 +21,7 @@ from ...nn import (
     Activation,
 )
 from ....base import MXNetError
+from ._common import refuse_pretrained
 
 
 def _conv3x3(channels, stride, in_channels):
@@ -245,14 +246,10 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
     block_type, layers, channels = resnet_spec[num_layers]
     if version not in (1, 2):
         raise MXNetError("version must be 1 or 2")
+    refuse_pretrained(pretrained)
     resnet_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]
-    net = resnet_class(block_class, layers, channels, **kwargs)
-    if pretrained:
-        raise MXNetError(
-            "pretrained weights are not shipped; carry weights in with "
-            "gluon.utils.load_numpy")
-    return net
+    return resnet_class(block_class, layers, channels, **kwargs)
 
 
 def resnet18_v1(**kwargs):

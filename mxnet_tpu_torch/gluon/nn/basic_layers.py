@@ -1,9 +1,8 @@
 """Basic Gluon layers.
 
-PyTorch counterpart of the layers of ``mxnet_tpu/gluon/nn/basic_layers.py``
-that BERT and ResNet use, with the same parameter names
-(``weight``/``bias``, ``gamma``/``beta``, ``running_mean``/``running_var``)
-so weights carry across name for name.
+PyTorch counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``, with the
+same parameter names (``weight``/``bias``, ``gamma``/``beta``,
+``running_mean``/``running_var``) so weights carry across name for name.
 """
 
 from __future__ import annotations
@@ -145,35 +144,6 @@ class Dropout(HybridBlock):
         return f"Dropout(p = {self._rate}, axes={self._axes})"
 
 
-class LayerNorm(HybridBlock):
-    """Layer normalisation over ``axis`` (eps 1e-5), ``gamma``/``beta``
-    of the normalised axis's size."""
-
-    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
-                 beta_initializer="zeros", gamma_initializer="ones",
-                 in_channels=0, prefix=None, params=None):
-        super().__init__(prefix=prefix, params=params)
-        self._axis = axis
-        self._eps = epsilon
-        with self.name_scope():
-            self.gamma = self.params.get(
-                "gamma", grad_req="write" if scale else "null",
-                shape=(in_channels,), init=gamma_initializer,
-                allow_deferred_init=True)
-            self.beta = self.params.get(
-                "beta", grad_req="write" if center else "null",
-                shape=(in_channels,), init=beta_initializer,
-                allow_deferred_init=True)
-
-    def infer_shape(self, x):
-        c = x.shape[self._axis]
-        self.gamma.shape = (c,)
-        self.beta.shape = (c,)
-
-    def hybrid_forward(self, F, x, gamma, beta):
-        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._eps)
-
-
 class BatchNorm(HybridBlock):
     """Batch normalisation over ``axis`` with running statistics
     (``running_mean``, ``running_var``) updated in training mode. Note the
@@ -231,6 +201,126 @@ class BatchNorm(HybridBlock):
     def __repr__(self):
         in_channels = self.gamma.shape[0] if self.gamma.shape else None
         return f"BatchNorm(axis={self._axis}, in_channels={in_channels})"
+
+
+class SyncBatchNorm(BatchNorm):
+    """Batch normalisation synchronised across devices (reference:
+    ``contrib.nn.SyncBatchNorm``). On one device the batch is the whole
+    batch, so it is ``BatchNorm``; ``num_devices`` is accepted and
+    unused."""
+
+    def __init__(self, in_channels=0, num_devices=None, **kwargs):
+        del num_devices
+        super().__init__(in_channels=in_channels, **kwargs)
+
+
+class _ChannelNorm(HybridBlock):
+    """A normalisation with a per-channel ``gamma`` and ``beta`` whose
+    channel count comes from the input's axis ``self._axis``."""
+
+    def __init__(self, axis, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def infer_shape(self, x):
+        c = x.shape[self._axis]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+
+class LayerNorm(_ChannelNorm):
+    """Layer normalisation over ``axis`` (eps 1e-5), ``gamma``/``beta``
+    of the normalised axis's size."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(axis, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix=prefix,
+                         params=params)
+        self._eps = epsilon
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._eps)
+
+
+class InstanceNorm(_ChannelNorm):
+    """Normalise each sample's channels over their spatial axes. Note the
+    reference default ``scale=False``: ``gamma`` stays 1 and takes no
+    gradient. The operator normalises axis 1; ``axis`` only sizes the
+    parameters, as in the JAX package."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(axis, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+        self._eps = epsilon
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._eps)
+
+
+class GroupNorm(_ChannelNorm):
+    """Normalise each sample over ``num_groups`` groups of channels (axis
+    1) and the spatial axes."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(1, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+        self._num_groups = num_groups
+        self._eps = epsilon
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._eps)
+
+
+class Lambda(Block):
+    """A block around a function of NDArrays, or the name of an ``nd``
+    operator."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as F
+
+            function = getattr(F, function)
+        self._func_impl = function
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A hybrid block around ``function(F, *args)``, or the name of an
+    ``nd`` operator called as ``F.<name>(*args)``."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func_name = function
+            function = None
+        else:
+            self._func_name = getattr(function, "__name__", "lambda")
+        self._func_impl = function
+
+    def hybrid_forward(self, F, *args):
+        if self._func_impl is None:
+            return getattr(F, self._func_name)(*args)
+        return self._func_impl(F, *args)
 
 
 class Flatten(HybridBlock):

@@ -33,6 +33,7 @@ from __future__ import annotations
 from ... import autograd
 from ...base import MXNetError
 from ...ndarray.ndarray import NDArray
+from ...ops.shape_ops import NHWC_INTERIOR
 
 # NDArray's own tensor slot, which the lazy arrays read and fill
 _SLOT = NDArray.__dict__["_t"]
@@ -190,11 +191,10 @@ def _agnostic_types():
     # Dense/Flatten are NOT here: they are layout-sensitive (implicit
     # flatten over NHWC vs NCHW feature order) and convert_block handles
     # them explicitly
-    types = [basic_layers.Activation, basic_layers.Dropout]
-    for name in ("LeakyReLU", "PReLU", "ELU", "SELU", "GELU", "Swish"):
-        if hasattr(activations, name):
-            types.append(getattr(activations, name))
-    return tuple(types)
+    return (basic_layers.Activation, basic_layers.Dropout,
+            basic_layers.Lambda, basic_layers.HybridLambda,
+            activations.LeakyReLU, activations.PReLU, activations.ELU,
+            activations.SELU, activations.GELU, activations.Swish)
 
 
 def convert_block(block) -> bool:
@@ -255,7 +255,11 @@ class NCHWAdapter:
 
         if getattr(x, "ndim", 0) == 4:
             x = F.transpose(x, axes=(0, 2, 3, 1))
-        out = self._net(x)
+        token = NHWC_INTERIOR.set(True)
+        try:
+            out = self._net(x)
+        finally:
+            NHWC_INTERIOR.reset(token)
         if isinstance(out, (tuple, list)):
             mapped = [self._back(o) for o in out]
             if hasattr(out, "_fields"):  # namedtuple: positional fields

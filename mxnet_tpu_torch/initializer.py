@@ -94,6 +94,18 @@ class One(Initializer):
 
 
 @register
+class Constant(Initializer):
+    """Every weight set to ``value`` (PReLU's slopes start at 0.25)."""
+
+    def __init__(self, value=0.0):
+        super().__init__()
+        self.value = value
+
+    def _init_weight(self, _, arr):
+        self._fill(arr, self.value)
+
+
+@register
 class Uniform(Initializer):
     def __init__(self, scale=0.07, seed=None):
         super().__init__(seed=seed)

@@ -48,6 +48,14 @@ log_softmax = _wrapped(_math.log_softmax, "log_softmax")
 cast = _wrapped(_math.cast, "cast")
 flash_attention = _wrapped(_fa.flash_attention, "flash_attention")
 Convolution = _wrapped(_nn.convolution, "Convolution")
+Deconvolution = _wrapped(_nn.deconvolution, "Deconvolution")
+InstanceNorm = _wrapped(_nn.instance_norm, "InstanceNorm")
+GroupNorm = _wrapped(_nn.group_norm, "GroupNorm")
+concat = _wrapped(_shape.concat, "concat")
+Concat = concat
+pad = _wrapped(_shape.pad, "pad")
+Pad = pad
+clip = _wrapped(_math.clip, "clip")
 Pooling = _wrapped(_nn.pooling, "Pooling")
 flatten = _wrapped(_shape.flatten, "flatten")
 Flatten = flatten
@@ -58,7 +66,7 @@ square = _wrapped(torch.square, "square")
 log = _wrapped(torch.log, "log")
 broadcast_maximum = _wrapped(torch.maximum, "broadcast_maximum")
 ctc_loss = _wrapped(_ctc.ctc_loss, "ctc_loss")
-relu = _wrapped(torch.relu, "relu")
+relu = _wrapped(_nn.relu, "relu")
 sigmoid = _wrapped(torch.sigmoid, "sigmoid")
 maximum = _wrapped(torch.maximum, "maximum")
 zeros_like = _wrapped(torch.zeros_like, "zeros_like")
@@ -133,12 +141,14 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return res
 
 
-__all__ = ["Activation", "BatchNorm", "Convolution", "Dropout",
-           "Embedding", "Flatten", "FullyConnected", "LayerNorm",
-           "LeakyReLU", "Pooling", "abs", "broadcast_maximum",
-           "broadcast_mul", "cast", "ctc_loss", "expand_dims",
+__all__ = ["Activation", "BatchNorm", "Concat", "Convolution",
+           "Deconvolution", "Dropout", "Embedding", "Flatten",
+           "FullyConnected", "GroupNorm", "InstanceNorm", "LayerNorm",
+           "LeakyReLU", "Pad", "Pooling", "abs", "broadcast_maximum",
+           "broadcast_mul", "cast", "clip", "concat", "ctc_loss",
+           "expand_dims",
            "flash_attention", "flatten", "identity", "log", "log_softmax",
-           "logsumexp", "maximum", "mean", "norm", "pick", "relu",
+           "logsumexp", "maximum", "mean", "norm", "pad", "pick", "relu",
            "reshape", "reshape_like", "sigmoid", "slice_axis", "square",
            "sum", "take", "transpose", "where", "zeros_like"] + sorted(
                n for n in _optimizer_ops.OPS if not n.startswith("_"))

@@ -60,3 +60,41 @@ def norm(data, ord=2, axis=None, keepdims=False):  # noqa: A002
 def where(condition, x, y):
     """``x`` where ``condition`` is non-zero, else ``y``."""
     return torch.where(condition.bool(), x, y)
+
+
+def _half(x):
+    """A 0-d tensor of 1/2 on ``x``'s device, made by a fill kernel (a
+    copy from the host would break a CUDA-graph capture)."""
+    return torch.full((), 0.5, dtype=x.dtype, device=x.device)
+
+
+class _Clip(torch.autograd.Function):
+    """``min(max(x, a_min), a_max)`` whose gradient at a bound is 1/2, the
+    JAX package's rule (``jnp.clip`` is ``jnp.maximum`` then
+    ``jnp.minimum``, each splitting a tie); ``torch.clamp`` gives 1
+    there."""
+
+    @staticmethod
+    def forward(ctx, x, a_min, a_max):
+        ctx.save_for_backward(x)
+        ctx.bounds = (a_min, a_max)
+        return torch.clamp(x, a_min, a_max)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        a_min, a_max = ctx.bounds
+        half = _half(x)
+        if a_min is not None:
+            g = g * torch.heaviside(x - a_min if a_min else x, half)
+        if a_max is not None:
+            g = g * torch.heaviside(a_max - x, half)
+        return g, None, None
+
+
+def clip(data, a_min=None, a_max=None):
+    """Each value limited to ``[a_min, a_max]`` (either bound may be
+    None), with the JAX package's gradient at a bound (1/2)."""
+    if data.requires_grad:
+        return _Clip.apply(data, a_min, a_max)
+    return torch.clamp(data, a_min, a_max)

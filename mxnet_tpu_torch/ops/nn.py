@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as tF
 
+from .math import clip
+
 
 def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
                     flatten=True):
@@ -26,9 +28,16 @@ def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
     return tF.linear(x, weight, None if no_bias else bias)
 
 
+def relu(data):
+    """``max(x, 0)``, with the JAX package's gradient at 0 (1/2): a clip
+    whose only bound is 0. Ties are real: a bias-free conv over a pixel
+    whose relu'd inputs are all zero outputs exactly 0."""
+    return clip(data, 0, None)
+
+
 def activation(data, act_type="relu"):
     if act_type == "relu":
-        return torch.relu(data)
+        return relu(data)
     if act_type == "sigmoid":
         return torch.sigmoid(data)
     if act_type == "tanh":
@@ -40,13 +49,34 @@ def activation(data, act_type="relu"):
     raise ValueError(f"unknown act_type {act_type}")
 
 
-def leaky_relu(data, act_type="leaky", slope=0.25):
-    """``gelu`` is the exact erf form (``approximate=False`` in the JAX
-    package), not the tanh form of the serving decoder."""
+# SELU's constants (Klambauer et al. 2017), as the JAX package writes them
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """The ``LeakyReLU`` family. ``prelu`` takes its learned slopes from
+    ``gamma``, one per channel (axis 1) of an input of more than two axes,
+    else broadcast against the last axis; ``rrelu`` is its evaluation form
+    (the mean of the slope's bounds). ``gelu`` is the exact erf form
+    (``approximate=False`` in the JAX package), not the tanh form of the
+    serving decoder."""
     if act_type == "leaky":
         return torch.where(data >= 0, data, slope * data)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if gamma.dim() == 1 and data.dim() > 2 else gamma
+        return torch.where(data >= 0, data, g * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(
+            data >= 0, data, _SELU_ALPHA * torch.expm1(data))
     if act_type == "gelu":
         return tF.gelu(data, approximate="none")
+    if act_type == "rrelu":
+        return torch.where(data >= 0, data,
+                           (lower_bound + upper_bound) / 2 * data)
     raise ValueError(f"unknown act_type {act_type}")
 
 
@@ -103,6 +133,25 @@ def convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
              tuple(stride) or (1,) * nd, tuple(pad) or (0,) * nd,
              tuple(dilate) or (1,) * nd, num_group)
     return y.movedim(1, -1) if channels_last else y
+
+
+def deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), target_shape=(), num_filter=0, num_group=1,
+                  no_bias=True, layout=None, workspace=0, cudnn_tune=None,
+                  cudnn_off=False):
+    """N-d transposed convolution (the gradient of a convolution with
+    respect to its input), weights ``(in, out / groups, *kernel)``. The
+    output along each spatial axis is ``(n - 1) * stride + (kernel - 1) *
+    dilate + 1 - 2 * pad + adj``; ``target_shape`` is accepted and
+    ignored, as in the JAX package."""
+    del target_shape, num_filter, layout, workspace, cudnn_tune, cudnn_off
+    nd = len(kernel)
+    deconv = {1: tF.conv_transpose1d, 2: tF.conv_transpose2d,
+              3: tF.conv_transpose3d}[nd]
+    return deconv(data, weight, None if no_bias else bias,
+                  tuple(stride) or (1,) * nd, tuple(pad) or (0,) * nd,
+                  tuple(adj) or (0,) * nd, num_group,
+                  tuple(dilate) or (1,) * nd)
 
 
 def _window_sum(x, kernel, stride):
@@ -197,3 +246,35 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     if output_mean_var:
         return out, mean, var
     return out
+
+
+def _f32_moments(data, axes):
+    """One-pass mean and variance over ``axes`` (kept), accumulated in
+    fp32 or wider: ``E[x^2] - E[x]^2`` floored at 0, the JAX package's
+    form."""
+    xf = data.to(torch.promote_types(data.dtype, torch.float32))
+    mean = xf.mean(dim=axes, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=axes, keepdim=True) - mean * mean,
+                      min=0.0)
+    return mean, var
+
+
+def instance_norm(data, gamma, beta, eps=1e-3):
+    """Normalise each sample's channel (axis 1) over the spatial axes,
+    then scale and shift per channel."""
+    mean, var = _f32_moments(data, tuple(range(2, data.dim())))
+    out = (data - mean.to(data.dtype)) \
+        * torch.rsqrt(var + eps).to(data.dtype)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+def group_norm(data, gamma, beta, num_groups=1, eps=1e-5):
+    """Normalise each sample over groups of ``C / num_groups`` channels
+    (axis 1) and the spatial axes, then scale and shift per channel."""
+    n, c = data.shape[0], data.shape[1]
+    x = data.reshape((n, num_groups, c // num_groups) + tuple(data.shape[2:]))
+    mean, var = _f32_moments(x, tuple(range(2, x.dim())))
+    x = (x - mean.to(x.dtype)) * torch.rsqrt(var + eps).to(x.dtype)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return x.reshape(data.shape) * gamma.reshape(shape) + beta.reshape(shape)

@@ -5,7 +5,15 @@ PyTorch counterpart of the matching part of ``mxnet_tpu/ops/shape_ops.py``.
 
 from __future__ import annotations
 
+import contextvars
+
 import torch
+
+from ..base import MXNetError
+
+# True while a net converted by optimize_for("tpu_fused_conv_bn") runs:
+# its 4-D activations are then NHWC, so axis 1 is H, not the channels
+NHWC_INTERIOR = contextvars.ContextVar("nhwc_interior", default=False)
 
 
 def _infer_reshape(src_shape, target):
@@ -90,3 +98,52 @@ def flatten(data):
 
 def identity(data):
     return data.clone()
+
+
+def concat(*args, dim=1):
+    """The arrays joined along ``dim``. Inside the fused pass's NHWC
+    interior a join of 4-D arrays on axis 1 would join on H where the net
+    means channels (the JAX package does so, ROADMAP C7): it raises."""
+    if NHWC_INTERIOR.get() and args[0].dim() == 4 and dim % 4 == 1:
+        raise MXNetError(
+            "concat on axis 1 of 4-D arrays inside "
+            "optimize_for(tpu_fused_conv_bn)'s NHWC interior would join "
+            "on H, not on channels (ROADMAP C7)")
+    return torch.cat(args, dim=dim)
+
+
+def _pad_index(n, before, after, mode, device):
+    """Source positions of a padded axis of length ``n``: ``edge`` repeats
+    the end values, ``reflect`` mirrors about them without repeating them
+    (numpy's modes, periodic for pads longer than the axis)."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge":
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    if period == 0:
+        return torch.zeros_like(i)
+    j = i.remainder(period)
+    return torch.where(j >= n, period - j, j)
+
+
+def pad(data, mode="constant", pad_width=(), constant_value=0.0):
+    """Pad every axis by ``pad_width = (before_0, after_0, before_1, ...)``
+    in ``constant``, ``edge`` or ``reflect`` mode. The edge and reflect
+    modes gather along each padded axis, so their gradient sums into the
+    sources, as the JAX package's ``jnp.pad`` does."""
+    pw = [(int(pad_width[2 * i]), int(pad_width[2 * i + 1]))
+          for i in range(len(pad_width) // 2)]
+    if mode == "constant":
+        flat = []
+        for before, after in reversed(pw):  # F.pad takes the last axis first
+            flat += [before, after]
+        return torch.nn.functional.pad(data, flat, value=constant_value)
+    if mode not in ("edge", "reflect"):
+        raise ValueError(f"unknown pad mode {mode}")
+    out = data
+    for axis, (before, after) in enumerate(pw):
+        if before or after:
+            idx = _pad_index(out.shape[axis], before, after, mode,
+                             out.device)
+            out = torch.index_select(out, axis, idx)
+    return out

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""ResNet-50 v1's training-loss trajectory on one fixed batch, through
+"""A zoo net's training-loss trajectory on one fixed batch, through
 ``optimize_for("tpu_fused_conv_bn")`` and the Gluon loop, in either
 package, from the same numpy-made weights.
 
-This is ``chip_smoke.py``'s ResNet train schedule (``resnet_train_phase``:
-batch 128 at 224 x 224 from ``numpy.random.RandomState(0)``, labels in
-[0, 10), SGD lr 0.005 momentum 0.9 wd 1e-4, fp32) run step by step, so a
-trajectory of the JAX package (the reference) can be set beside the
-port's:
+This is ``chip_smoke.py``'s train schedule for ResNet-50 v1
+(``resnet_train_phase``: batch 128 at 224 x 224 from
+``numpy.random.RandomState(0)``, labels in [0, 10), SGD lr 0.005 momentum
+0.9 wd 1e-4, fp32) or, with ``--model mobilenetv2_1.0 --wd 4e-5``, for
+MobileNetV2 1.0, run step by step, so a trajectory of the JAX package (the
+reference) can be set beside the port's:
 
     # the reference: draws Xavier weights from numpy's global generator
     # (seed 0), saves them, prints one loss per step
@@ -18,11 +19,11 @@ port's:
     python tools/resnet_loss_trajectory.py --side torch \\
         --weights /tmp/r50_w.npz --steps 12
 
-Each side imports only its own package. ``--batch`` and ``--size`` cut
-the problem for a quick run; the losses printed are the mean softmax
-cross-entropy of each step's forward, before that step's update. The last
-line is one JSON object with the losses, the peak resident memory and the
-seconds taken.
+Each side imports only its own package. ``--model`` names any net of the
+zoo's registry (1000 classes); ``--batch`` and ``--size`` cut the problem
+for a quick run; the losses printed are the mean softmax cross-entropy of
+each step's forward, before that step's update. The last line is one JSON
+object with the losses, the peak resident memory and the seconds taken.
 """
 
 import argparse
@@ -46,12 +47,13 @@ def batch(n, size):
     return x, y
 
 
-def run(mx, net, x, y, steps, ctx_kw, lr):
+def run(mx, net, x, y, steps, ctx_kw, lr, wd):
     """``steps`` Gluon-loop steps through optimize_for at learning rate
-    ``lr``; the mean loss of each step's forward."""
+    ``lr`` and weight decay ``wd``; the mean loss of each step's
+    forward."""
     call = net.optimize_for(backend="tpu_fused_conv_bn")
     trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
-                               dict(SGD, learning_rate=lr))
+                               dict(SGD, learning_rate=lr, wd=wd))
     sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
     xs, ys = mx.nd.array(x, **ctx_kw), mx.nd.array(y, **ctx_kw)
     losses = []
@@ -73,7 +75,7 @@ def side_jax(args, x, y):
     from mxnet_tpu.gluon.model_zoo import vision
 
     np.random.seed(0)  # the JAX package's initializers draw from numpy
-    net = vision.resnet50_v1(classes=1000)
+    net = vision.get_model(args.model, classes=1000)
     net.initialize(init=mx.initializer.Xavier())
     net(mx.nd.array(x[:2]))
     weights = {k: np.array(p.data().asnumpy())
@@ -81,7 +83,7 @@ def side_jax(args, x, y):
     np.savez(args.weights, **weights)
     if args.hybridize:
         net.hybridize()
-    return run(mx, net, x, y, args.steps, {}, args.lr)
+    return run(mx, net, x, y, args.steps, {}, args.lr, args.wd)
 
 
 def side_torch(args, x, y):
@@ -96,12 +98,12 @@ def side_torch(args, x, y):
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    net = vision.resnet50_v1(classes=1000)
+    net = vision.get_model(args.model, classes=1000)
     net.initialize(ctx=ctx)
     net(mx.nd.array(x[:2], ctx=ctx))
     with np.load(args.weights) as f:
         load_numpy(net.collect_params(), {k: f[k] for k in f.files})
-    return run(mx, net, x, y, args.steps, {"ctx": ctx}, args.lr)
+    return run(mx, net, x, y, args.steps, {"ctx": ctx}, args.lr, args.wd)
 
 
 def main():
@@ -111,7 +113,11 @@ def main():
                    help="npz written by --side jax, read by --side torch")
     p.add_argument("--steps", type=int, default=12)
     p.add_argument("--lr", type=float, default=SGD["learning_rate"],
-                   help="SGD learning rate (momentum and wd stay as in SGD)")
+                   help="SGD learning rate (momentum stays 0.9)")
+    p.add_argument("--wd", type=float, default=SGD["wd"],
+                   help="SGD weight decay")
+    p.add_argument("--model", default="resnet50_v1",
+                   help="a name of the zoo's registry")
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--size", type=int, default=224)
     p.add_argument("--hybridize", action="store_true",
@@ -125,8 +131,9 @@ def main():
     t0 = time.perf_counter()
     losses = (side_jax if args.side == "jax" else side_torch)(args, x, y)
     print(json.dumps({
-        "side": args.side, "device": args.device if args.side == "torch"
-        else "cpu", "lr": args.lr, "batch": args.batch, "size": args.size,
+        "side": args.side, "model": args.model,
+        "device": args.device if args.side == "torch" else "cpu",
+        "lr": args.lr, "wd": args.wd, "batch": args.batch, "size": args.size,
         "losses": losses, "seconds": round(time.perf_counter() - t0, 1),
         "peak_rss_gb": round(resource.getrusage(
             resource.RUSAGE_SELF).ru_maxrss / 2 ** 20, 2)}))
