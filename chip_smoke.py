@@ -77,6 +77,32 @@ Phases (each prints one line of facts; any failure exits non-zero):
 7e. aot predict — ``aot_predict_fn`` of BERT-base captured into a CUDA
    graph per bucket (batch 8, 32, 64): each replay equal to the eager
    forward, K1 12 times a replay, device ms beside the eager forward's;
+7f. bert pretrain — BERT-base as the reference defines it
+   (``models.bert_base()``: dropout 0.1, pooler, NSP classifier and MLM
+   decoder; 133,547,324 parameters, the JAX package's count), batch 64 x
+   128, Adam lr 1e-4 wd 0.01, each step's mask (15% of the positions,
+   ``nd.random.uniform < 0.15`` then ``nd.where`` to the mask id) and NSP
+   labels (``nd.random.randint``) drawn from ``mx.random``; the loss the
+   MLM cross-entropy over the masked positions (``nd.log_softmax``,
+   ``nd.pick``) plus the NSP cross-entropy (``nd.softmax_cross_entropy``).
+   At dropout 0 one step with K1/K2 against the plain versions (loss 1e-5,
+   gradients 1e-4 of their layer's largest); Dropout(0.1) keeps 0.9 and
+   the masks cover 0.15, each within 1e-3; eager then ``hybridize()``d:
+   10 steps (one warm-up, one profiled) from ``mx.random.seed(SEED)``,
+   twice, the losses equal bit for bit, falling and finite, K1/K2 12
+   launches a step; a run from SEED + 1 gives other losses; two replays
+   of the captured graph draw different dropout masks and a seed before
+   each the same ones; step ms, sequences/s, busy ms, idle share, the
+   split of busy time and the MLM top-1/top-5 readout (``nd.topk``,
+   ``nd.argmax``, ``nd.broadcast_equal``);
+7g. nd ops — every operator this slice ports, on the card at BERT-base's
+   widths (activations (64, 128, 768), MLM logits (8192, 30522), its
+   projection shapes) against the same op on the host in float64, forward
+   and first-order gradient (element-wise 1e-6 of the output's largest,
+   reductions and products 1e-5, gradients 10 times their family's); the
+   second-order cases of ``test_higher_order_grad.py`` at (64, 128, 768);
+   the samplers' moments over 1e6 draws; plain PyTorch, no kernel of the
+   port, and each line says so;
 8. trainer fused — the Trainer's multi-tensor Adam update
    (``torch._foreach_*``, the default) against its per-parameter path at
    BERT-base's widths, on two nets from one seed fed the same gradients:
@@ -1679,12 +1705,13 @@ def profiled_loop(step, launches, steps):
     return [float(v) for v in losses], counts, step_s, by_name, window_us
 
 
-def say_step_split(tag, by_name, busy):
-    """The profiled step's device time by kind of kernel (STEP_GROUPS)
-    and its eight largest kernels."""
+def say_step_split(tag, by_name, busy, groups=STEP_GROUPS):
+    """The profiled step's device time by kind of kernel (``groups``,
+    STEP_GROUPS by default) and its eight largest kernels."""
+    table = groups
     groups = {}
     for name, us in by_name.items():
-        group = next((g for g, keys in STEP_GROUPS if any(
+        group = next((g for g, keys in table if any(
             k in name.lower() for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + us
     say(f"{tag}-step-split", **{g: f"{us / 1e3:.3f}ms/{us / busy:.4f}"
@@ -3839,6 +3866,654 @@ def llama_train_phase(net, x, y, launches, steps=10):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8d: BERT-base pretraining as the reference defines the model
+# ---------------------------------------------------------------------------
+
+BERT_PRETRAIN_PARAMS = 133547324  # tools/zoo_param_counts.py --side jax
+MASK_P, MASK_ID = 0.15, 103  # BERT's masking rate; [MASK] in its vocab
+PRETRAIN_GROUPS = (("flash_k1_k2", ("mxtpu_flash",)),
+                   ("fp32_products", ("gemm", "gemv")),
+                   ("softmax_mlm", ("softmax", "logsumexp")),
+                   ("dropout_random", ("distribution", "philox", "rand",
+                                       "bernoulli", "dropout")),
+                   ("layer_norm", ("layer_norm",)),
+                   ("embedding_index", ("index", "embedding", "gather",
+                                        "scatter")),
+                   ("reductions", ("reduce",)),
+                   ("elementwise", ("elementwise", "unrolled")))
+
+
+def pretrain_loss(mod, net, ids, types, mask, nsp_labels, mask_id=MASK_ID):
+    """BERT's pretraining loss through ``mod``'s operators (``mod`` is
+    either package, so ``tests/test_torch_bert_pretrain.py`` holds the
+    port's to the JAX package's): the positions where ``mask`` is 1
+    replaced by ``mask_id`` (``nd.where``), the MLM cross-entropy over
+    them (``nd.log_softmax``, ``nd.pick``, weighted by the mask) plus the
+    NSP cross-entropy (``nd.softmax_cross_entropy``), both means.
+    Returns the loss and the MLM logits."""
+    nd = mod.nd
+    inputs = nd.where(mask, nd.ones_like(ids) * mask_id, ids)
+    _, _, nsp, mlm = net(inputs, types)
+    lsm = nd.log_softmax(mlm, axis=-1)
+    ce = -nd.pick(lsm, ids.astype("float32"), axis=-1)
+    mlm_loss = (ce * mask).sum() / mask.sum()
+    nsp_loss = nd.softmax_cross_entropy(nsp, nsp_labels) / ids.shape[0]
+    return mlm_loss + nsp_loss, mlm
+
+
+def mlm_hits(mod, mlm, ids, mask):
+    """Top-1 and top-5 hits of the MLM head over the masked positions
+    (``nd.argmax``, ``nd.topk``, ``nd.broadcast_equal``), unrecorded."""
+    nd = mod.nd
+    with mod.autograd.pause():
+        lab = ids.astype("float32")
+        top1 = nd.broadcast_equal(nd.argmax(mlm, axis=-1), lab)
+        top5 = nd.topk(mlm, axis=-1, k=5)
+        hit5 = nd.broadcast_equal(top5, nd.expand_dims(lab, axis=-1)) \
+            .sum(axis=-1)
+        return float((top1 * mask).sum().asscalar()), \
+            float((hit5 * mask).sum().asscalar())
+
+
+def _pretrain_batch(mx, ctx, x, seed=None):
+    """One step's random part from ``mx.random``: 15% of the positions
+    masked (``uniform < 0.15``) and NSP labels (``randint(0, 2)``)."""
+    if seed is not None:
+        mx.random.seed(seed)
+    B, T = x.shape
+    mask = mx.nd.random.uniform(shape=(B, T), ctx=ctx) < MASK_P
+    nsp = mx.nd.random.randint(0, 2, shape=(B,), ctx=ctx).astype("float32")
+    return mask, nsp
+
+
+def _restore(params, saved):
+    with torch.no_grad():
+        for p, t in zip(params.values(), saved):
+            p.data().data.copy_(t)
+
+
+def bert_pretrain_phase(ctx, launches, x, steps=10, **cut):
+    """BERT-base as the reference defines it (``models.bert_base()``:
+    dropout 0.1, pooler, NSP classifier, MLM decoder; ``cut`` overrides
+    widths for a rehearsal on the host), Normal(0.02) weights from SEED,
+    ``x`` (bert_setup's batch, 64 x 128) with token types 0 then 1, Adam
+    lr 1e-4 wd 0.01, fp32; each step draws its mask and NSP labels from
+    ``mx.random``:
+
+    1. at dropout 0, one step's loss and gradients with K1/K2 against the
+       plain versions (loss 1e-5, gradients TRAIN_GRAD_RTOL of their
+       layer's largest);
+    2. two runs of ``steps`` steps from ``mx.random.seed(SEED)`` give
+       losses equal bit for bit, eager and ``hybridize()``d (the graphs
+       captured before the seed); a run from seed SEED + 1 other losses;
+    3. two replays of the captured graph draw different dropout masks,
+       and the same seed before each draws the same ones;
+    4. ``nd.Dropout(p=0.1)`` keeps 0.9 +- 1e-3 of a (64, 128, 768)
+       activation under ``train_mode()``; the masks' share is 0.15 +-
+       1e-3 over 256 of them;
+    5. the loss is finite and falls over the run;
+    6. K1 and K2 launch once per layer per pass (12 a step).
+    Prints the parameter count (against the JAX package's), ms per step
+    and sequences/s eager and replayed, busy ms, idle share and the split
+    of busy time (PRETRAIN_GROUPS), and the MLM accuracy after the run."""
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    torch.manual_seed(SEED)
+    net = mx.models.bert_base(**cut)
+    net.initialize(init=mx.initializer.Normal(0.02, seed=SEED), ctx=ctx)
+    B, T = x.shape
+    types = mx.nd.array(np.repeat((np.arange(T) >= T // 2)[None], B, 0),
+                        dtype="int32", ctx=ctx)
+    net(x, types)
+    params = net.collect_params()
+    n_params = sum(p.data().size for p in params.values())
+    layers = cut.get("num_layers", BERT_LAYERS)
+    say("bert-pretrain-model", config="BERT-base (bert_12_768_12, vocab "
+        "30522, dropout 0.1, pooler + NSP + MLM heads)", params=n_params,
+        jax_params=BERT_PRETRAIN_PARAMS, batch=B, seq=T,
+        init_s=f"{time.perf_counter() - t0:.2f}")
+    if not cut:
+        check(n_params == BERT_PRETRAIN_PARAMS, f"BERT-base has {n_params} "
+              f"parameters, the JAX package's {BERT_PRETRAIN_PARAMS}")
+    saved = [p.data().data.detach().clone() for p in params.values()]
+
+    # 1. parity at dropout 0, kernels against plain attention
+    rates = _dropouts(net, 0.0)
+    mask, nsp = _pretrain_batch(mx, ctx, x, seed=SEED)
+
+    def fwd_bwd():
+        with mx.autograd.record():
+            loss, _ = pretrain_loss(mx, net, x, types, mask, nsp)
+        loss.backward()
+        return float(loss.asscalar()), _grads(params)
+
+    loss_k, grads_k = fwd_bwd()
+    kernel_op = mx.nd.flash_attention
+    from mxnet_tpu_torch.ndarray.ndarray import apply
+    mx.nd.flash_attention = lambda q, k, v, causal=False, **kw: apply(
+        PlainFlash.apply, q, k, v, causal)
+    try:
+        loss_p, grads_p = fwd_bwd()
+    finally:
+        mx.nd.flash_attention = kernel_op
+    worst, worst_name = _layer_grad_errors(grads_k, grads_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    say("bert-pretrain-parity", dropout=0.0, loss_kernels=f"{loss_k:.7f}",
+        loss_plain=f"{loss_p:.7f}", loss_rel=f"{loss_rel:.3e}",
+        worst_grad_rel=f"{worst:.3e}", worst_param=worst_name,
+        tol_rel=TRAIN_GRAD_RTOL)
+    check(np.isfinite(loss_k) and loss_rel <= 1e-5,
+          "[bert-pretrain] kernel loss disagrees with plain attention")
+    check(worst <= TRAIN_GRAD_RTOL, f"[bert-pretrain] {worst_name} "
+          f"gradient disagrees with plain attention: {worst}")
+    del grads_k, grads_p
+    _dropouts(net, rates)
+    _restore(params, saved)
+
+    # 4. the rates the stream gives
+    with mx.autograd.train_mode():
+        act = mx.nd.ones((B, T, cut.get("units", 768)), ctx=ctx)
+        kept = float((mx.nd.Dropout(act, p=0.1) != 0).mean().asscalar())
+    share = float(mx.nd.mean(mx.nd.random.uniform(
+        shape=(256, B, T), ctx=ctx) < MASK_P).asscalar())
+    say("bert-pretrain-rates", dropout_kept=f"{kept:.6f}", want_kept=0.9,
+        mask_share=f"{share:.6f}", want_share=MASK_P, tol=1e-3,
+        mask_positions=256 * B * T)
+    check(abs(kept - 0.9) <= 1e-3, f"Dropout(0.1) kept {kept}")
+    check(abs(share - MASK_P) <= 1e-3, f"the masks cover {share}")
+
+    def run(seed, n, hybrid, profile=True):
+        """``n`` steps from ``mx.random.seed(seed)`` on the saved
+        weights with a fresh Trainer."""
+        _restore(params, saved)
+        trainer = mx.gluon.Trainer(params, "adam", dict(BERT_ADAM))
+        mx.random.seed(seed)
+        state = {}
+
+        def step():
+            m, y = _pretrain_batch(mx, ctx, x)
+            with mx.autograd.record():
+                loss, mlm = pretrain_loss(mx, net, x, types, m, y)
+            loss.backward()
+            trainer.step(B)
+            state.update(mlm=mlm, mask=m)
+            return loss.data.detach()
+
+        if not profile:
+            return [float(step()) for _ in range(n)], None, None, None, state
+        losses, counts, step_s, by_name, window_us = profiled_loop(
+            step, launches, n - 2)
+        return losses, counts, step_s, (by_name, window_us), state
+
+    rows = {}
+    for hybrid in (False, True):
+        tag = "bert-pretrain-hybrid" if hybrid else "bert-pretrain"
+        if hybrid:
+            net.hybridize()
+            run(SEED + 7, 1, True, profile=False)  # capture before the seed
+            entries = list(net._cached_graph._cache.values())
+            check(len(entries) == 1 and entries[0].recording,
+                  f"{len(entries)} entries after the capture")
+        a, counts, step_s, (by_name, window_us), state = run(SEED, steps,
+                                                             hybrid)
+        b = run(SEED, steps, hybrid, profile=False)[0]
+        busy = sum(by_name.values())
+        flash = sum(us for n, us in by_name.items() if "flash" in n)
+        n_steps = steps
+        say(tag, steps=steps, step_ms=f"{step_s * 1e3:.3f}",
+            sequences_per_s=f"{B / step_s:.2f}",
+            loss_first=f"{a[0]:.6f}", loss_last=f"{a[-1]:.6f}",
+            repeat_bitwise=a == b, profiled_busy_ms=f"{busy / 1e3:.3f}",
+            profiled_idle_share=f"{1 - busy / window_us:.4f}",
+            flash_share=f"{flash / max(busy, 1e-9):.4f}",
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+            flash_fwd=counts.get("flash_fwd", 0),
+            flash_bwd_dq=counts.get("flash_bwd_dq", 0),
+            flash_bwd_dkv=counts.get("flash_bwd_dkv", 0))
+        say_step_split(tag, by_name, busy, groups=PRETRAIN_GROUPS)
+        top1, top5 = mlm_hits(mx, state["mlm"], x, state["mask"])
+        masked = float(state["mask"].sum().asscalar())
+        say(f"{tag}-mlm", masked=int(masked), top1=f"{top1 / masked:.4f}",
+            top5=f"{top5 / masked:.4f}")
+        check(busy > 0 and flash > 0, f"[{tag}] no flash kernel profiled")
+        check(a == b, f"[{tag}] two runs from one seed differ: {a} {b}")
+        check(all(np.isfinite(a)), f"[{tag}] non-finite loss {a}")
+        check(a[-1] < a[0], f"[{tag}] loss did not fall: {a}")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            check(counts.get(name, 0) == layers * n_steps,
+                  f"[{tag}] {name} launched {counts.get(name, 0)} times in "
+                  f"{n_steps} steps of {layers} layers")
+        rows[hybrid] = (a, counts)
+        if not hybrid:
+            other = run(SEED + 1, 2, False, profile=False)[0]
+            say("bert-pretrain-seed", seed=SEED + 1,
+                losses=[f"{v:.6f}" for v in other])
+            check(other[0] != a[0] and other[1] != a[1],
+                  "seeds SEED and SEED + 1 gave the same losses")
+
+    # 3. two replays draw different masks; a seed before each repeats them
+    entries = list(net._cached_graph._cache.values())
+    outs = []
+    for seed in (SEED, None, SEED):
+        if seed is not None:
+            mx.random.seed(seed)
+        with mx.autograd.record():
+            loss, mlm = pretrain_loss(mx, net, x, types, mask, nsp)
+        loss.backward()
+        outs.append(mlm.data.detach().clone())
+    after = list(net._cached_graph._cache.values())
+    same_seed = torch.equal(outs[0], outs[2])
+    differ = not torch.equal(outs[0], outs[1])
+    say("bert-pretrain-replays", replays=[e.gen for e in after],
+        entries=len(after), new_masks_differ=differ,
+        reseeded_equal=same_seed)
+    check(after == entries and all(e.graphed for e in after),
+          "the replays captured a new graph")
+    check(differ, "two replays drew the same dropout masks")
+    check(same_seed, "a seed before a replay did not repeat its masks")
+    del outs, saved
+    return rows[False][1]
+
+
+# ---------------------------------------------------------------------------
+# phase 8e: the nd operators on the card against the host in float64
+# ---------------------------------------------------------------------------
+
+ND_TOL = {"elementwise": 1e-6, "reduction": 1e-5, "product": 1e-5,
+          "shape": 1e-6, "potrf": 1e-4}  # relative to the output's largest
+
+_SMOOTH = ("sin", "cos", "tanh", "sinh", "cosh", "arctan", "arcsinh", "exp",
+           "expm1", "sigmoid", "erf", "softsign", "square", "negative",
+           "degrees", "radians")
+_POSITIVE = ("sqrt", "rsqrt", "log", "log10", "log1p", "log2", "reciprocal",
+             "cbrt", "rcbrt", "gammaln", "gamma")
+_BINARY = ("broadcast_add", "broadcast_sub", "broadcast_mul",
+           "broadcast_div", "broadcast_power", "broadcast_maximum",
+           "broadcast_minimum", "broadcast_hypot", "arctan2")
+_NONDIFF = ("sign", "rint", "round", "ceil", "floor", "trunc", "fix",
+            "logical_not", "isnan", "isinf", "isfinite", "broadcast_mod",
+            "broadcast_equal", "broadcast_not_equal", "broadcast_greater",
+            "broadcast_greater_equal", "broadcast_lesser",
+            "broadcast_lesser_equal", "broadcast_logical_and",
+            "broadcast_logical_or", "broadcast_logical_xor")
+
+
+def _nd_cases(B=64, T=128, C=768, H=3072, V=30522, N=1024):
+    """name -> (family, input makers over a torch.Generator (float32
+    tensors on the generator's device), attrs,
+    gradient checked) at BERT-base's widths (batch B, sequence T, units C,
+    hidden H, vocabulary V; N rows of a loss). The gradient is checked
+    where ``tests/test_gradient_sweep.py`` has a spec for the name."""
+    S = (B, T, C)
+    VR = (B * T, V)
+    u = (lambda lo, hi, shape=S: lambda g: torch.rand(
+        shape, generator=g, device=g.device) * (hi - lo) + lo)
+    sgn = (lambda shape=S: lambda g: (torch.rand(
+        shape, generator=g, device=g.device) * 0.8 + 0.2) * torch.where(
+        torch.rand(shape, generator=g, device=g.device) < 0.5, -1.0, 1.0))
+    rows = (lambda shape=(S[0] * S[1], S[2]): u(-1, 1, shape))
+    ri = (lambda lo, hi, shape: lambda g: torch.randint(
+        lo, hi, shape, generator=g, device=g.device).float())
+    cases = {}
+    for n in _SMOOTH:
+        cases[n] = ("elementwise", [u(-1, 1)], {}, True)
+    for n in _POSITIVE:
+        cases[n] = ("elementwise", [u(0.3, 1.5)], {}, True)
+    cases["tan"] = ("elementwise", [u(-0.6, 0.6)], {}, True)
+    for n in ("arcsin", "arccos", "arctanh"):
+        cases[n] = ("elementwise", [u(-0.8, 0.8)], {}, True)
+    cases["arccosh"] = ("elementwise", [u(1.3, 2.5)], {}, True)
+    cases["erfinv"] = ("elementwise", [u(-0.7, 0.7)], {}, True)
+    for n in ("abs", "relu"):
+        cases[n] = ("elementwise", [sgn()], {}, True)
+    cases["smooth_l1"] = ("elementwise", [sgn()], {"scalar": 1.5}, True)
+    cases["clip"] = ("elementwise", [sgn()], {"a_min": -0.5, "a_max": 0.5},
+                     True)
+    for n in _BINARY:
+        lhs = u(0.3, 1.5) if n == "broadcast_power" else (
+            sgn() if n == "broadcast_hypot" else u(-1, 1))
+        rhs = sgn((1, 1, S[2])) if n in ("broadcast_div", "broadcast_hypot") \
+            else u(0.3, 1.5, (1, 1, S[2]))
+        cases[n] = ("elementwise", [lhs, rhs], {}, True)
+    for n in _NONDIFF:
+        a = ri(-1, 2, S) if "round" not in n else u(-3, 3)
+        b = ri(-1, 2, (1, 1, S[2]))
+        if n.startswith("broadcast_"):
+            args = [a, b] if n != "broadcast_mod" else [u(-3, 3),
+                                                        u(0.3, 1.5,
+                                                          (1, 1, S[2]))]
+        else:
+            args = [a]
+        cases[n] = ("elementwise", args, {}, False)
+    cases["cast"] = ("elementwise", [u(-1, 1)], {"dtype": "float16"}, False)
+    for n in ("sum", "mean", "nansum", "max", "min", "norm", "prod",
+              "nanprod"):
+        make = u(0.99, 1.01) if n in ("prod", "nanprod") else u(-1, 1)
+        cases[n] = ("reduction", [make], {"axis": -1}, True)
+    cases["cumsum"] = ("reduction", [u(-1, 1)], {"axis": 2}, True)
+    for n in ("softmax", "log_softmax", "softmin"):
+        cases[n] = ("reduction", [u(-4, 4, VR)], {"axis": -1}, True)
+    cases["softmax_cross_entropy"] = (
+        "reduction", [u(-4, 4, (N, VR[1])), ri(0, VR[1], (N,))], {}, True)
+    cases["SoftmaxOutput"] = (
+        "reduction", [u(-4, 4, (N, VR[1])), ri(0, VR[1], (N,))],
+        {"normalization": "batch"}, True)
+    cases["argmax_channel"] = ("shape", [u(-4, 4, (N, 1000))], {}, False)
+    cases["argmax"] = ("shape", [u(-4, 4, VR)], {"axis": -1}, False)
+    cases["argmin"] = ("shape", [u(-4, 4, VR)], {"axis": -1}, False)
+    cases["topk"] = ("shape", [u(-4, 4, VR)], {"k": 5}, False)
+    cases["sort"] = ("shape", [u(-4, 4, VR)], {}, True)
+    cases["argsort"] = ("shape", [u(-4, 4, VR)], {}, False)
+    cases["dot"] = ("product", [rows(), u(-1, 1, (C, H))], {}, True)
+    cases["batch_dot"] = ("product", [u(-1, 1, (C, T, 64)),
+                                      u(-1, 1, (C, T, 64))],
+                          {"transpose_b": True}, True)
+    cases["matmul"] = ("product", [rows(), u(-1, 1, (C, C))], {}, True)
+    cases["linalg_gemm2"] = ("product", [u(-1, 1, (12, 4 * T, 64)),
+                                         u(-1, 1, (12, 4 * T, 64))],
+                             {"transpose_b": True, "alpha": 0.125}, True)
+    cases["linalg_gemm"] = ("product", [rows(), u(-1, 1, (C, C)),
+                                        u(-1, 1, (B * T, C))],
+                            {"beta": 0.5}, True)
+    cases["linalg_syrk"] = ("product", [u(-1, 1, (C, H))], {}, True)
+    cases["khatri_rao"] = ("product", [u(-1, 1, (B, 32)),
+                                       u(-1, 1, (T, 32))], {}, True)
+
+    def spd(g):
+        a = torch.rand((C // 3, C // 3), generator=g, device=g.device) - 0.5
+        return a @ a.T / (C // 3) + torch.eye(C // 3, device=g.device)
+
+    cases["linalg_potrf"] = ("potrf", [spd], {}, True)
+    shp = {"reshape": {"shape": (0, -1)}, "flatten": {},
+           "transpose": {"axes": (1, 0, 2)}, "swapaxes": {"dim1": 0,
+                                                         "dim2": 2},
+           "expand_dims": {"axis": 1}, "flip": {"axis": 1},
+           "slice_axis": {"axis": 2, "begin": 64, "end": C // 2 + 128},
+           "tile": {"reps": (1, 1, 2)}, "repeat": {"repeats": 2, "axis": 0},
+           "broadcast_axis": {"axis": 0, "size": 2},
+           "slice": {"begin": (0, 1, 0), "end": S,
+                     "step": (1, 2, 3)}, "identity": {},
+           "diag": {}}
+    for n, attrs in shp.items():
+        src = u(-1, 1, (1,) + S[1:]) if n == "broadcast_axis" else \
+            (u(-1, 1, (C, C)) if n == "diag" else u(-1, 1))
+        cases[n] = ("shape", [src], attrs, True)
+    cases["take"] = ("shape", [u(-1, 1, (V, C)), ri(0, V, (S[0], S[1]))],
+                     {}, True)
+    cases["pick"] = ("shape", [u(-1, 1, VR), ri(0, VR[1], (VR[0],))],
+                     {"axis": -1}, True)
+    cases["Embedding"] = ("shape", [ri(0, V, (S[0], S[1])), u(-1, 1, (V, C))],
+                          {"input_dim": V, "output_dim": C}, True)
+    cases["one_hot"] = ("shape", [ri(0, 1000, (S[0], S[1]))],
+                        {"depth": 1000}, False)
+    cases["where"] = ("shape", [ri(0, 2, S), u(-1, 1), u(-1, 1)], {}, True)
+    cases["concat"] = ("shape", [u(-1, 1), u(-1, 1)], {"dim": 2}, True)
+    cases["stack"] = ("shape", [u(-1, 1), u(-1, 1)], {"axis": 0}, True)
+    cases["split"] = ("shape", [u(-1, 1)], {"num_outputs": 3, "axis": 2},
+                      True)
+    cases["pad"] = ("shape", [u(-1, 1, (8, B, 56, 56))],
+                    {"mode": "reflect",
+                     "pad_width": (0, 0, 0, 0, 1, 1, 1, 1)}, True)
+    cases["SequenceMask"] = ("shape", [u(-1, 1, (S[1], S[0], S[2])),
+                                       ri(1, S[1] + 1, (S[0],))],
+                             {"use_sequence_length": True}, True)
+    lens = ri(1, S[1] + 1, (S[0],))
+    cases["SequenceLast"] = ("shape", [u(-1, 1, (S[1], S[0], S[2])), lens],
+                             {"use_sequence_length": True}, True)
+    cases["SequenceReverse"] = ("shape", [u(-1, 1, (S[1], S[0], S[2])),
+                                          lens],
+                                {"use_sequence_length": True}, True)
+    more = {"squeeze": ([u(-1, 1, (B, 1, C))], {"axis": 1}),
+            "reshape_like": ([u(-1, 1), u(-1, 1, (B * T, C))], {}),
+            "broadcast_to": ([u(-1, 1, (1, T, C))],
+                             {"shape": S}),
+            "broadcast_like": ([u(-1, 1, (1, T, C)), u(-1, 1)], {}),
+            "slice_like": ([u(-1, 1), u(-1, 1, (B // 2, T // 2, C))],
+                           {"axes": (0, 1)}),
+            "split_v2": ([u(-1, 1)], {"indices": (C // 8, C // 2), "axis": 2}),
+            "_slice_basic": ([u(-1, 1)], {"index": (
+                "tuple", ("slice", 3, 60, 2), ("int", 5))}),
+            "stop_gradient": ([u(-1, 1)], {}),
+            "identity_with_attr_like_rhs": ([u(-1, 1), u(-1, 1)], {}),
+            "zeros_like": ([u(-1, 1)], {}), "ones_like": ([u(-1, 1)], {}),
+            "full_like": ([u(-1, 1)], {"fill_value": 2.5}),
+            "shape_array": ([u(-1, 1)], {}), "size_array": ([u(-1, 1)], {}),
+            "boolean_mask": ([u(-1, 1, (B * T, C)), lambda g: (torch.rand(
+                (B * T,), generator=g, device=g.device) < 0.5).float()], {}),
+            "gather_nd": ([u(-1, 1, S), lambda g: torch.stack(
+                [torch.randint(0, B, (B * T // 2,), generator=g,
+                               device=g.device),
+                 torch.randint(0, T, (B * T // 2,), generator=g,
+                               device=g.device)]).float()],
+                {}),
+            "scatter_nd": ([u(-1, 1, (B * T // 2, C)), lambda g: (
+                lambda p: torch.stack([p // T, p % T]).float())(
+                    torch.randperm(B * T, generator=g,
+                                   device=g.device)[:B * T // 2])],
+                {"shape": S})}
+    for n, (makers, attrs) in more.items():
+        cases[n] = ("shape", makers, attrs, n not in (
+            "stop_gradient", "zeros_like", "ones_like", "full_like",
+            "shape_array", "size_array", "boolean_mask", "scatter_nd"))
+    cases["LayerNorm"] = ("reduction", [u(-2, 2), u(0.5, 1.5, (C,)),
+                                        u(-1, 1, (C,))], {}, True)
+    cases["L2Normalization"] = ("reduction", [u(-1, 1)],
+                                {"mode": "instance"}, True)
+    cases["FullyConnected"] = ("product", [u(-1, 1), u(-1, 1, (H, C)),
+                                           u(-1, 1, (H,))],
+                               {"num_hidden": H, "flatten": False}, True)
+    cases["LRN"] = ("reduction", [u(-1, 1, (B // 2, B, 56, 56))],
+                    {"nsize": 5}, True)
+    return cases
+
+
+def _nd_run(name, arrays, attrs, grad, dev, dtype, heads=None):
+    """The op through ``ops.dispatch.invoke`` on ``dev`` in ``dtype``
+    (floats; indices stay integral in value): outputs, and with ``grad``
+    the gradients of the outputs weighted by ``heads`` (random in
+    [0.5, 1.5), made on the device when None), and the heads."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.dispatch import invoke
+
+    nds = [mx.nd.NDArray(a.to(device=dev, dtype=dtype)) for a in arrays]
+    if grad:
+        for a in nds:
+            a.attach_grad()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    used = []
+    with mx.autograd.record(train_mode=False):
+        res = invoke(name, *nds, **attrs)
+        outs = list(res) if isinstance(res, (list, tuple)) else [res]
+        head = None
+        for i, o in enumerate(outs):
+            if not (grad and o.data.is_floating_point()):
+                continue
+            w = heads[len(used)].to(device=dev, dtype=o.data.dtype) \
+                if heads is not None else (torch.rand(
+                    o.shape, generator=gen, device=dev) + 0.5).to(
+                        o.data.dtype)
+            used.append(w)
+            term = (o.data * w).sum()
+            head = term if head is None else head + term
+    out = [o.data.detach() for o in outs]
+    if head is None:
+        return out, [], used
+    mx.autograd.backward([mx.nd.NDArray(head)])
+    return out, [a.grad.data for a in nds], used
+
+
+# ops whose result rows depend on their input rows alone (axis 0): the
+# host recomputes every STRIDE-th row of the card's full-size call
+_ROWWISE_ACT = set(_SMOOTH + _POSITIVE + _NONDIFF[:11]) | {
+    "tan", "arcsin", "arccos", "arctanh", "arccosh", "erfinv", "abs",
+    "relu", "smooth_l1", "clip", "cast", "sum", "mean", "nansum", "max",
+    "min", "norm", "prod", "nanprod", "cumsum", "L2Normalization"}
+_ROWWISE_VOCAB = {"softmax", "log_softmax", "softmin", "argmax", "argmin",
+                  "topk", "sort", "argsort", "pick"}
+
+
+def _nd_err(got, want):
+    """Largest |got - want| over want's largest |value| (exact compare for
+    integral outputs)."""
+    got = got.detach().to("cpu", torch.float64)
+    want = want.detach().to("cpu", torch.float64)
+    if got.shape != want.shape:
+        return float("inf")
+    scale = float(want.abs().max()) if want.numel() else 1.0
+    return float((got - want).abs().max()) / max(scale, 1e-30) \
+        if want.numel() else 0.0
+
+
+def nd_op_check(name, case, dev):
+    """One op of ``_nd_cases`` on ``dev`` in float32 against the host in
+    float64 (``nd_ops_phase``); fails through ``check``. Returns the
+    family, the output and gradient errors and the host's row stride."""
+    family, makers, attrs, grad = case
+    g = torch.Generator(device=dev).manual_seed(zlib_crc(name))
+    inputs = [m(g) for m in makers]  # float32 on the card
+    card_out, card_grad, heads = _nd_run(name, inputs, attrs, grad, dev,
+                                         torch.float32)
+    host = inputs
+    k = 8 if name in _ROWWISE_ACT else (64 if name in _ROWWISE_VOCAB else 0)
+    if k and host[0].shape[0] >= 4 * k:
+        host = [h[::k] for h in host]
+        card_out = [o[::k] for o in card_out]
+        card_grad = [c[::k] for c in card_grad]
+        heads = [w[::k] for w in heads]
+    else:
+        k = 0
+    ref_out, ref_grad, _ = _nd_run(name, [h.cpu() for h in host], attrs,
+                                   grad, torch.device("cpu"), torch.float64,
+                                   heads=[w.cpu() for w in heads])
+    tol = ND_TOL[family]
+    grad_tol = 10 * tol  # a backward adds a reduction of its own
+    errs = [_nd_err(c, r) for c, r in zip(card_out, ref_out)]
+    gerrs = [_nd_err(c, r) for c, r in zip(card_grad, ref_grad)]
+    exact = [not r.is_floating_point() for r in ref_out]
+    bad = any((e > 0 if ex else e > tol) for e, ex in zip(errs, exact)) \
+        or any(e > grad_tol for e in gerrs)
+    if bad:
+        say("nd-ops-fail", op=name, family=family, out_err=errs,
+            grad_err=gerrs, tol=tol, grad_tol=grad_tol,
+            kernels="none (plain PyTorch)")
+    check(not bad, f"[nd-ops] {name} on the card disagrees with the host's "
+          f"float64: outputs {errs}, gradients {gerrs}")
+    return family, errs, gerrs, k
+
+
+def nd_ops_phase(dev, names=None, dims=None, draws_n=1_000_000):
+    """Each operator name this slice ports (the registry names of the JAX
+    package's ``ops/math.py``, ``ops/shape_ops.py`` and ``ops/nn.py``
+    that ``_nd_cases`` lists, the rest being aliases of these) on the card
+    at a width users run: BERT-base's activation (64, 128, 768), its MLM
+    logits (8192, 30522) for softmax, log_softmax, topk, sort, argmax,
+    its projection shapes for the products. Forward, and where
+    ``tests/test_gradient_sweep.py`` has a spec the first-order gradient,
+    against the same op on the host in float64 from the same inputs,
+    within ND_TOL of the output's largest per family (products,
+    reductions 1e-5; element-wise 1e-6; index and shape results exact;
+    ``linalg_potrf`` 1e-4 on a 256 x 256 SPD matrix of condition ~2; a
+    gradient 10 times its family's, its backward adding a reduction of
+    its own). An op whose result rows depend on their own input rows
+    alone (``_ROWWISE_ACT``, ``_ROWWISE_VOCAB``) runs at full size on the
+    card and the host recomputes every 8th (64th for the logits) row in
+    float64, its head gradient rows with it. Then
+    ``test_higher_order_grad.py``'s second-order cases at (64, 128, 768)
+    and the samplers' moments over 1e6 draws. Plain PyTorch: no kernel of
+    the port runs, and each line says so."""
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    dims = dims or {}
+    cases = _nd_cases(**dims)
+    if names is not None:
+        cases = {n: cases[n] for n in names}
+    worst, rows = {}, {}
+    for name, case in cases.items():
+        family, errs, gerrs, k = nd_op_check(name, case, dev)
+        if k:
+            rows[name] = k
+        worst[family] = max(worst.get(family, 0.0), *errs, *gerrs, 0.0)
+    torch.cuda.empty_cache()
+    say("nd-ops", ops=len(cases), host_row_stride=sorted(set(rows.values())),
+        host_subsampled=len(rows), worst_rel=worst,
+        tol=ND_TOL, seconds=f"{time.perf_counter() - t0:.1f}",
+        kernels="none (plain PyTorch)")
+
+    # second order (test_higher_order_grad.py) at a BERT-base activation
+    t1 = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED)
+    act = (dims.get("B", 64), dims.get("T", 128), dims.get("C", 768))
+    x_host = (torch.rand(act, generator=g, dtype=torch.float64) * 2 - 1) \
+        .float().double()
+    errs = {}
+    for name, shift in (("sin", 0.0), ("cos", 0.0), ("exp", 0.0),
+                        ("log", 2.0), ("sigmoid", 0.0), ("relu", 0.0),
+                        ("tanh", 0.0), ("pow4", 0.0)):
+        got = []
+        for d, dt in ((dev, torch.float32), (torch.device("cpu"),
+                                            torch.float64)):
+            x = mx.nd.NDArray((x_host + shift).to(device=d, dtype=dt))
+            x.attach_grad()
+            with mx.autograd.record():
+                y = x ** 4 if name == "pow4" else getattr(mx.nd, name)(x)
+                g1 = mx.autograd.grad(y, x, create_graph=True,
+                                      retain_graph=True)
+                if name == "pow4":
+                    g1 = mx.autograd.grad(g1, x, create_graph=True,
+                                          retain_graph=True)
+            g1.backward()
+            got.append(x.grad.data)
+        errs[name] = _nd_err(got[0], got[1])
+    say("nd-ops-second-order", shape=act, worst_rel=max(errs.values()),
+        tol=1e-5, seconds=f"{time.perf_counter() - t1:.1f}",
+        kernels="none (plain PyTorch)",
+        **{k: f"{v:.2e}" for k, v in errs.items()})
+    check(all(v <= 1e-5 for v in errs.values()),
+          f"[nd-ops] second-order gradients off: {errs}")
+
+    # the samplers' moments over 1e6 draws, on the card's stream
+    mx.random.seed(SEED)
+    n = draws_n
+    rnd = mx.nd.random
+    ctx = mx.Context(dev)
+    draws = {
+        "uniform": (rnd.uniform(2.0, 5.0, shape=(n,), ctx=ctx), 3.5, 0.75),
+        "normal": (rnd.normal(1.0, 2.0, shape=(n,), ctx=ctx), 1.0, 4.0),
+        "randint": (rnd.randint(0, 10, shape=(n,), ctx=ctx), 4.5, 8.25),
+        "gamma": (rnd.gamma(2.0, 2.0, shape=(n,), ctx=ctx), 4.0, 8.0),
+        "exponential": (rnd.exponential(2.0, shape=(n,), ctx=ctx), 2.0,
+                        4.0),
+        "poisson": (rnd.poisson(3.0, shape=(n,), ctx=ctx), 3.0, 3.0),
+        "bernoulli": (mx.random.bernoulli(0.3, shape=(n,), ctx=ctx), 0.3,
+                      0.21),
+        "multinomial": (rnd.multinomial(mx.nd.array(
+            [0.1, 0.2, 0.3, 0.4], ctx=ctx), shape=n), 2.0, 1.0),
+    }
+    moments = {}
+    for name, (arr, mean, var) in draws.items():
+        v = arr.data.double()
+        m, s2 = float(v.mean()), float(v.var())
+        ok_mean = abs(m - mean) <= 6 * (var / n) ** 0.5
+        ok_var = abs(s2 - var) <= 0.02 * var
+        moments[name] = f"{m:.5f}/{s2:.5f}"
+        check(ok_mean and ok_var, f"[nd-ops] {name} moments {m}, {s2}: "
+              f"want {mean}, {var}")
+    perm = rnd.shuffle(mx.nd.arange(0, n, ctx=ctx, dtype="float32")).data
+    check(torch.equal(perm.sort().values, torch.arange(
+        n, device=dev, dtype=torch.float32)), "shuffle lost elements")
+    say("nd-ops-random", draws=n, moments=moments, tol="6 se (mean), "
+        "2% (variance)", kernels="none (plain PyTorch)")
+
+
+def zlib_crc(name):
+    import zlib
+
+    return zlib.crc32(name.encode())
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAILED: no CUDA device visible")
@@ -3909,8 +4584,14 @@ def main():
     torch.cuda.empty_cache()
     warmup_phase(mx.gpu(0))
     aot_predict_phase(bert, _kernels.LAUNCHES, mx.gpu(0))
-    del bert, x, y
+    del bert, y
     gc.collect()
+    torch.cuda.empty_cache()
+    bert_pretrain_phase(mx.gpu(0), _kernels.LAUNCHES, x)
+    del x
+    gc.collect()
+    torch.cuda.empty_cache()
+    nd_ops_phase(dev)
     torch.cuda.empty_cache()
     trainer_fused_phase(mx.gpu(0))
     torch.cuda.empty_cache()

@@ -10,8 +10,8 @@ Import as::
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd, gluon
 
-    net = mx.models.bert_base(dropout=0.0, use_pooler=False,
-                              use_classifier=False)
+    mx.random.seed(0)                 # dropout, samplers, CUDA-graph replays
+    net = mx.models.bert_base()       # dropout 0.1, pooler, NSP and MLM heads
     net.initialize(init=mx.initializer.Normal(0.02))      # on mx.gpu(0)
     trainer = gluon.Trainer(net.collect_params(), "adam",
                             {"learning_rate": 1e-4, "wd": 0.01})
@@ -20,6 +20,7 @@ Import as::
         loss = sce(net(x)[-1], y)
     loss.backward()
     trainer.step(batch_size)
+    mx.engine.waitall()                     # or loss.wait_to_read()
 
     net = mx.models.llama3_8b(num_layers=2)                # one-step harness
     net.initialize(init=mx.initializer.Normal(0.02))
@@ -37,11 +38,16 @@ from .base import MXNetError  # noqa: F401
 from .context import (  # noqa: F401
     Context,
     cpu,
+    cpu_pinned,
     current_context,
     gpu,
+    num_gpus,
+    num_tpus,
     resolve_device,
     tpu,
 )
+from . import engine  # noqa: F401
+from . import random  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from .ndarray import NDArray  # noqa: F401
@@ -56,3 +62,4 @@ from . import gluon  # noqa: F401
 from . import models  # noqa: F401
 from . import parallel  # noqa: F401
 from . import serving  # noqa: F401
+from . import test_utils  # noqa: F401

@@ -22,7 +22,8 @@ import torch
 
 from .base import MXNetError
 
-_ALIASES = {"cpu": "cpu", "gpu": "cuda", "tpu": "cuda", "cuda": "cuda"}
+_ALIASES = {"cpu": "cpu", "cpu_pinned": "cpu", "gpu": "cuda", "tpu": "cuda",
+            "cuda": "cuda"}
 
 
 class Context:
@@ -87,6 +88,23 @@ def tpu(device_id: int = 0) -> Context:
 def cpu(device_id: int = 0) -> Context:
     """The host CPU (``device_id`` is accepted for API symmetry)."""
     return Context("cpu", device_id)
+
+
+def cpu_pinned(device_id: int = 0) -> Context:
+    """Host memory the card copies from directly (reference:
+    ``cpu_pinned``); arrays on it live on the CPU."""
+    return Context("cpu_pinned", device_id)
+
+
+def num_gpus() -> int:
+    """The number of CUDA cards this process sees (reference:
+    ``context.py:num_gpus``)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def num_tpus() -> int:
+    """Alias of :func:`num_gpus`: ``mx.tpu(i)`` names the i-th card."""
+    return num_gpus()
 
 
 def current_context() -> Context:

@@ -34,7 +34,6 @@ import time
 import weakref
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from .. import autograd
 from .. import fusedstep as _fusedstep
@@ -860,17 +859,58 @@ class _CachedFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, call, inputs, *tensors):
-        del tensors  # edges of the graph; the call reads its own
         ctx.call = call
+        ctx.inputs, ctx.tensors = inputs, tensors
         outs = call.forward(inputs)
         ctx.mark_non_differentiable(
             *[o for o in outs if not o.is_floating_point()])
         return tuple(outs)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, *gouts):
+        if torch.is_grad_enabled():  # create_graph
+            return (None, None) + tuple(_regrad(
+                ctx.call.entry_args, ctx.inputs, ctx.tensors, gouts))
         return (None, None) + tuple(ctx.call.backward(gouts))
+
+
+def _draws_random(block):
+    """Does ``block`` (or a child) hold a Dropout with a nonzero rate?"""
+    from .nn.basic_layers import Dropout
+
+    if isinstance(block, Dropout) and block._rate > 0:
+        return True
+    return any(_draws_random(c) for c in block._children.values())
+
+
+def _regrad(entry_args, inputs, tensors, gouts):
+    """A recorded call's backward under ``create_graph``: the block's eager
+    forward runs again over the very tensors the call was given, so its
+    graph reaches the parameters and the inputs, and is differentiated
+    with ``create_graph`` (a captured backward cannot be differentiated
+    again; the JAX package replays its CachedOp the same way). The
+    auxiliary state is put back after it. A block that draws random
+    numbers in training would draw other ones, so it raises."""
+    block, args, handles, diff_mask, training = entry_args
+    if training and _draws_random(block):
+        raise MXNetError(
+            f"create_graph through hybridized {_block_name(block)}: its "
+            "forward draws random numbers (Dropout), which a recompute "
+            "would draw anew")
+    diff = [h for h, d in zip(handles, diff_mask) if d]
+    aux = [h for h, d in zip(handles, diff_mask) if not d]
+    saved = [h._t.detach().clone() for h in aux]
+    it = iter(inputs)
+    nds = [NDArray(next(it)) if isinstance(a, NDArray) else a for a in args]
+    with torch.enable_grad(), _bound(diff, tensors[:len(diff)]), \
+            autograd._RecordingStateScope(True, training), _hooks_muted():
+        outs = block._eager_forward(*nds)
+    with torch.no_grad():
+        for h, t in zip(aux, saved):
+            h._t.copy_(t)
+    outs = [outs] if isinstance(outs, NDArray) else list(outs)
+    return autograd.recompute_grads(
+        lambda *ts: [o._t for o in outs], tensors, gouts)
 
 
 class _Entry:
@@ -1015,6 +1055,8 @@ class _Entry:
                     "a call runs uncaptured")
             call = _EagerCall(self._halves(self._leaves(arrays, False),
                                            handles, True))
+        call.entry_args = (self.block, self.args, handles, self.diff_mask,
+                           self.training)
         tensors = [h._t for h, d in zip(handles, self.diff_mask) if d]
         if self.tracked:
             tensors += [a._t for a in arrays if a._t.is_floating_point()]

@@ -10,9 +10,12 @@ from __future__ import annotations
 
 import torch
 
+from .registry import register
+
 _NEG_INF = -1e30
 
 
+@register("ctc_loss")
 def ctc_loss(pred, label, pred_lengths=None, label_lengths=None):
     """pred: (T, N, C) raw activations; label: (N, L) integers, 0 = blank
     padding; lengths default to T and to the count of non-zero labels.

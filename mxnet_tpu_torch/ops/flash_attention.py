@@ -41,8 +41,10 @@ import functools
 
 import torch
 
+from ..autograd import recompute_grads
 from ..base import getenv
 from . import _kernels
+from .registry import register
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -525,6 +527,12 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            # create_graph: the plain forward recomputed and differentiated,
+            # so the gradient is differentiable again (no kernel runs)
+            return (*recompute_grads(
+                lambda q, k, v: _torch_flash_fwd(q, k, v, *ctx.args)[0],
+                (q, k, v), (g,)), None, None, None)
         if q.device.type != "cuda":
             bwd = _torch_flash_bwd
         elif q.shape[-1] > _MAX_HEAD_DIM:
@@ -538,6 +546,7 @@ class _FlashAttention(torch.autograd.Function):
         return (*bwd(q, k, v, out, lse, g, *ctx.args), None, None, None)
 
 
+@register("flash_attention")
 def flash_attention(query, key, value, scale=None, causal=False,
                     block_size=1024, window=0, native_gqa=False):
     """Memory-efficient attention, differentiable. ``query`` is

@@ -38,7 +38,9 @@ import ctypes
 
 import torch
 
+from ..autograd import recompute_grads
 from . import _kernels
+from .registry import register
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -327,6 +329,10 @@ class _MatmulStats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dsum, dssq):
         x, w, y = ctx.saved_tensors
+        if torch.is_grad_enabled():  # create_graph: the plain version's
+            return tuple(recompute_grads(
+                lambda x, w: _torch_fused_fwd(x, w, None, None),
+                (x, w), (dy, dsum, dssq)))
         dx, dw, _, _ = _fused_bwd(x, w, y, None, None, dy, dsum, dssq, False)
         return dx, dw
 
@@ -342,17 +348,24 @@ class _ScaledMatmulStats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dsum, dssq):
         x, scale, shift, w, y = ctx.saved_tensors
+        if torch.is_grad_enabled():  # create_graph: the plain version's
+            return (*recompute_grads(
+                lambda x, scale, shift, w: _torch_fused_fwd(
+                    x, w, scale, shift, ctx.relu),
+                (x, scale, shift, w), (dy, dsum, dssq)), None)
         dx, dw, dsc, dbi = _fused_bwd(x, w, y, scale, shift, dy, dsum, dssq,
                                       ctx.relu)
         return dx, dsc.to(scale.dtype), dbi.to(shift.dtype), dw, None
 
 
+@register("_contrib_fused_matmul_stats")
 def matmul_stats(x, w):
     """``(M, K) @ (K, N)`` with the per-output-channel sum and sum of
     squares of the fp32 product: ``(y, ysum, yssq)``, y in x's type."""
     return _MatmulStats.apply(x, w)
 
 
+@register("_contrib_fused_scaled_matmul_stats")
 def scaled_matmul_stats(x, scale, bias, w, relu=True):
     """Normalise + shift (+ relu) a RAW conv output ``x`` per channel
     (``scale``, ``bias`` of shape (K,)) as it is read, then

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from .registry import register
+
 def _rescale(grad, rescale_grad, clip_gradient):
     g = grad * rescale_grad
     if clip_gradient is not None and clip_gradient >= 0:
@@ -445,3 +447,6 @@ OPS = {
     "multi_mp_lamb_update": multi_mp_lamb_update,
     "_sparse_adagrad_update": adagrad_update,
 }
+
+for _name, _fn in OPS.items():  # nd.<name> (ndarray/op.py), with out=
+    register(_name)(_fn)

@@ -21,6 +21,7 @@ import pickle
 
 import torch
 
+from .. import random as _random
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
 from .multi_tensor import is_low_precision_dtype
@@ -542,18 +543,21 @@ class SGLD(Optimizer):
     Gaussian noise of variance ``lr``. The noise comes from the
     optimizer's own ``torch.Generator`` on the weight's device, seeded at
     its first draw with ``torch.initial_seed()`` (the seed of the port's
-    global stream, ``torch.manual_seed``)."""
+    global stream, ``torch.manual_seed``), and seeded again at its next
+    draw after every ``mx.random.seed``, so a seed repeats the noise as
+    the JAX package's key stream does."""
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
         self._generators = {}
 
     def _generator(self, device):
+        epoch = _random.seed_epoch()
         gen = self._generators.get(device)
-        if gen is None:
-            gen = self._generators[device] = torch.Generator(
-                device=device).manual_seed(torch.initial_seed())
-        return gen
+        if gen is None or gen[1] != epoch:
+            gen = self._generators[device] = (torch.Generator(
+                device=device).manual_seed(torch.initial_seed()), epoch)
+        return gen[0]
 
     @torch.no_grad()
     def update(self, index, weight, grad, state):

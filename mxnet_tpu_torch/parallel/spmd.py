@@ -181,8 +181,8 @@ class SPMDTrainStep:
     step keeps its own copy of the parameters and the optimizer state;
     the Gluon parameters keep their values until :meth:`sync_to_block`.
     Auxiliary state that the forward writes (BatchNorm's running
-    statistics) is carried in the step's copy. Dropout draws from torch's
-    default generator (``torch.manual_seed``), the port's global stream.
+    statistics) is carried in the step's copy. Dropout draws from the
+    device's ``mx.random`` stream, so ``mx.random.seed`` repeats a run.
 
     Only the single-device path is ported: a ``mesh``, a
     ``param_sharding``, ``zero_stage`` 2 or 3, ``overlap``,

@@ -107,3 +107,31 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
         assert mx.current_context() == mx.cpu()
         assert mx.nd.ones((2,)).context == mx.cpu()
     assert mx.current_context() == mx.gpu(0)
+
+
+# the modules of the fifteenth slice (the registry, dispatch, engine,
+# random, test_utils and the nd namespaces generated from the registry)
+NEW_MODULES = ("ops/registry.py", "ops/dispatch.py", "engine.py",
+               "random.py", "ndarray/random.py", "ndarray/_internal.py",
+               "test_utils.py")
+
+
+@pytest.mark.parametrize("rel", NEW_MODULES)
+def test_new_modules_are_scanned(rel):
+    path = os.path.join(PKG, rel)
+    assert path in _port_files()
+    assert not [n for n, _ in _imported_roots(path) if n in FORBIDDEN]
+
+
+def test_random_and_engine_entry_points_need_cuda_or_explicit_cpu(
+        monkeypatch):
+    import mxnet_tpu_torch as mx
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mx.nd.random.uniform(shape=(2,))
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mx.nd.arange(3)
+    assert mx.nd.random.uniform(shape=(2,), ctx=mx.cpu()).shape == (2,)
+    assert mx.num_gpus() == 0
+    mx.engine.waitall()

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Parameter counts of zoo nets at full width (1000 classes), in either
-package: each net built with ``get_model``, its deferred shapes resolved
-by one predict-mode forward of a single image at its input size, and its
+"""Parameter counts of zoo nets at full width (1000 classes), and of
+BERT-base as its pretraining defines it (``models.bert_base()``: pooler,
+NSP classifier, MLM decoder, vocab 30522), in either package: each net
+built, its deferred shapes resolved by one predict-mode forward of a
+single image at its input size (of 8 token ids for BERT), and its
 parameters counted (running statistics included).
 
     JAX_PLATFORMS=cpu python tools/zoo_param_counts.py --side jax
     python tools/zoo_param_counts.py --side torch
 
-``chip_smoke.py``'s ``ZOO_PARAMS`` holds the JAX package's counts from
-the first command; its ``[zoo]`` phase holds the port's nets to them.
-The last line is one JSON object ``{name: count}``.
+``chip_smoke.py``'s ``ZOO_PARAMS`` and ``BERT_PRETRAIN_PARAMS`` hold the
+JAX package's counts from the first command; its ``[zoo]`` and
+``[bert-pretrain]`` phases hold the port's nets to them. The last line is
+one JSON object ``{name: count}``.
 """
 
 import argparse
@@ -53,6 +56,12 @@ def main():
                                for q in net.collect_params().values()))
         print(f"{name} {counts[name]} {time.perf_counter() - t0:.1f}s",
               flush=True)
+    net = mx.models.bert_base()
+    net.initialize(**ctx_kw)
+    net(mx.nd.array(np.zeros((1, 8), np.int32), dtype="int32", **ctx_kw))
+    counts["bert_base"] = int(sum(int(np.prod(q.shape))
+                                  for q in net.collect_params().values()))
+    print(f"bert_base {counts['bert_base']}", flush=True)
     print(json.dumps(counts))
 
 
