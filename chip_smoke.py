@@ -45,7 +45,16 @@ Phases (each prints one line of facts; any failure exits non-zero):
    host's time to enqueue one) and profiled (device time by kernel, K3's
    share, idle share);
 5. serving — ``GenerationEngine`` answers 20 ragged requests at full
-   width; each of K3's two launch counts must equal layers x decode steps;
+   width, every decode chunk a replay of its captured CUDA graph; each of
+   K3's two launch counts must equal layers x decode steps;
+5b. decode chunk — one replay of the captured chunk (8 steps, 8 seated
+   slots) equal to the eager chunk body on the same static inputs, and
+   the pools equal after it, bit for bit; K3's two kernels once per layer
+   per step from the replay's accounting; the chunk replayed and eager on
+   the same inputs: host ms, busy ms and idle share of a profiled window;
+   two captured engines from one seed sample the same tokens;
+5c. serve repo (generation) — StarCoderBase-1B staged by
+   ``ModelRepository``: a captured ``GenerationEngine`` and its canary;
 6. train parity — BERT-base at full width (bench_bert's shapes: batch 64,
    sequence 128, vocab 30522), one forward + backward through the Gluon
    loop with the kernels, and again with attention swapped (here only)
@@ -77,6 +86,16 @@ Phases (each prints one line of facts; any failure exits non-zero):
 7e. aot predict — ``aot_predict_fn`` of BERT-base captured into a CUDA
    graph per bucket (batch 8, 32, 64): each replay equal to the eager
    forward, K1 12 times a replay, device ms beside the eager forward's;
+7e2. serve bert — BERT-base at full width (its sequence, pooled and NSP
+   outputs; seeded weights, fp32) served by ``InferenceEngine``: buckets
+   32, 64, 128, one captured CUDA graph each, max_batch 8, max_wait 5 ms;
+   64 ragged requests (17-128 ids) together, then 16 one at a time;
+   every batch ``torch.equal`` to the eager forward on the same padded
+   ids, compiles 3, K1 12 launches per batch; requests/s, p50/p99, batch
+   fill, replay ms per bucket;
+7e3. serve repo — ``ModelRepository``: BERT-base v1 serving, v2 staged
+   and flipped under traffic, each answer its version's; rollback
+   without a capture; a NaN version refused by the canary;
 7f. bert pretrain — BERT-base as the reference defines it
    (``models.bert_base()``: dropout 0.1, pooler, NSP classifier and MLM
    decoder; 133,547,324 parameters, the JAX package's count), batch 64 x
@@ -214,6 +233,7 @@ step, ``fused_fwd@mobilenetv2_1.0`` and so on, with the launches of phase
 ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import gc
 import json
 import os
@@ -629,6 +649,10 @@ FLASH_CASES = {
     "transformer_enc": (32, 8, 8, 128, 128, 64, False, 0, False),
     "transformer_dec_self": (32, 8, 8, 120, 120, 64, True, 0, False),
     "transformer_cross": (32, 8, 8, 120, 128, 64, False, 0, False),
+    # BERT-base served by InferenceEngine (SERVE_BUCKETS below, max_batch
+    # 8): the buckets under 128, where K1's one key tile is partial
+    "bert_serve_32": (8, 12, 12, 32, 32, 64, False, 0, False),
+    "bert_serve_64": (8, 12, 12, 64, 64, 64, False, 0, False),
 }
 # the cases timed beside their bounds, as rows of the kernels line (the
 # BERT-base rows keep the kernels' own names), and whether the calls are
@@ -1554,6 +1578,174 @@ def serving_phase(net, dev, launches, device_line):
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: the decode chunk as one CUDA graph; the repository's generation
+# engine
+# ---------------------------------------------------------------------------
+
+CHUNK_WINDOW = 5  # chunks in each profiled window of [decode-chunk]
+
+
+def _chunk_window(fn, reps=10, window=CHUNK_WINDOW):
+    """Host ms per ``fn()`` (each ends synchronised) over ``reps`` runs,
+    then one profiled window of ``window`` runs: its device busy ms per
+    run and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(window):
+            fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t1) * 1e6
+    busy = sum(_device_us(prof).values())
+    check(busy > 0, "the profiler saw no device time")
+    return host_ms, busy / window / 1e3, 1 - busy / window_us
+
+
+def decode_chunk_phase(net, launches):
+    """``GenerationEngine``'s decode chunk (8 steps of the 8-slot batch)
+    as the ONE CUDA graph its deploy captures. Eight greedy requests
+    (prompts of 17-999 tokens) are prefilled into the slots; one replay on
+    their static slot buffers must give the eager chunk body's tokens,
+    flags and slot state and the same pools after it, bit for bit, and
+    launch K3's two kernels once per layer per step (from the replay's
+    accounting). Then the chunk on the same inputs, replayed and eager
+    (each with its one host-to-device and one device-to-host copy): host
+    ms per chunk, device busy ms and the idle share of a profiled window.
+    Last, two engines from one seed sample the same tokens when every
+    chunk is a replay, and another seed samples others."""
+    from mxnet_tpu_torch.serving import GenerationEngine
+
+    eng = GenerationEngine(net, shapes=[1024], slots=8, chunk=8,
+                           cache_blocks=1024, autostart=False,
+                           name="starcoderbase-1b-chunk")
+    try:
+        check(eng._chunk_graph is not None,
+              "the decode chunk was not captured as a CUDA graph")
+        graph_counts = dict(eng._chunk_graph.launches)
+        rs = np.random.RandomState(SEED + 6)
+        for p in rs.randint(17, 1000, eng._slots):
+            eng.submit(rs.randint(0, net.vocab_size, p), max_new_tokens=64)
+        with eng._on_device():
+            eng._admit()
+            check(int(eng._active.sum()) == eng._slots,
+                  "the chunk's slots were not all seated")
+            tables = np.zeros((eng._slots, eng._mb), np.int32)
+            for s, table in enumerate(eng._slot_tables):
+                eng.cache.ensure(table, int(eng._lens[s]) + eng._chunk)
+                tables[s] = table.device_row(eng._mb)
+            eng._pack(tables)
+            eng._dev_in.copy_(eng._host_in)
+            k, v = eng.cache.pools()
+            k0, v0 = k.clone(), v.clone()
+            launches.clear()
+            eng._chunk_graph.replay()
+            counts = dict(launches)
+            replayed = eng._chunk_out.clone()
+            gk, gv = k.clone(), v.clone()
+            k.copy_(k0)
+            v.copy_(v0)
+            eager = eng._chunk_body()
+            torch.cuda.synchronize()
+            tokens_equal = torch.equal(replayed, eager)
+            pools_equal = torch.equal(gk, k) and torch.equal(gv, v)
+            del k0, v0, gk, gv
+
+            def replay_chunk():
+                eng._dev_in.copy_(eng._host_in, non_blocking=True)
+                eng._chunk_graph.replay()
+                eng._host_out.copy_(eng._chunk_out, non_blocking=True)
+                torch.cuda.current_stream().synchronize()
+
+            def eager_chunk():
+                eng._dev_in.copy_(eng._host_in, non_blocking=True)
+                eng._chunk_body().cpu()
+
+            replay_dev_ms = cuda_ms(eng._chunk_graph.replay, 10)
+            r_host, r_busy, r_idle = _chunk_window(replay_chunk)
+            e_host, e_busy, e_idle = _chunk_window(eager_chunk)
+    finally:
+        eng.close()
+    steps = eng._chunk
+    say("decode-chunk", slots=eng._slots, chunk=steps,
+        equal_eager_tokens=tokens_equal, equal_eager_pools=pools_equal,
+        graph_launches=graph_counts, replay_launches=counts,
+        replay_device_ms=f"{replay_dev_ms:.4f}",
+        replay_host_ms_per_chunk=f"{r_host:.4f}",
+        replay_busy_ms_per_chunk=f"{r_busy:.4f}",
+        replay_idle_share=f"{r_idle:.4f}",
+        eager_host_ms_per_chunk=f"{e_host:.4f}",
+        eager_busy_ms_per_chunk=f"{e_busy:.4f}",
+        eager_idle_share=f"{e_idle:.4f}",
+        replay_ms_per_step=f"{r_host / steps:.4f}",
+        eager_ms_per_step=f"{e_host / steps:.4f}")
+    check(tokens_equal, "the replayed decode chunk's tokens or slot state "
+          "differ from the eager chunk body's")
+    check(pools_equal, "the replayed decode chunk left other pools than "
+          "the eager chunk body")
+    for name in ("paged_decode", "paged_decode_combine"):
+        check(counts.get(name) == net.num_layers * steps,
+              f"one replay launched {name} {counts.get(name)} times, "
+              f"expected {net.num_layers * steps}")
+
+    def sampled(seed):
+        e = GenerationEngine(net, shapes=[256], slots=8, chunk=8,
+                             cache_blocks=256, seed=seed,
+                             name=f"starcoderbase-1b-seed{seed}")
+        try:
+            r = np.random.RandomState(SEED + 7)
+            futs = [e.submit(r.randint(0, net.vocab_size, n),
+                             max_new_tokens=24, greedy=False,
+                             temperature=1.0, top_k=50, seed=3)
+                    for n in (40, 200)]
+            return [f.result(timeout=300).tolist() for f in futs]
+        finally:
+            e.close()
+
+    a, b, c = sampled(5), sampled(5), sampled(6)
+    say("decode-chunk-seed", same_seed_equal=a == b,
+        other_seed_differs=a != c, tokens=sum(len(t) for t in a))
+    check(a == b, "two captured engines from one seed sampled differently")
+    check(a != c, "engines from two seeds sampled the same tokens")
+
+
+def repo_generation_phase(net):
+    """StarCoderBase-1B loaded through ``ModelRepository``: the staged load
+    builds a ``GenerationEngine`` (its chunk captured) and runs its
+    ``canary()``; then one request through the repository."""
+    from mxnet_tpu_torch.serving import GenerationEngine, ModelRepository
+
+    repo = ModelRepository()
+    try:
+        t0 = time.perf_counter()
+        eng = repo.load("starcoderbase-1b", net, [256], version="v1",
+                        slots=8, chunk=8, cache_blocks=256)
+        load_s = time.perf_counter() - t0
+        st = repo.stats("starcoderbase-1b")
+        toks = repo.predict("starcoderbase-1b",
+                            np.arange(1, 33, dtype=np.int32),
+                            max_new_tokens=16, timeout=300)
+        say("serve-repo-generation", engine=type(eng).__name__,
+            load_s=f"{load_s:.3f}", canary_requests=st["requests_ok"],
+            captured=eng._chunk_graph is not None, tokens=len(toks))
+        check(isinstance(eng, GenerationEngine) and st["requests_ok"] == 1,
+              "the repository did not stage a generation engine with its "
+              "canary")
+        check(len(toks) == 16 and toks.min() >= 0
+              and toks.max() < net.vocab_size, "bad tokens through the "
+              "repository")
+    finally:
+        repo.close()
+
+
+# ---------------------------------------------------------------------------
 # phases 6 and 7: BERT-base training through the Gluon loop
 # ---------------------------------------------------------------------------
 
@@ -2148,6 +2340,301 @@ def aot_predict_phase(net, launches, ctx, iters=20):
               f"K1 launched {replay_counts} times in one replay")
         del graph, outs, got, want, static, ids
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 7e2-7e3: BERT-base served by InferenceEngine; ModelRepository
+# ---------------------------------------------------------------------------
+
+SERVE_BUCKETS = ((32,), (64,), (128,))
+SERVE_MAX_BATCH, SERVE_WAIT_MS = 8, 5.0
+SERVE_BATCHED, SERVE_SINGLE = 64, 16
+REPO_BUCKETS = ((64,), (128,))
+REPO_RTOL = 1e-4  # a served row (batch of 8) against the same row alone
+
+
+def serve_bert_net(ctx, seed=SEED, **cut):
+    """BERT-base as the served net: ``bert_base(dropout=0.0,
+    use_decoder=False)``, whose outputs are the sequence, the pooled
+    vector and the NSP logits; Normal(0.02) weights from ``seed``."""
+    import mxnet_tpu_torch as mx
+
+    torch.manual_seed(seed)
+    net = mx.models.bert_base(dropout=0.0, use_decoder=False, **cut)
+    net.initialize(init=mx.initializer.Normal(0.02, seed=seed), ctx=ctx)
+    return net
+
+
+def _recording_engine(*args, **kwargs):
+    """An ``InferenceEngine`` that keeps each dispatched batch (its
+    requests, the padded ids and the host outputs), for the checks of
+    the serving phases only."""
+    from mxnet_tpu_torch.serving import InferenceEngine
+
+    class Recording(InferenceEngine):
+        def _execute(self, bucket, reqs):
+            self._current = reqs
+            super()._execute(bucket, reqs)
+
+        def _run(self, entry, padded):
+            host = super()._run(entry, padded)
+            self.record.append((list(self._current), padded.copy(),
+                                [h.copy() for h in host]))
+            return host
+
+    eng = Recording(*args, **kwargs)
+    eng.record = []
+    return eng
+
+
+def _served_rows_check(mx, net, eng, ctx):
+    """Each dispatched batch's outputs against the eager predict-mode
+    forward on the same padded batch (``torch.equal``, every output, the
+    pad rows too), and each request's result against its rows of its
+    batch; returns the number of batches checked."""
+    for reqs, padded, host in eng.record:
+        want = _predict(mx, net, mx.nd.array(padded, dtype="int32",
+                                             ctx=ctx))
+        check(len(want) == len(host) == 3, "the served BERT-base gave "
+              f"{len(host)} outputs, expected 3")
+        for h, w in zip(host, want):
+            check(torch.equal(torch.from_numpy(h), w.cpu()),
+                  f"a served batch at bucket {padded.shape[1:]} differs "
+                  "from the eager forward on the same padded ids")
+        off = 0
+        for r in reqs:
+            check(np.array_equal(padded[off:off + r.rows], r.payload),
+                  "a request's padded ids are not its rows of the batch")
+            for got, h in zip(r.result, host):
+                check(np.array_equal(got, h[off:off + r.rows]),
+                      "a request's result is not its rows of the batch")
+            off += r.rows
+    return len(eng.record)
+
+
+def serve_bert_phase(ctx, launches, iters=20, **cut):
+    """BERT-base at full width served by ``InferenceEngine`` (buckets 32,
+    64, 128; max_batch 8; max_wait 5 ms; int32 ids; one captured CUDA
+    graph per bucket): 64 requests of 17-128 ids (a fixed seed) submitted
+    together, then 16 one at a time. Every dispatched batch equal to the
+    eager forward on the same padded ids (``torch.equal``), each request
+    its rows of it, ``compiles`` 3 (flat), K1 12 launches per batch from
+    the replays' accounting. Prints requests/s of both parts, the
+    engine's p50/p99 (its histogram), the single requests' p50/p99 on the
+    host clock, the mean batch fill, and per bucket the replay's device
+    ms beside the eager forward's at batch 8."""
+    import mxnet_tpu_torch as mx
+
+    layers = cut.get("num_layers", BERT_LAYERS)
+    vocab = cut.get("vocab_size", BERT_VOCAB)
+    t0 = time.perf_counter()
+    net = serve_bert_net(ctx, **cut)
+    eng = _recording_engine(net, list(SERVE_BUCKETS), ctx=ctx, dtype="int32",
+                            max_batch=SERVE_MAX_BATCH,
+                            max_wait_ms=SERVE_WAIT_MS, name="bert-base")
+    deploy_s = time.perf_counter() - t0
+    try:
+        rs = np.random.RandomState(SEED + 8)
+        rows = [rs.randint(0, vocab, n).astype(np.int32) for n in
+                rs.randint(17, 129, SERVE_BATCHED + SERVE_SINGLE)]
+        st0 = eng.stats()
+        launches.clear()
+        t1 = time.perf_counter()
+        futs = [eng.submit(r) for r in rows[:SERVE_BATCHED]]
+        for f in futs:
+            f.result(timeout=600)
+        batched_s = time.perf_counter() - t1
+        single_ms = []
+        for r in rows[SERVE_BATCHED:]:
+            t2 = time.perf_counter()
+            eng.predict(r, timeout=600)
+            single_ms.append((time.perf_counter() - t2) * 1e3)
+        st = eng.stats()
+        counts = dict(launches)
+        batches = st["batches"] - st0["batches"]
+        checked = _served_rows_check(mx, net, eng, ctx)
+        replay_ms, eager_ms = {}, {}
+        for bucket, entry in sorted(eng._compiled.items()):
+            x = mx.nd.array(np.zeros((SERVE_MAX_BATCH,) + bucket), ctx=ctx,
+                            dtype="int32")
+            if entry.graph is not None:
+                replay_ms[bucket[0]] = round(cuda_ms(entry.graph.replay,
+                                                     iters), 4)
+            eager_ms[bucket[0]] = round(cuda_ms(
+                lambda: _predict(mx, net, x), iters), 4)
+    finally:
+        eng.close()
+    say("serve-bert", buckets=[b[0] for b in SERVE_BUCKETS],
+        max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS,
+        deploy_s=f"{deploy_s:.3f}", compiles=st["compiles"],
+        requests=st["requests_ok"] - st0["requests_ok"], batches=batches,
+        batches_checked_equal=checked,
+        batched_requests_per_s=f"{SERVE_BATCHED / batched_s:.2f}",
+        single_requests_per_s=f"{SERVE_SINGLE / (sum(single_ms) / 1e3):.2f}",
+        p50_ms=f"{st['latency_p50_ms']:.3f}",
+        p99_ms=f"{st['latency_p99_ms']:.3f}",
+        single_p50_ms=f"{float(np.percentile(single_ms, 50)):.3f}",
+        single_p99_ms=f"{float(np.percentile(single_ms, 99)):.3f}",
+        mean_batch_fill=f"{st['mean_batch_fill']:.4f}",
+        flash_fwd_launches=counts.get("flash_fwd", 0),
+        replay_ms_by_bucket=replay_ms, eager_ms_by_bucket=eager_ms)
+    check(st["requests_ok"] - st0["requests_ok"]
+          == SERVE_BATCHED + SERVE_SINGLE, "not every request was served")
+    check(st["compiles"] == len(SERVE_BUCKETS), f"compiles {st['compiles']}"
+          f", expected one per bucket ({len(SERVE_BUCKETS)})")
+    check(checked == batches, f"{checked} batches recorded of {batches}")
+    check(counts.get("flash_fwd", 0) == layers * batches,
+          f"K1 launched {counts.get('flash_fwd', 0)} times for {batches} "
+          f"batches x {layers} layers")
+    return counts.get("flash_fwd", 0)
+
+
+def serve_repo_phase(ctx, **cut):
+    """``ModelRepository`` with BERT-base at full width (buckets 64, 128):
+    v1 (seed SEED) serves, a client thread sends requests, v2 (seed
+    SEED + 1) stages and flips under that traffic; every answer must be
+    its reported version's forward on that row alone (REPO_RTOL of the
+    output's largest) and far from the other version's. ``rollback``
+    captures nothing and launches nothing; a staged v3 whose weights hold
+    a NaN is refused by the canary while v1 keeps serving. K1's count
+    stays exact though v2 and v3 capture while v1's thread replays: each
+    graph holds one launch per layer, and ``LAUNCHES`` gains each graph's
+    warm-up run and replays and nothing else."""
+    import threading
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import _capture
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.serving import ModelRepository, StagedLoadError
+
+    vocab = cut.get("vocab_size", BERT_VOCAB)
+    rs = np.random.RandomState(SEED + 9)
+    rows = [rs.randint(0, vocab, n).astype(np.int32)
+            for n in (20, 50, 64, 65, 100, 128)]
+    nets = {"v1": serve_bert_net(ctx, SEED, **cut),
+            "v2": serve_bert_net(ctx, SEED + 1, **cut)}
+    want = {}
+    for version, net in nets.items():
+        for i, r in enumerate(rows):
+            b = next(b for (b,) in REPO_BUCKETS if len(r) <= b)
+            padded = np.zeros((1, b), np.int32)
+            padded[0, :len(r)] = r
+            want[version, i] = [w.cpu().numpy() for w in _predict(
+                mx, net, mx.nd.array(padded, dtype="int32", ctx=ctx))]
+    layers = cut.get("num_layers", BERT_LAYERS)
+    # v3, refused below, built here: anything its set-up launches stays
+    # out of the counts
+    bad = serve_bert_net(ctx, SEED + 2, **cut)
+    _predict(mx, bad, mx.nd.array(np.zeros((1, REPO_BUCKETS[0][0])),
+                                  dtype="int32", ctx=ctx))
+    captures, replays = [], collections.Counter()
+    real_capture, real_replay = _capture.Graph.capture, _capture.Graph.replay
+
+    def counted(self, fn):
+        captures.append(self)
+        return real_capture(self, fn)
+
+    def counted_replay(self):
+        replays[id(self)] += 1
+        return real_replay(self)
+
+    engine_kw = dict(ctx=ctx, dtype="int32", max_batch=SERVE_MAX_BATCH,
+                     max_wait_ms=SERVE_WAIT_MS)
+    repo = ModelRepository(keep=1)
+    stop, outcomes, errors = threading.Event(), [], []
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            try:
+                fut = repo.submit("bert", rows[i % len(rows)])
+                outcomes.append((fut.version, i % len(rows),
+                                 fut.result(timeout=120)))
+            except BaseException as e:  # noqa: BLE001 - checked below
+                errors.append(e)
+                return
+            i += 1
+
+    _capture.Graph.capture = counted
+    _capture.Graph.replay = counted_replay
+    thread = threading.Thread(target=client)
+    k1_before = _kernels.LAUNCHES["flash_fwd"]
+    try:
+        t0 = time.perf_counter()
+        repo.load("bert", nets["v1"], list(REPO_BUCKETS), version="v1",
+                  **engine_kw)
+        v1_load_s = time.perf_counter() - t0
+        thread.start()
+        time.sleep(0.3)
+        t1 = time.perf_counter()
+        repo.load("bert", nets["v2"], list(REPO_BUCKETS), version="v2",
+                  **engine_kw)
+        v2_load_s = time.perf_counter() - t1
+        time.sleep(0.3)
+        n_capt = len(captures)
+        t2 = time.perf_counter()
+        restored = repo.rollback("bert")
+        rollback_ms = (time.perf_counter() - t2) * 1e3
+        rollback_captures = len(captures) - n_capt
+        time.sleep(0.3)
+        with torch.no_grad():  # the pad id's embedding: every row reads it
+            bad.word_embed.weight.data().data[0, 0] = float("nan")
+        refused = False
+        try:
+            repo.load("bert", bad, list(REPO_BUCKETS), version="v3",
+                      **engine_kw)
+        except StagedLoadError:
+            refused = True
+        live_after = repo.live_version("bert")
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        if thread.is_alive():
+            thread.join(timeout=300)
+        _capture.Graph.capture = real_capture
+        _capture.Graph.replay = real_replay
+        models = repo.models()
+        repo.close()
+    k1 = _kernels.LAUNCHES["flash_fwd"] - k1_before
+    k1_want = sum((1 + replays[id(g)]) * g.launches["flash_fwd"]
+                  for g in captures)
+    k1_per_graph = sorted({g.launches["flash_fwd"] for g in captures})
+    check(not errors, f"requests failed across the swaps: {errors[:1]!r}")
+    worst_own, nearest_other = 0.0, float("inf")
+    for version, i, out in outcomes:
+        other = "v2" if version == "v1" else "v1"
+        for got, mine, theirs in zip(out, want[version, i],
+                                     want[other, i]):
+            scale = float(np.abs(mine).max())
+            worst_own = max(worst_own, float(np.abs(got - mine).max())
+                            / scale)
+            nearest_other = min(nearest_other, float(
+                np.abs(got - theirs).max()) / scale)
+    by_version = {v: sum(1 for o in outcomes if o[0] == v)
+                  for v in ("v1", "v2")}
+    say("serve-repo", requests=len(outcomes), by_version=by_version,
+        v1_load_s=f"{v1_load_s:.3f}", v2_load_s=f"{v2_load_s:.3f}",
+        rollback_ms=f"{rollback_ms:.3f}", restored=restored.version,
+        rollback_captures=rollback_captures, captures=len(captures),
+        replays=sum(replays.values()), flash_fwd_launches=k1,
+        flash_fwd_per_graph=k1_per_graph, nan_refused=refused,
+        live_after_nan=live_after, models=models,
+        worst_rel_own_version=f"{worst_own:.3e}",
+        nearest_rel_other_version=f"{nearest_other:.3e}",
+        tol_rel=REPO_RTOL)
+    check(by_version["v1"] > 0 and by_version["v2"] > 0,
+          f"traffic did not see both versions: {by_version}")
+    check(worst_own <= REPO_RTOL, "a served answer differs from its "
+          "version's forward")
+    check(nearest_other > 100 * REPO_RTOL, "the two versions' answers "
+          "cannot be told apart")
+    check(restored.version == "v1" and rollback_captures == 0,
+          "rollback captured a graph or restored another version")
+    check(refused and live_after == "v1",
+          "the NaN version was not refused, or v1 stopped serving")
+    check(k1_per_graph == [layers] and k1 == k1_want,
+          f"K1 launches across the swaps: {k1}, expected {k1_want} "
+          f"({layers} per graph, got {k1_per_graph})")
 
 
 # ---------------------------------------------------------------------------
@@ -4565,6 +5052,8 @@ def main():
         step_phase(net, pools, row["ms"])
     del pools
     row["launches"] = serving_phase(net, dev, _kernels.LAUNCHES, smi)
+    decode_chunk_phase(net, _kernels.LAUNCHES)
+    repo_generation_phase(net)
     del net
     torch.cuda.empty_cache()
 
@@ -4585,6 +5074,12 @@ def main():
     warmup_phase(mx.gpu(0))
     aot_predict_phase(bert, _kernels.LAUNCHES, mx.gpu(0))
     del bert, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_bert_phase(mx.gpu(0), _kernels.LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_repo_phase(mx.gpu(0))
     gc.collect()
     torch.cuda.empty_cache()
     bert_pretrain_phase(mx.gpu(0), _kernels.LAUNCHES, x)

@@ -13,11 +13,21 @@ K-step superstep, the serving decode chunk) can reuse it:
   whose memory comes from a pool the caller may share between graphs
   (an entry's forward and backward share one, so the residuals the
   forward saves stay where the backward reads them), and replays it.
-- Launch accounting: the kernel wrappers add to
-  ``ops._kernels.LAUNCHES`` when Python runs them, which during a
-  capture launches nothing. A capture takes back what it added and keeps
-  it as the graph's own count; each replay adds that count. So
-  ``LAUNCHES`` counts the launches that ran, captured or not.
+- Launch accounting: a kernel wrapper counts its launch with
+  ``ops._kernels.count``, which during a capture (on the capturing
+  thread, and on the autograd thread of a captured backward) goes to the
+  graph's own count; each replay adds that count to
+  ``ops._kernels.LAUNCHES``. So ``LAUNCHES`` counts the launches that
+  ran, captured or not, and an eager launch or a replay in another thread
+  while a capture runs (an engine serving while the next version stages)
+  is counted as it ran.
+- Random streams: the device's default generator is registered with
+  every capture (torch does that); a capture that draws from generators
+  of its own (the serving engine's sampler) names them, and each replay
+  then draws the next numbers of each stream.
+- Serving captures while another engine serves: they capture in
+  ``"thread_local"`` error mode, so another thread's synchronising calls
+  (a device-to-host copy of its results) do not invalidate the capture.
 
 Python's garbage collector is off while a graph is captured: blocks sit
 in reference cycles, and a collection that frees a dropped block's
@@ -26,21 +36,28 @@ stream capture refuses (``cudaErrorStreamCaptureInvalidated``).
 
 A capture that fails (an operation that synchronises with the host, such
 as ``.item()``, or anything else the stream capture refuses) raises
-``MXNetError``; nothing falls back to the eager path. torch ends the
-device's default generator's capture mode only when a capture ends well;
-after a failed one every later random draw would raise, so the capture
-gives the generator a fresh state at the same seed and offset.
+``MXNetError``; nothing falls back to the eager path. torch ends a
+registered generator's capture mode only when a capture ends well; after
+a failed one every later random draw would raise, so the capture gives
+each generator it registered a fresh state at the same seed and offset.
 """
 
 from __future__ import annotations
 
 import collections
 import gc
+import threading
 
 import torch
 
 from ..base import MXNetError
 from ..ops import _kernels
+
+
+# One capture at a time: torch.cuda.graph captures on one capture stream
+# shared by every capture, and the wrappers count into one capture's
+# counts (ops._kernels.count).
+_CAPTURE_LOCK = threading.Lock()
 
 
 def warm_up(fn):
@@ -54,10 +71,11 @@ def warm_up(fn):
     return out
 
 
-def _release_generator():
-    """Give the current device's default generator a state out of capture
-    mode, at its seed and offset."""
-    gen = torch.cuda.default_generators[torch.cuda.current_device()]
+def _release_generator(gen=None):
+    """Give ``gen`` (the current device's default generator by default) a
+    state out of capture mode, at its seed and offset."""
+    if gen is None:
+        gen = torch.cuda.default_generators[torch.cuda.current_device()]
     fresh = torch.Generator(device=gen.device)
     fresh.manual_seed(gen.initial_seed())
     fresh.set_offset(gen.get_offset())
@@ -66,34 +84,47 @@ def _release_generator():
 
 class Graph:
     """One captured CUDA graph over the memory pool ``pool``; ``what``
-    names it in the errors a failed capture or replay raises."""
+    names it in the errors a failed capture or replay raises.
+    ``generators``: CUDA generators other than the default one that the
+    captured function draws from. ``error_mode``: the stream capture's
+    mode, ``"global"`` (torch's default) or ``"thread_local"``."""
 
-    def __init__(self, pool, what):
+    def __init__(self, pool, what, generators=(), error_mode="global"):
         self._graph = torch.cuda.CUDAGraph()
         self._pool = pool
         self._what = what
+        self._generators = tuple(generators)
+        self._mode = error_mode
+        for gen in self._generators:
+            self._graph.register_generator_state(gen)
         #: the kernel launches one replay makes, by wrapper name
         self.launches = collections.Counter()
 
     def capture(self, fn):
         """Capture ``fn()`` and return what it returned (tensors in the
         pool, rewritten by every replay)."""
-        before = collections.Counter(_kernels.LAUNCHES)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self._graph, pool=self._pool):
-                out = fn()
-        except Exception as err:
-            _release_generator()
-            raise MXNetError(f"capturing {self._what} as a CUDA graph failed: "
-                             f"{type(err).__name__}: {err}") from err
-        finally:
-            if collecting:
-                gc.enable()
-            self.launches = _kernels.LAUNCHES - before
-            _kernels.LAUNCHES.clear()
-            _kernels.LAUNCHES.update(before)
+        mode = {} if self._mode == "global" else \
+            {"capture_error_mode": self._mode}
+        with _CAPTURE_LOCK:
+            counts = collections.Counter()
+            _kernels.capture_counts(counts)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self._graph, pool=self._pool, **mode):
+                    out = fn()
+            except Exception as err:
+                _release_generator()
+                for gen in self._generators:
+                    _release_generator(gen)
+                raise MXNetError(
+                    f"capturing {self._what} as a CUDA graph failed: "
+                    f"{type(err).__name__}: {err}") from err
+            finally:
+                if collecting:
+                    gc.enable()
+                _kernels.capture_counts(None)
+            self.launches = counts
         return out
 
     def replay(self):
@@ -102,4 +133,4 @@ class Graph:
         except Exception as err:
             raise MXNetError(f"replaying {self._what} failed: "
                              f"{type(err).__name__}: {err}") from err
-        _kernels.LAUNCHES.update(self.launches)
+        _kernels.add(self.launches)

@@ -152,10 +152,79 @@ def _held(t) -> bool:
     return count is None or count() > 1
 
 
+def _reverses(idx) -> bool:
+    """Is ``idx`` a basic index with a negative step somewhere?"""
+    items = idx if isinstance(idx, tuple) else (idx,)
+    return _is_basic_index(idx) and any(
+        isinstance(i, slice) and i.step is not None and i.step < 0
+        for i in items)
+
+
+def _positive(t, idx):
+    """A basic index with negative steps as torch takes it: the same
+    elements through positive steps, and the result's dims to flip after
+    (torch has no negative strides). ``t[pos].flip(dims)`` reads
+    ``t[idx]``; ``t[pos]`` is the torch view a write goes through."""
+    items = list(idx) if isinstance(idx, tuple) else [idx]
+    if any(i is Ellipsis for i in items):
+        at = items.index(Ellipsis)
+        used = sum(1 for i in items if i is not None and i is not Ellipsis)
+        items[at:at + 1] = [slice(None)] * (t.dim() - used)
+    pos, flips, dim, out_dim = [], [], 0, 0
+    for i in items:
+        if i is None:
+            pos.append(None)
+            out_dim += 1
+            continue
+        if isinstance(i, slice):
+            if i.step is not None and i.step < 0:
+                picked = range(*i.indices(t.shape[dim]))
+                if len(picked):
+                    i = slice(picked[-1], picked[0] + 1, -i.step)
+                    flips.append(out_dim)
+                else:
+                    i = slice(0, 0)
+            out_dim += 1
+        pos.append(i)
+        dim += 1
+    return tuple(pos), flips
+
+
+def _read(t, idx):
+    """``t[idx]`` for a basic index; a negative step reads through
+    ``flip`` (a copy)."""
+    if not _reverses(idx):
+        return t[idx]
+    pos, flips = _positive(t, idx)
+    out = t[pos]
+    return out.flip(flips) if flips else out
+
+
 def _select(t, path):
     for ix in path:
         t = t[ix]
     return t
+
+
+def _assign_path(t, path, idx, v):
+    """Write ``v`` at ``idx`` of ``t[path[0]][path[1]]...``. A step of the
+    chain with a negative step writes into a flipped copy of the positive
+    view and copies it back, so the write lands in ``t``."""
+    chain = list(path) + ([] if idx is None else [idx])
+    at = next((k for k, ix in enumerate(chain) if _reverses(ix)), None)
+    if at is None:
+        _assign(_select(t, path), idx, v)
+        return
+    t = _select(t, chain[:at])
+    pos, flips = _positive(t, chain[at])
+    sub = t[pos]
+    tmp = sub.flip(flips) if flips else sub.clone()
+    rest = chain[at + 1:]
+    if rest:
+        _assign_path(tmp, rest[:-1], rest[-1], v)
+    else:
+        _assign(tmp, None, v)
+    sub.copy_(tmp.flip(flips) if flips else tmp)
 
 
 def _as_value(v, like):
@@ -396,20 +465,20 @@ class NDArray:
         if autograd.is_recording() and (rt.requires_grad or tracked_v):
             with torch.enable_grad():
                 new = rt.clone()
-                _assign(_select(new, path), idx, v)
+                _assign_path(new, path, idx, v)
             root._rebind(new)
             return
         if rt.requires_grad and (not rt.is_leaf or _held(rt)):
             with torch.no_grad():
                 new = rt.detach().clone()
-                _assign(_select(new, path), idx, v)
+                _assign_path(new, path, idx, v)
             if rt.is_leaf:
                 new.requires_grad_(True)
             root._rebind(new)
             return
-        root._cow()
+        root._cow()  # may give the root a tensor of its own
         with torch.no_grad():
-            _assign(self._t, idx, v)
+            _assign_path(root._t, path, idx, v)
 
     def _set_data(self, value):
         """Overwrite the contents in place (never recorded): how an
@@ -494,7 +563,7 @@ class NDArray:
             return _View(self, idx)
         if not _is_basic_index(idx):
             idx = _index_tensor(idx, self._t.device)
-        return apply(lambda t: t[idx], self)
+        return apply(lambda t: _read(t, idx), self)
 
     def __setitem__(self, idx, value):
         if not _is_basic_index(idx):
@@ -599,11 +668,14 @@ class _View(NDArray):
     every use, so it follows the base when the base takes a new tensor
     (copy on write, a recorded write) and writes land in the base."""
 
-    __slots__ = ("_base", "_index", "_src", "_tv")
+    __slots__ = ("_base", "_index", "_src", "_tv", "_flipped")
 
     def __init__(self, base: NDArray, index):  # noqa: super-init-not-called
         self._base = base
         self._index = index
+        # a negative step reads a flipped copy: never cached, and a write
+        # goes back through the base (``_assign_path``)
+        self._flipped = _reverses(index) or getattr(base, "_flipped", False)
         self._src = None
         self._tv = None
         self._grad = None
@@ -614,8 +686,8 @@ class _View(NDArray):
     @property
     def _t(self):
         src = self._base._t
-        if src.requires_grad:  # in the current grad mode, never cached
-            return src[self._index]
+        if src.requires_grad or self._flipped:  # never cached
+            return _read(src, self._index)
         if src is not self._src:
             self._tv = src[self._index]
             self._src = src

@@ -12,10 +12,10 @@ raises; there is no fallback to the plain PyTorch versions.
 
 Every source exports ``const char* mxtpu_cuda_error_string(int)`` for
 :func:`check`. Wrappers call :func:`library` for their ``ctypes.CDLL`` and
-add one to ``LAUNCHES[name]`` each time they launch a kernel, so a run
-can show which kernels its main path went through. Inside a CUDA-graph
-capture a wrapper launches nothing; the capture takes its counts back and
-each replay adds them (``gluon/_capture.py``).
+call :func:`count` each time they launch a kernel, so a run can show
+which kernels its main path went through. Inside a CUDA-graph capture a
+wrapper launches nothing: its count goes to the capture, and each replay
+adds the capture's counts to ``LAUNCHES`` (``gluon/_capture.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 from ..base import MXNetError
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,9 +40,40 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel launches per wrapper name since the last ``LAUNCHES.clear()``
 LAUNCHES = collections.Counter()
+#: held by every update of ``LAUNCHES`` and of a capture's counts
+_count_lock = threading.Lock()
+#: the counts of the CUDA-graph capture under way, or None (captures run
+#: one at a time, ``gluon/_capture.py``)
+_capture_counts = [None]
 
 _lock = threading.Lock()
 _libs = {}
+
+
+def count(name: str) -> None:
+    """Count one launch of the kernel ``name``: into the capture under way
+    when the calling thread's current stream is capturing (the capturing
+    thread, or the autograd thread of a captured backward, whose current
+    stream is the capture's), else into ``LAUNCHES``. An eager launch in
+    another thread during a capture is thus counted as it ran."""
+    with _count_lock:
+        into = _capture_counts[0]
+        if into is None or not torch.cuda.is_current_stream_capturing():
+            into = LAUNCHES
+        into[name] += 1
+
+
+def add(counts) -> None:
+    """Add ``counts`` (one replay of a captured graph) to ``LAUNCHES``."""
+    with _count_lock:
+        LAUNCHES.update(counts)
+
+
+def capture_counts(counts) -> None:
+    """Send the counts of captured launches to ``counts`` (a capture
+    begins) or, given None, back to ``LAUNCHES`` (it ends)."""
+    with _count_lock:
+        _capture_counts[0] = counts
 
 
 def nvcc_path() -> str:

@@ -15,7 +15,7 @@ from .registry import register
 _NEG_INF = -1e30
 
 
-@register("ctc_loss")
+@register("_ctc_loss", aliases=("ctc_loss", "CTCLoss"))
 def ctc_loss(pred, label, pred_lengths=None, label_lengths=None):
     """pred: (T, N, C) raw activations; label: (N, L) integers, 0 = blank
     padding; lengths default to T and to the count of non-zero labels.

@@ -140,7 +140,7 @@ def _cuda_paged_decode(q, k_pool, v_pool, tables, lens, scale):
         raise ValueError("paged decode kernel needs contiguous q and pools")
     tables, lens = _int32(tables), _int32(lens)
     if D > _MAX_HEAD_DIM:
-        _kernels.LAUNCHES["paged_decode_plain"] += 1
+        _kernels.count("paged_decode_plain")
         return _torch_paged_decode(q, k_pool, v_pool, tables, lens, scale)
     out = torch.empty_like(q)
     if B == 0:
@@ -164,11 +164,12 @@ def _cuda_paged_decode(q, k_pool, v_pool, tables, lens, scale):
             err = lib.mxtpu_paged_decode(*args)
     _kernels.check(lib, err, "paged_decode launch")
     # one C call launches both kernels
-    _kernels.LAUNCHES["paged_decode"] += 1
-    _kernels.LAUNCHES["paged_decode_combine"] += 1
+    _kernels.count("paged_decode")
+    _kernels.count("paged_decode_combine")
     return out
 
 
+@register("paged_decode_attention")
 def paged_decode_attention(query, k_pool, v_pool, block_tables,
                            context_lens, scale=None):
     """Decode-specialized attention: ``query`` is one new token per
@@ -383,7 +384,7 @@ def _cuda_flash_fwd(q, k, v, scale, causal, window):
             out.data_ptr(), lse.data_ptr(), B, H, KVH, T, S, D, int(causal),
             int(window), float(scale), strides, stream)
     _kernels.check(lib, err, "flash_fwd launch")
-    _kernels.LAUNCHES["flash_fwd"] += 1
+    _kernels.count("flash_fwd")
     return out, lse
 
 
@@ -417,7 +418,7 @@ def _launch_flash_bwd(kernel, q, k, v, g, out, lse, delta, strides, outs,
                  *(o.data_ptr() for o in outs), B, H, KVH, T, S, D,
                  int(causal), int(window), float(scale), strides, stream)
     _kernels.check(lib, err, f"flash_bwd_{kernel} launch")
-    _kernels.LAUNCHES[f"flash_bwd_{kernel}"] += 1
+    _kernels.count(f"flash_bwd_{kernel}")
 
 
 def _cuda_flash_bwd(q, k, v, out, lse, g, scale, causal, window):
@@ -466,7 +467,7 @@ def _cuda_flash_bwd_fused(q, k, v, out, lse, g, scale, causal, window):
             D, int(causal),
             int(window), float(scale), strides, stream)
     _kernels.check(lib, err, "flash_bwd_fused launch")
-    _kernels.LAUNCHES["flash_bwd_fused"] += 1
+    _kernels.count("flash_bwd_fused")
     return dq.to(q.dtype), dk, dv
 
 
@@ -474,7 +475,7 @@ def _plain_flash_fwd_on_cuda(q, k, v, scale, causal, window):
     """The plain forward on CUDA tensors, where the JAX package runs its
     jnp path (head_dim > 128); counted as ``flash_plain_fwd``."""
     _check_operands(q, k, v)
-    _kernels.LAUNCHES["flash_plain_fwd"] += 1
+    _kernels.count("flash_plain_fwd")
     return _torch_flash_fwd(q, k, v, scale, causal, window)
 
 
@@ -482,7 +483,7 @@ def _plain_flash_bwd_on_cuda(q, k, v, out, lse, g, scale, causal, window):
     """The plain backward on CUDA tensors (head_dim > 128); counted as
     ``flash_plain_bwd``."""
     _check_operands(q, k, v, g)
-    _kernels.LAUNCHES["flash_plain_bwd"] += 1
+    _kernels.count("flash_plain_bwd")
     return _torch_flash_bwd(q, k, v, out, lse, g, scale, causal, window)
 
 
@@ -546,7 +547,7 @@ class _FlashAttention(torch.autograd.Function):
         return (*bwd(q, k, v, out, lse, g, *ctx.args), None, None, None)
 
 
-@register("flash_attention")
+@register("flash_attention", aliases=("_contrib_flash_attention",))
 def flash_attention(query, key, value, scale=None, causal=False,
                     block_size=1024, window=0, native_gqa=False):
     """Memory-efficient attention, differentiable. ``query`` is

@@ -213,7 +213,7 @@ def _launch(lib, name, *args):
     """Call one launcher on x's current stream and check its error."""
     err = getattr(lib, name)(*args)
     _kernels.check(lib, err, f"{name} launch")
-    _kernels.LAUNCHES[name[len("mxtpu_"):]] += 1
+    _kernels.count(name[len("mxtpu_"):])
 
 
 def _workspace(lib, kernel, M, K, N, apply, dev):

@@ -145,9 +145,18 @@ def _float_of(x):
     return x.dtype if x.is_floating_point() else torch.float32
 
 
+def _sign(x):
+    """``jnp.sign``: NaN stays NaN and -0.0 stays -0.0 (``torch.sign``
+    gives 0 for both); the gradient is 0 everywhere."""
+    if not x.is_floating_point():
+        return torch.sign(x)
+    keep = (x == 0) | torch.isnan(x)
+    return torch.where(keep, x.detach(), torch.sign(x))
+
+
 _UNARY = {
     "abs": torch.abs,
-    "sign": torch.sign,
+    "sign": _sign,
     "rint": torch.round,  # half to even, as jnp.rint
     "round": torch.round,  # half to even, as the JAX package's jnp.round
     "ceil": torch.ceil,
@@ -284,13 +293,48 @@ def _prod(data, dim, keepdim):
     return out
 
 
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
+
+
+def _int_acc(x):
+    """The type ``jnp.sum``/``jnp.prod`` give an integer or bool input (the
+    JAX package runs with x64 off): int32, uint32 for an unsigned input;
+    the port's int64 stays int64. None for a floating input."""
+    if x.is_floating_point():
+        return None
+    if x.dtype == torch.int64:
+        return torch.int64
+    return torch.uint32 if x.dtype in _UNSIGNED else torch.int32
+
+
+def _accumulated(fn):
+    """``fn`` in the reference's result type: integers reduce in int64
+    and wrap to their 32-bit type, as the 32-bit reduction wraps."""
+    def run(x, ax, kd):
+        acc = _int_acc(x)
+        if acc is None:
+            return fn(x, ax, kd)
+        return fn(x.to(torch.int64), ax, kd).to(acc)
+
+    return run
+
+
+def _mean(x, ax, kd):
+    """An integer or bool mean is float32, as ``jnp.mean``'s."""
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    return x.mean(dim=ax, keepdim=kd)
+
+
 _REDUCE = {
-    "sum": (lambda x, ax, kd: x.sum(dim=ax, keepdim=kd), ("sum_axis",)),
-    "nansum": (lambda x, ax, kd: torch.nansum(x, dim=ax, keepdim=kd), ()),
-    "mean": (lambda x, ax, kd: x.mean(dim=ax, keepdim=kd), ()),
-    "prod": (_prod, ()),
-    "nanprod": (lambda x, ax, kd: _prod(torch.where(
-        torch.isnan(x), torch.ones_like(x), x), ax, kd), ()),
+    "sum": (_accumulated(lambda x, ax, kd: x.sum(dim=ax, keepdim=kd)),
+            ("sum_axis",)),
+    "nansum": (_accumulated(
+        lambda x, ax, kd: torch.nansum(x, dim=ax, keepdim=kd)), ()),
+    "mean": (_mean, ()),
+    "prod": (_accumulated(_prod), ()),
+    "nanprod": (_accumulated(lambda x, ax, kd: _prod(torch.where(
+        torch.isnan(x), torch.ones_like(x), x), ax, kd)), ()),
     "max": (lambda x, ax, kd: torch.amax(x, dim=ax, keepdim=kd),
             ("max_axis",)),
     "min": (lambda x, ax, kd: torch.amin(x, dim=ax, keepdim=kd),
@@ -301,11 +345,16 @@ _REDUCE = {
 def _reduce(fn, name):
     def op(data, axis=None, keepdims=False, exclude=False):
         ax = _axes(axis, exclude, data.dim())
-        return fn(data, ax, keepdims) if ax else data
+        if ax:
+            return fn(data, ax, keepdims)
+        acc = _int_acc(data) if name in _TYPED else None
+        return data if acc is None else data.to(acc)
 
     op.__name__ = name
     return op
 
+
+_TYPED = ("sum", "nansum", "prod", "nanprod")
 
 for _name, (_fn, _aliases) in _REDUCE.items():
     globals()[_name] = register(_name, aliases=_aliases)(
@@ -391,9 +440,16 @@ def argsort(data, axis=-1, is_ascend=True, dtype="float32"):
 
 @register("cumsum")
 def cumsum(a, axis=None, dtype=None):
+    """``jnp.cumsum``: an integer input keeps its type (and wraps), a bool
+    one sums to int32."""
     x = a.reshape(-1) if axis is None else a
-    return torch.cumsum(x, dim=0 if axis is None else axis,
-                        dtype=torch_dtype(dtype) if dtype else None)
+    if dtype:
+        dt = torch_dtype(dtype)
+    elif x.dtype == torch.bool:
+        dt = torch.int32
+    else:
+        dt = x.dtype
+    return torch.cumsum(x, dim=0 if axis is None else axis, dtype=dt)
 
 
 # ---------------------------------------------------------------------------

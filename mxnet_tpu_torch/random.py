@@ -87,21 +87,57 @@ def _out(t, out):
     return NDArray(t)
 
 
+def _params(ctx, out, *params):
+    """The device of the draw and each parameter as a number or a tensor
+    there: an NDArray parameter is unwrapped (its device is the draw's
+    when neither ``ctx`` nor ``out`` names one)."""
+    from .ndarray.ndarray import NDArray
+
+    if out is not None:
+        dev = out.data.device
+    elif ctx is None and any(isinstance(p, NDArray) for p in params):
+        dev = next(p for p in params if isinstance(p, NDArray)).data.device
+    else:
+        dev = _device(ctx)
+    vals = [p.data.detach().to(dev) if isinstance(p, NDArray) else
+            float(p) for p in params]
+    return (dev, *vals)
+
+
+def _draw(out, dtype, shape):
+    """The type and shape of a draw: ``out``'s, or ``dtype``/``shape``."""
+    if out is not None:
+        return out.data.dtype, out.shape
+    return _dtype(dtype), _shape(shape)
+
+
+def _full(shp, value, dev):
+    """``value`` (a number or a tensor) broadcast over ``shp`` and its own
+    shape, as a float32 tensor of parameters, one per draw."""
+    v = torch.as_tensor(value, dtype=torch.float32, device=dev)
+    return v.expand(torch.broadcast_shapes(shp, v.shape)).contiguous()
+
+
+# The location-scale samplers draw ONE z of ``shape`` (default ``()``)
+# and broadcast it over NDArray parameters, as the JAX package's
+# ``loc + scale * z`` does (mxnet_tpu/random.py:83-88, :113-118); MXNet
+# 1.x drew one value per parameter element (ROADMAP C17). The samplers
+# whose parameter shapes the distribution (gamma, poisson, bernoulli,
+# randint) draw one value per element of the broadcast parameters.
+
 def uniform(low=0.0, high=1.0, shape=None, dtype="float32", ctx=None,
             out=None, **kw):
     """Uniform on ``[low, high)``."""
-    dev = _device(ctx) if out is None else out.data.device
-    dt = _dtype(dtype) if out is None else out.data.dtype
-    shp = _shape(shape) if out is None else out.shape
+    dev, low, high = _params(ctx, out, low, high)
+    dt, shp = _draw(out, dtype, shape)
     u = torch.rand(shp, generator=generator(dev), device=dev, dtype=dt)
     return _out(u * (high - low) + low, out)
 
 
 def normal(loc=0.0, scale=1.0, shape=None, dtype="float32", ctx=None,
            out=None, **kw):
-    dev = _device(ctx) if out is None else out.data.device
-    dt = _dtype(dtype) if out is None else out.data.dtype
-    shp = _shape(shape) if out is None else out.shape
+    dev, loc, scale = _params(ctx, out, loc, scale)
+    dt, shp = _draw(out, dtype, shape)
     z = torch.randn(shp, generator=generator(dev), device=dev, dtype=dt)
     return _out(loc + scale * z, out)
 
@@ -115,12 +151,18 @@ def randint(low, high=None, shape=None, dtype="int32", ctx=None, out=None,
     """Integers in ``[low, high)`` (``[0, low)`` with one bound)."""
     if high is None:
         low, high = 0, low
-    dev = _device(ctx) if out is None else out.data.device
-    dt = _dtype(dtype) if out is None else out.data.dtype
-    shp = _shape(shape) if out is None else out.shape
-    r = torch.randint(int(low), int(high), shp, generator=generator(dev),
-                      device=dev, dtype=torch.int64).to(dt)
-    return _out(r, out)
+    dev, low, high = _params(ctx, out, low, high)
+    dt, shp = _draw(out, dtype, shape)
+    if isinstance(low, float) and isinstance(high, float):
+        r = torch.randint(int(low), int(high), shp, generator=generator(dev),
+                          device=dev, dtype=torch.int64)
+    else:
+        lo, hi = _full(shp, low, dev), _full(shp, high, dev)
+        lo, hi = torch.broadcast_tensors(lo, hi)
+        u = torch.rand(lo.shape, generator=generator(dev), device=dev,
+                       dtype=torch.float64)
+        r = (lo.double() + torch.floor(u * (hi - lo).double())).long()
+    return _out(r.to(dt), out)
 
 
 def gamma(alpha=1.0, beta=1.0, shape=None, dtype="float32", ctx=None,
@@ -128,35 +170,31 @@ def gamma(alpha=1.0, beta=1.0, shape=None, dtype="float32", ctx=None,
     """Gamma with shape ``alpha`` and scale ``beta`` (mean alpha*beta).
     torch's gamma sampler takes no generator argument: it draws from the
     device's default generator, which is this module's stream."""
-    dev = _device(ctx) if out is None else out.data.device
-    dt = _dtype(dtype) if out is None else out.data.dtype
-    shp = _shape(shape) if out is None else out.shape
-    a = torch.full(shp, float(alpha), device=dev, dtype=torch.float32)
+    dev, alpha, beta = _params(ctx, out, alpha, beta)
+    dt, shp = _draw(out, dtype, shape)
+    a = _full(shp, alpha, dev)
     return _out((torch._standard_gamma(a) * beta).to(dt), out)
 
 
 def exponential(scale=1.0, shape=None, dtype="float32", ctx=None, out=None,
                 **kw):
-    dev = _device(ctx) if out is None else out.data.device
-    dt = _dtype(dtype) if out is None else out.data.dtype
-    shp = _shape(shape) if out is None else out.shape
+    dev, scale = _params(ctx, out, scale)
+    dt, shp = _draw(out, dtype, shape)
     e = torch.empty(shp, device=dev, dtype=torch.float32).exponential_(
         1.0, generator=generator(dev))
     return _out((e * scale).to(dt), out)
 
 
 def poisson(lam=1.0, shape=None, dtype="float32", ctx=None, out=None, **kw):
-    dev = _device(ctx) if out is None else out.data.device
-    dt = _dtype(dtype) if out is None else out.data.dtype
-    shp = _shape(shape) if out is None else out.shape
-    rates = torch.full(shp, float(lam), device=dev, dtype=torch.float32)
+    dev, lam = _params(ctx, out, lam)
+    dt, shp = _draw(out, dtype, shape)
+    rates = _full(shp, lam, dev)
     return _out(torch.poisson(rates, generator=generator(dev)).to(dt), out)
 
 
 def bernoulli(prob=0.5, shape=None, dtype="float32", ctx=None, **kw):
-    dev = _device(ctx)
-    p = torch.full(_shape(shape), float(prob), device=dev,
-                   dtype=torch.float32)
+    dev, prob = _params(ctx, None, prob)
+    p = _full(_shape(shape), prob, dev)
     return _out(torch.bernoulli(p, generator=generator(dev))
                 .to(_dtype(dtype)), None)
 

@@ -10,8 +10,10 @@ the loop:
   + sampling + EOS/budget bookkeeping) run back to back on the device
   with every piece of slot state a device tensor; the host reads the
   chunk's tokens and the new slot state in ONE device-to-host copy at
-  the end (the JAX package fuses the same loop into one ``lax.scan``
-  executable);
+  the end. On a CUDA device the chunk is ONE captured CUDA graph (the
+  JAX package seals the same loop as one ``lax.scan`` executable): the
+  host mirrors go to static device buffers in one pinned host-to-device
+  copy, and a replay runs every step's launches;
 - **on-device sampling** (:func:`sample_tokens`): greedy / temperature
   / top-k / top-p per SLOT, drawn from an explicit ``torch.Generator``
   on the device — no sync to pick a token;
@@ -22,11 +24,14 @@ the loop:
 K/V state lives in the :class:`~.kvcache.PagedKVCache` block pool,
 updated in place by every prefill and decode step. Slot liveness is an
 operand, never a shape. On a CUDA device every decode step launches the
-Hopper paged-decode kernel once per layer.
+Hopper paged-decode kernel (its split kernel and its combine kernel) once
+per layer. The pools are updated in place and never reallocated, since
+the graph reads them through fixed addresses. Prefill stays eager.
 
 Sampling reproducibility: a request's first token is drawn from its own
-``seed``; later tokens draw from the engine's generator, which advances
-per chunk — deterministic for a fixed admission order. ``greedy=True``
+``seed``; later tokens draw from the engine's generator (registered with
+the chunk's graph, so each replay draws the stream's next numbers), which
+advances per chunk — deterministic for a fixed admission order. ``greedy=True``
 (the default) is always bit-stable. The draws are not those of
 ``jax.random``.
 
@@ -356,15 +361,49 @@ class GenerationEngine:
 
     # -- deploy: build + warm + seal ---------------------------------------
     def _deploy(self, seed):
-        """Warm every path once with nothing live: one decode chunk (all
-        slots inactive, writes land in the null block) builds the CUDA
-        kernel before the first request, and one prefill per bucket
-        (length 0, every write to the null block) checks each bucket."""
+        """Seal the decode chunk, and warm every path once with nothing
+        live. On a CUDA device the chunk body is captured as one CUDA
+        graph over the static slot buffers and the cache's pools (after a
+        warm-up run that builds the kernel) and replayed once; on the CPU
+        it runs once. Then one prefill per bucket (length 0, every write
+        to the null block) checks each bucket."""
         self._step = self._net.decode_step_fn()
         self._prefill_step = self._net.prefill_fn()
         self._params = self._net.params()
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        self._run_chunk(_np.zeros((self._slots, self._mb), _np.int32))
+        cuda = self.device.type == "cuda"
+        # the slot mirrors packed as int32 (floats by their bits, bools as
+        # 0/1): one host-to-device copy a chunk
+        n, mb = self._slots, self._mb
+        self._layout = {}
+        off = 0
+        for key, size in (("tables", n * mb), ("lens", n), ("token", n),
+                          ("active", n), ("remaining", n), ("temp", n),
+                          ("top_k", n), ("top_p", n), ("greedy", n),
+                          ("eos", n)):
+            self._layout[key] = (off, size)
+            off += size
+        self._host_in = torch.zeros(off, dtype=torch.int32,
+                                    pin_memory=cuda)
+        self._dev_in = torch.zeros(off, dtype=torch.int32,
+                                   device=self.device)
+        self._chunk_graph = None
+        self._chunk_out = None
+        if cuda:
+            from ..gluon import _capture
+
+            self._graph_pools = self.cache.pools()
+            _capture.warm_up(self._chunk_body)
+            self._chunk_graph = _capture.Graph(
+                torch.cuda.graph_pool_handle(),
+                f"the decode chunk of {self._name}:{self._version}",
+                generators=(self._gen,), error_mode="thread_local")
+            self._chunk_out = self._chunk_graph.capture(self._chunk_body)
+            self._chunk_graph.replay()
+            self._host_out = torch.empty(self._chunk_out.shape,
+                                         dtype=torch.int32, pin_memory=True)
+        else:
+            self._run_chunk(_np.zeros((self._slots, self._mb), _np.int32))
         self._compiles += 1
         for tb in self._buckets:
             if tb > self.max_seq:
@@ -377,21 +416,33 @@ class GenerationEngine:
                 k, v, self._dev(_np.zeros((1, self._mb), _np.int32)),
                 self._dev([0], torch.int32))
             self._compiles += 1
-        if self.device.type == "cuda":
+        if cuda:
             torch.cuda.synchronize(self.device)
         self._sealed = True
 
-    def _run_chunk(self, tables):
-        """``chunk`` decode steps on the device from the host slot
-        mirrors; returns the chunk's tokens ``(chunk, slots)``, emitted
-        flags, and the new lens/token/active/remaining — all from ONE
-        device-to-host copy."""
-        dev = self._dev
-        tables = dev(tables)
-        lens, token = dev(self._lens), dev(self._token)
-        active, remaining = dev(self._active), dev(self._remaining)
-        temp, top_k = dev(self._temp), dev(self._topk)
-        top_p, greedy, eos = dev(self._topp), dev(self._greedy), dev(self._eos)
+    def _slot_inputs(self):
+        """The static slot buffers (views of ``_dev_in``) in their types."""
+        buf, lay = self._dev_in, self._layout
+
+        def part(key):
+            off, size = lay[key]
+            return buf[off:off + size]
+
+        off, size = lay["tables"]
+        return (buf[off:off + size].view(self._slots, self._mb),
+                part("lens"), part("token"), part("active") != 0,
+                part("remaining"), part("temp").view(torch.float32),
+                part("top_k"), part("top_p").view(torch.float32),
+                part("greedy") != 0, part("eos"))
+
+    def _chunk_body(self):
+        """``chunk`` decode steps from the static slot buffers over the
+        cache's pools, written in place: the chunk's tokens ``(chunk,
+        slots)``, the emitted flags, and the new lens/token/active/
+        remaining, packed into one int32 tensor. No host sync, so a CUDA
+        graph captures it whole."""
+        (tables, lens, token, active, remaining, temp, top_k, top_p,
+         greedy, eos) = self._slot_inputs()
         k_pool, v_pool = self.cache.pools()
         toks, flags = [], []
         for _ in range(self._chunk):
@@ -409,14 +460,46 @@ class GenerationEngine:
             toks.append(nxt)
             flags.append(emitted)
         self.cache.update_pools(k_pool, v_pool)
+        return torch.cat([torch.stack(toks).reshape(-1),
+                          torch.stack(flags).to(torch.int32).reshape(-1),
+                          lens, token, active.to(torch.int32), remaining])
+
+    def _pack(self, tables):
+        """The host slot mirrors into the (pinned, on a card) input
+        buffer, in ``_layout``'s order."""
+        host = self._host_in.numpy()
+        parts = {"tables": tables, "lens": self._lens, "token": self._token,
+                 "active": self._active, "remaining": self._remaining,
+                 "temp": self._temp.view(_np.int32), "top_k": self._topk,
+                 "top_p": self._topp.view(_np.int32),
+                 "greedy": self._greedy, "eos": self._eos}
+        for key, (off, size) in self._layout.items():
+            host[off:off + size] = _np.asarray(parts[key]).reshape(-1)
+
+    def _run_chunk(self, tables):
+        """One chunk from the host slot mirrors: pack them into the static
+        buffers with one host-to-device copy, run the body (a replay of
+        its captured graph on a card, the body itself on the CPU), and
+        read the chunk's tokens ``(chunk, slots)``, emitted flags, and the
+        new lens/token/active/remaining in ONE device-to-host copy."""
+        self._pack(tables)
+        self._dev_in.copy_(self._host_in, non_blocking=True)
+        if self._chunk_graph is None:
+            packed = self._chunk_body().cpu().numpy()
+        else:
+            k, v = self.cache.pools()
+            if k is not self._graph_pools[0] or v is not self._graph_pools[1]:
+                raise MXNetError(
+                    "the KV cache's pools are not the ones the decode "
+                    "chunk was captured over")
+            self._chunk_graph.replay()
+            self._host_out.copy_(self._chunk_out, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            packed = self._host_out.numpy()
         n = self._slots
-        packed = torch.cat([torch.stack(toks).reshape(-1),
-                            torch.stack(flags).to(torch.int32).reshape(-1),
-                            lens, token, active.to(torch.int32),
-                            remaining]).cpu().numpy()
         c = self._chunk * n
         rest = packed[2 * c:].reshape(4, n)
-        return (packed[:c].reshape(self._chunk, n),
+        return (packed[:c].reshape(self._chunk, n).copy(),
                 packed[c:2 * c].reshape(self._chunk, n).astype(bool),
                 rest[0].copy(), rest[1].copy(), rest[2].astype(bool),
                 rest[3].copy())
@@ -764,6 +847,22 @@ class GenerationEngine:
             "cache": self.cache.stats(),
         }
 
+    def canary(self):
+        """Deploy-time verification: a short greedy generation must
+        return in-vocabulary token ids (the repository's staged-load veto
+        for generation engines; NaN logits give out-of-range or
+        degenerate ids through the argmax)."""
+        if not self._thread.is_alive():
+            self._thread.start()
+        toks = self.predict(_np.array([1, 2], _np.int32),
+                            max_new_tokens=2, greedy=True, timeout=60.0)
+        if len(toks) == 0 or _np.any(toks < 0) \
+                or _np.any(toks >= self.vocab_size):
+            raise ServingError(
+                f"generation canary produced out-of-vocabulary ids "
+                f"{toks!r} — refusing to serve this version")
+        return toks
+
     # -- lifecycle ---------------------------------------------------------
     def pause(self):
         """Stop accepting work and drain: queued + in-flight generations
@@ -817,6 +916,9 @@ class GenerationEngine:
 
     def _release(self):
         self._closed = True
+        self._chunk_graph = None
+        self._chunk_out = None
+        self._graph_pools = None
         self._params = None
         self.cache.k_pool = None
         self.cache.v_pool = None

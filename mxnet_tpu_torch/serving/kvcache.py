@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import base
+from ..base import MXNetError
 from .. import observability as _obs
 from ..context import resolve_device
 from .errors import KVCacheOOM
@@ -124,8 +125,18 @@ class PagedKVCache:
         return self.k_pool, self.v_pool
 
     def update_pools(self, k_pool, v_pool):
-        """Adopt the pools a step returned (the same tensors it was
-        handed: the step updated them in place)."""
+        """Adopt the pools a step returned: the tensors it was handed,
+        updated in place. A captured decode chunk reads the pools through
+        fixed addresses, so pools in other storage raise instead of
+        leaving a graph to replay memory that is no longer the cache."""
+        for name, old, new in (("k_pool", self.k_pool, k_pool),
+                               ("v_pool", self.v_pool, v_pool)):
+            if old is not None and (new.data_ptr() != old.data_ptr()
+                                    or new.shape != old.shape):
+                raise MXNetError(
+                    f"PagedKVCache.update_pools: the step returned a "
+                    f"{name} in other storage; the pools are updated in "
+                    "place and never reallocated")
         self.k_pool, self.v_pool = k_pool, v_pool
 
     # -- allocator ---------------------------------------------------------

@@ -8,7 +8,12 @@ EOS, ``max_new`` clipping, typed refusal of over-bucket prompts,
 deadlines, cancel, pause/resume/kill/close, and ragged traffic that
 leaves the cache empty. Greedy decode is exact (argmax of float32 logits
 that agree to ~1e-7); sampled draws come from another random stream and
-are only checked for range and seed determinism.
+are only checked for range and seed determinism. ``canary()`` returns the
+JAX engine's tokens; the chunk body split from its runner gives the
+unsplit chunk's tokens, slot state and pools exactly. The ``*_on_cuda``
+tests hold one replay of the captured chunk equal to the eager body on
+the same static inputs and pools, and two engines from one seed to the
+same sampled tokens when every chunk is a replay.
 """
 
 import time
@@ -19,6 +24,7 @@ import torch
 
 from mxnet_tpu.serving import GenerationEngine as JaxEngine
 from mxnet_tpu.serving import TransformerDecoderLM as JaxLM
+from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.serving import (
     EngineClosed,
     GenerationEngine,
@@ -319,3 +325,245 @@ def test_close_drains_inflight():
     assert not e._thread.is_alive()
     with pytest.raises(EngineClosed):
         e.submit(np.array([1, 2], np.int32))
+
+
+# -- the chunk body and its runner; canary() --------------------------------
+
+def _legacy_run_chunk(e, tables):
+    """The engine's chunk before the body was split from its runner: every
+    slot mirror copied on its own, the loop, the pools adopted, one packed
+    device-to-host copy."""
+    def dev(a, dtype=None):
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(e.device)
+
+    tables = dev(tables)
+    lens, token = dev(e._lens), dev(e._token)
+    active, remaining = dev(e._active), dev(e._remaining)
+    temp, top_k = dev(e._temp), dev(e._topk)
+    top_p, greedy, eos = dev(e._topp), dev(e._greedy), dev(e._eos)
+    k_pool, v_pool = e.cache.pools()
+    toks, flags = [], []
+    for _ in range(e._chunk):
+        logits, k_pool, v_pool = e._step(
+            e._params, token, lens, k_pool, v_pool, tables, active)
+        nxt = sample_tokens(logits, e._gen, temp, top_k, top_p, greedy)
+        emitted = active
+        nxt = torch.where(emitted, nxt, 0)
+        lens = lens + active.to(lens.dtype)
+        remaining = remaining - active.to(remaining.dtype)
+        hit_eos = (nxt == eos) & (eos >= 0)
+        active = active & ~hit_eos & (remaining > 0)
+        token = nxt
+        toks.append(nxt)
+        flags.append(emitted)
+    e.cache.update_pools(k_pool, v_pool)
+    n = e._slots
+    packed = torch.cat([torch.stack(toks).reshape(-1),
+                        torch.stack(flags).to(torch.int32).reshape(-1),
+                        lens, token, active.to(torch.int32),
+                        remaining]).cpu().numpy()
+    c = e._chunk * n
+    rest = packed[2 * c:].reshape(4, n)
+    return (packed[:c].reshape(e._chunk, n),
+            packed[c:2 * c].reshape(e._chunk, n).astype(bool),
+            rest[0].copy(), rest[1].copy(), rest[2].astype(bool),
+            rest[3].copy())
+
+
+def _seated_engine(net):
+    """An engine with its scheduler held, three slots seated by hand (two
+    greedy, one sampling with every filter, one with an EOS) and their
+    prompts prefilled."""
+    e = GenerationEngine(net, BUCKETS, name="gen-split", device="cpu",
+                         autostart=False, **ENG)
+    rs = np.random.RandomState(4)
+    for s, (plen, greedy) in enumerate(((5, True), (9, False), (3, True))):
+        prompt = rs.randint(1, VOCAB, plen).astype(np.int32)
+        table = e.cache.allocate(plen + 12)
+        padded = np.zeros((1, 16), np.int64)
+        padded[0, :plen] = prompt
+        k, v = e.cache.pools()
+        e._prefill_step(e._params, torch.from_numpy(padded), k, v,
+                        torch.from_numpy(table.device_row(e._mb)[None]),
+                        torch.tensor([plen], dtype=torch.int32))
+        e._slot_tables[s] = table
+        e._lens[s], e._token[s], e._active[s] = plen, int(prompt[-1]), True
+        e._remaining[s] = 11
+        e._greedy[s] = greedy
+        e._temp[s], e._topk[s], e._topp[s] = 0.9, 7, 0.8
+    e._eos[2] = int(rs.randint(0, VOCAB))
+    tables = np.zeros((e._slots, e._mb), np.int32)
+    for s, t in enumerate(e._slot_tables):
+        if t is not None:
+            tables[s] = t.device_row(e._mb)
+    return e, tables
+
+
+def test_chunk_body_matches_the_unsplit_chunk(net):
+    """The runner (mirrors packed into one static buffer, the body, one
+    packed read) gives the unsplit chunk's tokens, flags, slot state and
+    pools, from the same generator state, over three chunks."""
+    e, tables = _seated_engine(net)
+    try:
+        with torch.inference_mode():
+            _compare_legacy_and_split(e, tables)
+    finally:
+        e.close()
+
+
+def _compare_legacy_and_split(e, tables):
+    """Three chunks through each runner from the same state: equal."""
+    pools0 = [p.clone() for p in e.cache.pools()]
+    mirrors = [a.copy() for a in (e._lens, e._token, e._active,
+                                  e._remaining)]
+    gen0 = e._gen.get_state()
+    runs = {}
+    for name, run in (("legacy", _legacy_run_chunk),
+                      ("split", lambda eng, t: eng._run_chunk(t))):
+        for p, p0 in zip(e.cache.pools(), pools0):
+            p.copy_(p0)
+        e._lens, e._token, e._active, e._remaining = \
+            [a.copy() for a in mirrors]
+        e._gen.set_state(gen0)
+        outs = []
+        for _ in range(3):
+            out = run(e, tables)
+            (_, _, e._lens, e._token, e._active, e._remaining) = out
+            outs.append(out)
+        runs[name] = (outs, [p.clone() for p in e.cache.pools()])
+    (lo, lp), (so, sp) = runs["legacy"], runs["split"]
+    for a, b in zip(lo, so):
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+    assert any(f.any() for f in (lo[0][1], lo[2][1]))
+    for x, y in zip(lp, sp):
+        assert torch.equal(x, y)
+
+
+def test_canary_matches_the_jax_engine(jnet, net):
+    """``canary()`` generates 2 greedy tokens from [1, 2] (starting the
+    scheduler if it was held) and returns them: the JAX engine's tokens."""
+    jeng = JaxEngine(jnet, BUCKETS, name="gen-canary-jax", autostart=False,
+                     **ENG)
+    e = GenerationEngine(net, BUCKETS, name="gen-canary", device="cpu",
+                         autostart=False, **ENG)
+    try:
+        got, want = e.canary(), jeng.canary()
+        assert got.dtype == np.int32 and got.tolist() == want.tolist()
+        assert e.stats()["requests_ok"] == 1
+    finally:
+        e.close()
+        jeng.close()
+
+
+def test_canary_refuses_out_of_vocabulary_ids(net, monkeypatch):
+    e = GenerationEngine(net, BUCKETS, name="gen-canary-bad", device="cpu",
+                         **ENG)
+    try:
+        monkeypatch.setattr(e, "predict", lambda *a, **k: np.array(
+            [3, VOCAB], np.int32))
+        with pytest.raises(ServingError, match="out-of-vocabulary"):
+            e.canary()
+    finally:
+        e.close()
+
+
+def test_pools_in_other_storage_raise():
+    from mxnet_tpu_torch.serving import PagedKVCache
+
+    cache = PagedKVCache(1, 1, 4, max_seq=8, num_blocks=4, block_size=4,
+                         device="cpu")
+    k, v = cache.pools()
+    cache.update_pools(k, v)  # the same tensors, written in place
+    with pytest.raises(MXNetError, match="other storage"):
+        cache.update_pools(k.clone(), v)
+
+
+# -- on the card: the captured chunk -----------------------------------------
+
+def _cuda_net(jnet):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return TransformerDecoderLM(**NET, device="cuda",
+                                params=_carry(jnet, "cuda"))
+
+
+def test_captured_chunk_equals_the_eager_body_on_cuda(jnet):
+    """One replay of the captured chunk against the eager body on the same
+    static inputs and pools: greedy tokens, flags, slot state and pools
+    equal; K3's two kernels launch once per layer per step, from the
+    replay's accounting."""
+    net = _cuda_net(jnet)
+    e = GenerationEngine(net, BUCKETS, name="gen-graph", autostart=False,
+                         **ENG)
+    try:
+        with e._on_device():
+            _replay_against_eager(e)
+    finally:
+        e.close()
+
+
+def _replay_against_eager(e):
+    """Three slots seated by hand, one replay, then the eager body from the
+    same static inputs and pools."""
+    from mxnet_tpu_torch.ops import _kernels
+
+    assert e._chunk_graph is not None
+    rs = np.random.RandomState(6)
+    tables = np.zeros((e._slots, e._mb), np.int32)
+    for s, plen in enumerate((5, 12, 3)):
+        t = e.cache.allocate(plen + CHUNK)
+        tables[s] = t.device_row(e._mb)
+        e._lens[s], e._token[s] = plen, int(rs.randint(VOCAB))
+        e._active[s], e._remaining[s] = True, 10
+    pools0 = [p.clone() for p in e.cache.pools()]
+    e._pack(tables)
+    e._dev_in.copy_(e._host_in)
+    n0 = dict(_kernels.LAUNCHES)
+    e._chunk_graph.replay()
+    replay = e._chunk_out.clone()
+    graph_pools = [p.clone() for p in e.cache.pools()]
+    got = {k: _kernels.LAUNCHES[k] - n0.get(k, 0)
+           for k in ("paged_decode", "paged_decode_combine")}
+    assert got == {k: NET["num_layers"] * CHUNK for k in got}
+    for p, p0 in zip(e.cache.pools(), pools0):
+        p.copy_(p0)
+    eager = e._chunk_body()
+    torch.cuda.synchronize()
+    assert torch.equal(replay, eager)
+    for a, b in zip(graph_pools, e.cache.pools()):
+        assert torch.equal(a, b)
+
+
+def test_captured_sampling_repeats_from_one_seed_on_cuda(jnet):
+    """Two engines from one seed, each chunk a replay drawing from the
+    engine's registered generator: the same sampled tokens; another seed
+    gives others."""
+    net = _cuda_net(jnet)
+
+    def run(seed):
+        e = GenerationEngine(net, BUCKETS, name=f"gen-seed-{seed}",
+                             seed=seed, **ENG)
+        try:
+            return [e.predict(np.array(p, np.int32), max_new_tokens=n,
+                              greedy=False, temperature=1.3, seed=5,
+                              timeout=60.0).tolist() for p, n in PROMPTS]
+        finally:
+            e.close()
+
+    a, b, c = run(3), run(3), run(4)
+    assert a == b and a != c
+
+
+def test_pool_reallocation_refuses_to_replay_on_cuda(jnet):
+    net = _cuda_net(jnet)
+    e = GenerationEngine(net, BUCKETS, name="gen-realloc", autostart=False,
+                         **ENG)
+    try:
+        with e._on_device():
+            e.cache.k_pool = e.cache.k_pool.clone()
+            with pytest.raises(MXNetError, match="captured over"):
+                e._run_chunk(np.zeros((e._slots, e._mb), np.int32))
+    finally:
+        e.close()

@@ -135,3 +135,33 @@ def test_random_and_engine_entry_points_need_cuda_or_explicit_cpu(
     assert mx.nd.random.uniform(shape=(2,), ctx=mx.cpu()).shape == (2,)
     assert mx.num_gpus() == 0
     mx.engine.waitall()
+
+
+# the modules of single-process serving (the engine, its batcher, the
+# repository, the batch-shape guard) and the serving comparison script
+SERVING_MODULES = ("gluon/data/__init__.py", "gluon/data/shape_guard.py",
+                   "serving/batcher.py", "serving/engine.py",
+                   "serving/repository.py", "serving/_histogram.py")
+
+
+@pytest.mark.parametrize("rel", SERVING_MODULES + ("../tools/serve_ab.py",))
+def test_serving_modules_are_scanned(rel):
+    path = os.path.normpath(os.path.join(PKG, rel))
+    if not rel.startswith(".."):
+        assert path in _port_files()
+    assert not [n for n, _ in _imported_roots(path) if n in FORBIDDEN]
+
+
+def test_inference_engine_needs_cuda_or_explicit_cpu(monkeypatch):
+    import mxnet_tpu_torch as mx
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = mx.gluon.nn.Dense(3, in_units=2)
+    net.initialize(ctx=mx.cpu())
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mx.serving.InferenceEngine(net, [(2,)])
+    eng = mx.serving.InferenceEngine(net, [(2,)], ctx=mx.cpu())
+    try:
+        assert eng.predict([1.0, 2.0], timeout=10.0).shape == (1, 3)
+    finally:
+        eng.close()

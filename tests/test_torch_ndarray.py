@@ -418,3 +418,72 @@ def test_writes_are_seen_where_jax_sees_them_on_cuda(name, monkeypatch):
     want = _visibility(jmx, name)
     monkeypatch.setitem(KW, "ctx", mx.gpu(0))
     assert _visibility(mx, name) == want
+
+
+# -- C15: basic slicing with a negative step --------------------------------
+
+NEG_STEP_READS = {"rows": np.s_[::-1], "cols_by_2": np.s_[:, ::-2],
+                  "last_row_reversed": np.s_[-1, ::-1],
+                  "stop_and_int": np.s_[2:0:-1, 1],
+                  "ellipsis": np.s_[..., ::-3],
+                  "new_axis": np.s_[None, ::-1, 1:3]}
+
+
+def _grid(mod):
+    return _arr(mod, np.arange(12, dtype=np.float32).reshape(3, 4))
+
+
+@pytest.mark.parametrize("key", sorted(NEG_STEP_READS))
+def test_negative_step_read_matches_jax_c15(key):
+    ix = NEG_STEP_READS[key]
+    j, t = _both(lambda mod: _grid(mod)[ix].asnumpy())
+    assert t.shape == j.shape
+    np.testing.assert_array_equal(t, j)
+
+
+def test_negative_step_writes_match_jax_c15():
+    """``x[::-1] = y`` writes x's rows in reverse; ``v = x[::-1]; v[0] =
+    -1`` writes x's last row; a view of that view writes through both."""
+    def run(mod):
+        x = _grid(mod)
+        x[::-1] = _arr(mod, np.arange(12, 24, dtype=np.float32)
+                       .reshape(3, 4))
+        y = _grid(mod)
+        v = y[::-1]
+        v[0] = -1
+        z = _grid(mod)
+        w = z[:, ::-2]
+        w[1:][:] = 7
+        w[0, 1] = -5
+        return [x.asnumpy(), y.asnumpy(), v.asnumpy(), z.asnumpy(),
+                w.asnumpy()]
+
+    for t, j in zip(*reversed(_both(run))):
+        np.testing.assert_array_equal(t, j)
+
+
+def test_negative_step_gradients_match_jax_c15():
+    """Under ``record()``: ``(x[::-1] * w).sum()`` gives ``x.grad ==
+    w[::-1]``, and a recorded ``x[::-1] = y`` sends y the reversed head."""
+    def run(mod):
+        w = _arr(mod, np.arange(12, dtype=np.float32).reshape(3, 4) + 1)
+        x = _grid(mod)
+        x.attach_grad()
+        with mod.autograd.record():
+            loss = (x[::-1] * w).sum()
+        loss.backward()
+        a = _grid(mod)
+        y = _arr(mod, np.ones((2, 4), np.float32))
+        y.attach_grad()
+        with mod.autograd.record():
+            b = a * 1
+            b[2:0:-1] = y * 3
+            out = (b * w).sum()
+        out.backward()
+        return [x.grad.asnumpy(), b.asnumpy(), y.grad.asnumpy()]
+
+    j, t = _both(run)
+    np.testing.assert_array_equal(
+        t[0], np.arange(12, dtype=np.float32).reshape(3, 4)[::-1] + 1)
+    for a, b in zip(t, j):
+        np.testing.assert_array_equal(a, b)

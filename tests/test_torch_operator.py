@@ -1,7 +1,8 @@
 """Port parity: the operator registry of ``mxnet_tpu_torch`` against the
-JAX package's ``ops/math.py``, ``ops/shape_ops.py`` and ``ops/nn.py``.
+JAX package's ``ops/math.py``, ``ops/shape_ops.py``, ``ops/nn.py``,
+``ops/ctc.py`` and ``ops/flash_attention.py``.
 
-- Completeness: every name those three modules register (aliases too)
+- Completeness: every name those five modules register (aliases too)
   exists in the port's registry and ``mx.nd``, and the names one JAX op
   carries name one op in the port. The one exception is ``RNN``, which
   raises ``MXNetError`` naming ROADMAP A13 (``gluon.rnn`` is queued
@@ -15,8 +16,10 @@ JAX package's ``ops/math.py``, ``ops/shape_ops.py`` and ``ops/nn.py``.
   reductions, products and shape ops alike; the special functions whose
   float32 implementations differ between XLA and ATen (``gamma``,
   ``gammaln``, ``erfinv``, ``cbrt``/``rcbrt``, ``linalg_potrf``) 1e-4.
-  Integer and index outputs must be equal.
-- ``tests/test_operator.py``'s cases that the three modules reach.
+  Integer and index outputs must be equal, and every output's dtype
+  must be the JAX package's (C16; int32 and NaN variants of the
+  reductions, ``cumsum`` and ``sign``).
+- ``tests/test_operator.py``'s cases that the five modules reach.
 """
 
 import zlib
@@ -32,7 +35,7 @@ from mxnet_tpu_torch.ops import dispatch as tdispatch
 from mxnet_tpu_torch.ops import registry as tregistry
 
 KW = {"ctx": mx.cpu()}
-MODULES = ("math", "shape_ops", "nn")
+MODULES = ("math", "shape_ops", "nn", "ctc", "flash_attention")
 WAITING = {"RNN": "A13"}  # name -> the ROADMAP item that brings it
 
 
@@ -274,6 +277,15 @@ spec("GroupNorm", lambda r: [u(r, (2, 4, 3)) * 2, pos(r, (4,)),
 spec("L2Normalization", lambda r: [u(r, (2, 3, 4))], mode="channel")
 spec("LRN", lambda r: [u(r, (2, 5, 3, 3))], nsize=3, alpha=0.1)
 spec("identity_with_attr_like_rhs", lambda r: [u(r), u(r)])
+# ctc, flash_attention
+spec("_ctc_loss", lambda r: [u(r, (6, 2, 4)) * 2,
+                             np.array([[1, 2, 2], [3, 1, 0]], np.int32)])
+spec("flash_attention", lambda r: [u(r, (1, 4, 6, 8)), u(r, (1, 2, 6, 8)),
+                                   u(r, (1, 2, 6, 8))], causal=True)
+spec("paged_decode_attention", lambda r: [
+    u(r, (2, 4, 8)), u(r, (6, 4, 2, 8)), u(r, (6, 4, 2, 8)),
+    np.array([[2, 5, 0], [1, 3, 4]], np.int32),
+    np.array([7, 11], np.int32)], False)
 
 
 def _canonical(name):
@@ -281,7 +293,7 @@ def _canonical(name):
 
 
 def test_every_jax_op_has_a_spec():
-    """Each op of the three modules (by its JAX name) is held to the JAX
+    """Each op of the five modules (by its JAX name) is held to the JAX
     package below, but Dropout (random: tests/test_torch_random.py), the
     waiting RNN and ``boolean_mask`` (data-dependent shape: the JAX
     package's ``invoke`` jits it and cannot run it, so it is held to
@@ -323,6 +335,7 @@ def _run(mod, name, inputs, attrs, diff):
 def _agree(got, want, rtol, what):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert got.dtype == want.dtype, (what, got.dtype, want.dtype)
     if not np.issubdtype(want.dtype, np.floating):
         np.testing.assert_array_equal(got, want, err_msg=what)
         return
@@ -406,6 +419,45 @@ VARIANTS = {
                             dict(begin=(3, None), end=(0, None),
                                  step=(-1, 2))),
 }
+
+# C16: integer and bool reductions keep the reference's result types
+# (int32, uint32 for unsigned, float32 for a mean), and sign keeps NaN;
+# compared forward only (nothing integer is differentiable)
+INT_VARIANTS = {
+    "sum_int32": ("sum", lambda r: [ints(r, (2, 3, 4), 50)], dict(axis=1)),
+    "sum_all_int32": ("sum", lambda r: [ints(r, (2, 3), 50)], {}),
+    "nansum_int32": ("nansum", lambda r: [ints(r, (2, 3), 50)],
+                     dict(axis=0)),
+    "prod_int32": ("prod", lambda r: [ints(r, (2, 3), 4) + 1], {}),
+    "nanprod_int32": ("nanprod", lambda r: [ints(r, (2, 3), 4) + 1],
+                      dict(axis=1, keepdims=True)),
+    "mean_int32": ("mean", lambda r: [ints(r, (2, 3), 50)], {}),
+    "mean_axis_uint8": ("mean", lambda r: [ints(r, (2, 3), 250)
+                                           .astype(np.uint8)], dict(axis=1)),
+    "cumsum_int32": ("cumsum", lambda r: [ints(r, (3, 4), 50)],
+                     dict(axis=1)),
+    "cumsum_flat_int32": ("cumsum", lambda r: [ints(r, (2, 3), 50)], {}),
+    "cumsum_uint8_wraps": ("cumsum", lambda r: [np.full((4,), 200,
+                                                        np.uint8)], {}),
+    "sum_uint8": ("sum", lambda r: [np.full((4,), 200, np.uint8)], {}),
+    "prod_uint8": ("prod", lambda r: [np.full((4,), 2, np.uint8)], {}),
+    "max_int32": ("max", lambda r: [ints(r, (2, 3), 50)], dict(axis=1)),
+    "sign_nan": ("sign", lambda r: [np.array(
+        [np.nan, 0.0, -0.0, -2.5, 3.0, -np.inf], np.float32)], {}),
+    "sign_int32": ("sign", lambda r: [ints(r, (2, 3), 5) - 2], {}),
+}
+
+
+@pytest.mark.parametrize("key", sorted(INT_VARIANTS))
+def test_int_and_nan_variants_match_jax(key):
+    name, make, attrs = INT_VARIANTS[key]
+    inputs = make(_rs(key))
+    jout, _ = _run(jmx, name, inputs, attrs, False)
+    tout, _ = _run(mx, name, inputs, attrs, False)
+    for i, (t, j) in enumerate(zip(tout, jout)):
+        _agree(t, j, 1e-5, f"{key} {i}")
+        np.testing.assert_array_equal(np.signbit(t), np.signbit(j),
+                                      err_msg=f"{key} {i} sign bits")
 
 
 @pytest.mark.parametrize("key", sorted(VARIANTS))

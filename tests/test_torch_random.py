@@ -248,3 +248,57 @@ def test_samplers_and_captured_dropout_on_cuda():
     assert len(entries) == 1 and entries[0].graphed
     assert not np.array_equal(outs[1], outs[2])
     np.testing.assert_array_equal(outs[1], outs[3])
+
+
+# -- C17: samplers given NDArray parameters ---------------------------------
+
+def test_location_scale_samplers_take_ndarray_parameters_c17():
+    """``loc + scale * z`` with ONE draw ``z`` of ``shape`` (default
+    ``()``) broadcast over the parameters, as the JAX package computes it:
+    the same shape and dtype, and ``(r - loc) / scale`` equal across the
+    elements (MXNet 1.x drew per element; ROADMAP C17)."""
+    loc, scale = np.array([0.0, 10.0], np.float32), np.array([1.0, 2.0],
+                                                             np.float32)
+    for mod, kw in ((jmx, {}), (mx, KW)):
+        nd = mod.nd
+        draws = [nd.random.normal(nd.array(loc, **kw), nd.array(scale, **kw)),
+                 mod.random.normal(nd.array(loc, **kw),
+                                   nd.array(scale, **kw))]
+        for r in draws:
+            a = r.asnumpy()
+            assert a.shape == (2,) and a.dtype == np.float32
+            z = (a - loc) / scale
+            np.testing.assert_allclose(z[0], z[1], rtol=1e-5, atol=1e-5)
+        r = nd.random.normal(nd.array(loc, **kw), nd.array(scale, **kw),
+                             shape=(3, 2)).asnumpy()
+        assert r.shape == (3, 2) and r.dtype == np.float32
+        e = nd.random.exponential(nd.array([1.0, 10.0], **kw)).asnumpy()
+        assert e.shape == (2,) and e.dtype == np.float32
+        np.testing.assert_allclose(e[1], 10 * e[0], rtol=1e-5)
+        assert e[0] >= 0
+
+
+def test_shape_parameter_samplers_take_ndarray_parameters_c17():
+    """The port's uniform, gamma, poisson, bernoulli and randint take
+    NDArray parameters too (the JAX package raises on them): one draw per
+    element of the broadcast parameters, on the parameters' device."""
+    nd = mx.nd
+    mx.random.seed(5)
+    low, high = nd.array([0.0, 10.0], **KW), nd.array([1.0, 20.0], **KW)
+    u = nd.random.uniform(low, high, shape=(4000, 2)).asnumpy()
+    assert u.shape == (4000, 2) and (u[:, 0] < 1).all() and \
+        (u[:, 1] >= 10).all()
+    g = nd.random.gamma(nd.array([1.0, 4.0], **KW), 2.0,
+                        shape=(20000, 2)).asnumpy()
+    np.testing.assert_allclose(g.mean(0), [2.0, 8.0], rtol=0.05)
+    p = nd.random.poisson(nd.array([1.0, 30.0], **KW),
+                          shape=(20000, 2)).asnumpy()
+    np.testing.assert_allclose(p.mean(0), [1.0, 30.0], rtol=0.05)
+    b = mx.random.bernoulli(nd.array([0.0, 1.0], **KW),
+                            shape=(50, 2)).asnumpy()
+    assert (b[:, 0] == 0).all() and (b[:, 1] == 1).all()
+    r = nd.random.randint(nd.array([0, 100], dtype="int32", **KW),
+                          nd.array([3, 103], dtype="int32", **KW),
+                          shape=(500, 2)).asnumpy()
+    assert r.dtype == np.int32 and r.shape == (500, 2)
+    assert set(r[:, 0]) == {0, 1, 2} and set(r[:, 1]) == {100, 101, 102}
