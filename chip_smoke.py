@@ -45,8 +45,9 @@ Phases (each prints one line of facts; any failure exits non-zero):
    host's time to enqueue one) and profiled (device time by kernel, K3's
    share, idle share);
 5. serving — ``GenerationEngine`` answers 20 ragged requests at full
-   width, every decode chunk a replay of its captured CUDA graph; each of
-   K3's two launch counts must equal layers x decode steps;
+   width, every prefill and every decode chunk a replay of its captured
+   CUDA graph; each of K3's two launch counts must equal layers x decode
+   steps; the time to first token (p50/p99, all 20 submitted at once);
 5b. decode chunk — one replay of the captured chunk (8 steps, 8 seated
    slots) equal to the eager chunk body on the same static inputs, and
    the pools equal after it, bit for bit; K3's two kernels once per layer
@@ -55,6 +56,13 @@ Phases (each prints one line of facts; any failure exits non-zero):
    two captured engines from one seed sample the same tokens;
 5c. serve repo (generation) — StarCoderBase-1B staged by
    ``ModelRepository``: a captured ``GenerationEngine`` and its canary;
+5d. prefill graph — each prompt bucket's prefill (256 and 1024, the
+   buckets of phase 5) as the CUDA graph the engine's deploy captures:
+   one replay against the eager prefill on the same inputs and pools,
+   logits and every pool block but the null block equal bit for bit, the
+   first token (greedy and sampled from three seeds) equal; device ms of
+   a replay and of the eager prefill, and host ms of each from the
+   request's buffers to its first token on the host;
 6. train parity — BERT-base at full width (bench_bert's shapes: batch 64,
    sequence 128, vocab 30522), one forward + backward through the Gluon
    loop with the kernels, and again with attention swapped (here only)
@@ -202,6 +210,39 @@ Phases (each prints one line of facts; any failure exits non-zero):
    idle share and peak memory; the loss must fall, 36 launches of each of
    K4, K5-dW and K5-dX a step;
 10g. mobilenet train hybrid — phase 10b on MobileNetV2 1.0;
+10h. data — 1,024 seeded smooth 256 x 256 RGB images with labels in
+   0..999, written as JPEG (quality 95) records through ``recordio.pack_img``
+   with ``MXIndexedRecordIO`` into a temporary directory.
+   ``[data-recordio]``: ``mx.io.ImageRecordIter`` at batch 128,
+   ``data_shape=(3, 224, 224)``, random crops and mirrors, ImageNet's
+   mean and std, ``preprocess_threads`` the machine's core count: the
+   native pipeline where ``cxx/mxtpu_io.cc`` builds (the iterator must be
+   ``_NativeImageRecordIter``); where the build fails (a machine without
+   libjpeg's and libpng's headers or libraries) the error must name the
+   missing codec,
+   the iterator without an ``aug_list`` must raise it too, and the phase
+   runs the reference's Python route (``aug_list``: ``ImageIter`` behind a
+   ``PrefetchingIter``) and says so. A centre-cropped batch equals the
+   records decoded and normalised by ``mx.image`` within 1e-5; images/s
+   on the host over two epochs with a ``reset()`` between.
+   ``[resnet-train-data]``: phase 10b's ResNet-50 (hybridized,
+   ``optimize_for``, batch 128, lr 0.005) fed by that iterator through
+   ``DevicePrefetcher(device=mx.gpu(), depth=2)`` for 16 steps: a staged
+   batch equal to its host batch bit for bit, the host-to-device copies on
+   another stream than the step's kernels in a profiled window, K4 and
+   K5's two kernels 30 times a step; host-clock step, busy ms, idle share,
+   the prefetcher's wait and the bytes staged per step and their copy ms,
+   beside the same step on a device-resident batch; the loss must fall.
+   ``[data-gluon]``: ``ImageRecordDataset`` + ``transforms.Compose(
+   [RandomResizedCrop(224), RandomFlipLeftRight(), ToTensor(),
+   Normalize(mean, std)])`` + ``DataLoader(batch_size=128, num_workers=k,
+   pin_memory=True, device=mx.gpu())``: images/s over two epochs, then 8
+   ResNet-50 steps on it with their idle share; ``[data-gluon-raw]`` the
+   same over raw uint8 HWC records read through ``RecordFileDataset`` and
+   ``np.frombuffer``. ``[mnist]``: ``examples/train_mnist_gluon.py``'s
+   synthetic stand-in through ``DataLoader`` to a hybridized MLP (Dense
+   256/128/10), SGD lr 0.02, batch 128, 3 epochs on the card; validation
+   accuracy must exceed 0.9;
 11. llama parity — Llama-3-8B at its published widths cut to 2 decoder
    layers (meta-llama/Meta-Llama-3-8B ``config.json``: vocab 128256,
    hidden 4096, intermediate 14336, 32 heads over 8 kv heads, rope theta
@@ -1529,12 +1570,15 @@ def serving_phase(net, dev, launches, device_line):
             (512, dict(greedy=False, temperature=0.7, top_k=40, top_p=0.95,
                        seed=3)),
             (900, dict(greedy=False, temperature=1.2, top_k=200, seed=4)))]
+        check(sorted(eng._prefill_graphs) == [256, 1024],
+              "the serving engine's prefill is not captured per bucket")
         st0 = eng.stats()
         launches.clear()
         t0 = time.perf_counter()
         futs = [eng.submit(p, max_new_tokens=64, **kw) for p, kw in reqs]
         outs = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
+        ttft = np.array([f.token_times()[0] - t0 for f in futs]) * 1e3
         st1 = eng.stats()
         main_launches = launches["paged_decode"]
         combine_launches = launches["paged_decode_combine"]
@@ -1571,6 +1615,8 @@ def serving_phase(net, dev, launches, device_line):
         decode_tokens_per_s=f"{st1['tokens_per_s']:.2f}",
         itl_p50_ms=f"{st1['itl_p50_ms']:.3f}",
         itl_p99_ms=f"{st1['itl_p99_ms']:.3f}",
+        ttft_p50_ms=f"{np.percentile(ttft, 50):.3f}",
+        ttft_p99_ms=f"{np.percentile(ttft, 99):.3f}",
         prefills=st1["prefills"] - st0["prefills"], decode_chunks=chunks,
         decode_steps=steps, paged_decode_launches=main_launches,
         paged_decode_combine_launches=combine_launches)
@@ -1743,6 +1789,117 @@ def repo_generation_phase(net):
               "repository")
     finally:
         repo.close()
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the captured prefill
+# ---------------------------------------------------------------------------
+
+PREFILL_BUCKETS = [256, 1024]  # the buckets of [serving]'s engine
+PREFILL_SEEDS = (1, 2, 3)  # first tokens sampled from these seeds
+
+
+def prefill_graph_phase(net):
+    """Each prompt bucket's prefill as the CUDA graph ``GenerationEngine``
+    captures at deploy: for a prompt 7 tokens short of the bucket, the
+    engine's own prefill (``_prefill_logits``, which ``_prefill`` runs:
+    its packing into the bucket's static buffer, its pool check, one
+    replay) against the eager prefill on the same inputs and pools
+    (logits, and every pool block but the null block 0 that pad positions
+    share), bit for bit; the first token, greedy and sampled from
+    PREFILL_SEEDS, equal. Then the device ms of the engine's prefill and
+    of the eager one, and the host ms of each from the request's prompt
+    to its greedy first token on the host."""
+    from mxnet_tpu_torch.serving import GenerationEngine, sample_tokens
+
+    eng = GenerationEngine(net, shapes=PREFILL_BUCKETS, slots=8, chunk=8,
+                           cache_blocks=1024, autostart=False,
+                           name="starcoderbase-1b-prefill")
+    rows = []
+    try:
+        check(sorted(eng._prefill_graphs) == PREFILL_BUCKETS,
+              f"prefill graphs for {sorted(eng._prefill_graphs)}, not "
+              f"for every bucket {PREFILL_BUCKETS}")
+        check(eng.stats()["compiles"] == 1 + len(PREFILL_BUCKETS),
+              "the engine did not count one capture per bucket")
+        rs = np.random.RandomState(SEED + 8)
+        dev, mb = eng._dev, eng._mb
+        with eng._on_device():
+            for tb in PREFILL_BUCKETS:
+                plen = tb - 7
+                prompt = rs.randint(0, net.vocab_size, plen)
+                table = eng.cache.allocate(plen)
+                row = table.device_row(mb)
+                padded = np.zeros((1, tb), np.int64)
+                padded[0, :plen] = prompt
+                k, v = eng.cache.pools()
+                k0, v0 = k.clone(), v.clone()
+
+                def captured():
+                    return eng._prefill_logits(prompt, table)
+
+                def eager():
+                    return eng._prefill_step(
+                        eng._params, dev(padded), k, v, dev(row[None, :]),
+                        dev([plen], torch.int32))[0]
+
+                replay = captured().clone()
+                gk, gv = k.clone(), v.clone()
+                k.copy_(k0)
+                v.copy_(v0)
+                ref = eager()
+                torch.cuda.synchronize()
+                logits_equal = torch.equal(replay, ref)
+                pools_equal = (torch.equal(gk[:, 1:], k[:, 1:])
+                               and torch.equal(gv[:, 1:], v[:, 1:]))
+                del k0, v0, gk, gv
+
+                def first(lg, seed):
+                    if seed is None:
+                        return int(lg.argmax(-1)[0])
+                    gen = torch.Generator(device=lg.device).manual_seed(seed)
+                    return int(sample_tokens(
+                        lg, gen, dev([0.9], torch.float32),
+                        dev([50], torch.int32), dev([0.95], torch.float32),
+                        dev([False], torch.bool)).cpu()[0])
+
+                firsts = [[first(lg, s) for s in (None,) + PREFILL_SEEDS]
+                          for lg in (replay, ref)]
+                # the same prompt every time: a host buffer rewritten
+                # before the previous copy ran holds the same bytes
+                replay_ms = cuda_ms(captured, 10)
+                eager_ms = cuda_ms(eager, 10)
+
+                def host_ms(fn, reps=10):
+                    fn()
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        fn()
+                    return (time.perf_counter() - t0) * 1e3 / reps
+
+                r_host = host_ms(
+                    lambda: int(captured().argmax(-1).cpu()[0]))
+                e_host = host_ms(lambda: int(eager().argmax(-1).cpu()[0]))
+                eng.cache.release(table)
+                rows.append(dict(bucket=tb, prompt=plen,
+                                 logits_equal=logits_equal,
+                                 pools_equal=pools_equal,
+                                 first_tokens_equal=firsts[0] == firsts[1],
+                                 first_tokens=firsts[0],
+                                 replay_device_ms=f"{replay_ms:.4f}",
+                                 eager_device_ms=f"{eager_ms:.4f}",
+                                 replay_host_ms=f"{r_host:.4f}",
+                                 eager_host_ms=f"{e_host:.4f}"))
+    finally:
+        eng.close()
+    for r in rows:
+        say("prefill-graph", **r)
+        check(r["logits_equal"], f"bucket {r['bucket']}: the replayed "
+              "prefill's logits differ from the eager prefill's")
+        check(r["pools_equal"], f"bucket {r['bucket']}: the replayed "
+              "prefill wrote other K/V than the eager prefill")
+        check(r["first_tokens_equal"], f"bucket {r['bucket']}: the first "
+              "tokens differ between the replayed and the eager prefill")
 
 
 # ---------------------------------------------------------------------------
@@ -4995,6 +5152,507 @@ def nd_ops_phase(dev, names=None, dims=None, draws_n=1_000_000):
         "2% (variance)", kernels="none (plain PyTorch)")
 
 
+# ---------------------------------------------------------------------------
+# phase 10h: the data path (RecordIO, the image pipelines, the prefetcher)
+# ---------------------------------------------------------------------------
+
+DATA_IMAGES = 1024
+DATA_SIZE = 256
+DATA_BATCH = 128
+DATA_SHAPE = (3, 224, 224)
+IMAGENET_MEAN = (123.68, 116.28, 103.53)
+IMAGENET_STD = (58.395, 57.12, 57.375)
+DATA_TOL = 1e-5  # a decoded, cropped, normalised batch against mx.image's
+DATA_STEPS = 16
+GLUON_STEPS = 8
+
+
+def smooth_images(seed=SEED):
+    """DATA_IMAGES seeded smooth RGB images of DATA_SIZE x DATA_SIZE (a
+    colour gradient, three discs, a bar and faint noise, so the codecs
+    see a photograph's compression ratio rather than white noise's), each
+    with a label in 0..999."""
+    rs = np.random.RandomState(seed)
+    size = DATA_SIZE
+    yy, xx = (np.mgrid[0:size, 0:size].astype(np.float32) / size)
+    noise = rs.normal(0, 6, (size, size, 3)).astype(np.float32)
+    for _ in range(DATA_IMAGES):
+        f32 = np.float32
+        img = (rs.uniform(0, 255, 3).astype(f32)
+               + rs.uniform(-120, 120, 3).astype(f32) * xx[..., None]
+               + rs.uniform(-120, 120, 3).astype(f32) * yy[..., None])
+        for _ in range(3):
+            cy, cx = rs.uniform(0, 1, 2)
+            r = rs.uniform(0.05, 0.3)
+            disc = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+            img[disc] = 0.4 * img[disc] + 0.6 * rs.uniform(0, 255, 3)
+        y0, x0 = rs.randint(0, size - 32, 2)
+        img[y0:y0 + rs.randint(8, 32), x0:] = rs.uniform(0, 255, 3)
+        img += np.roll(noise, rs.randint(size), axis=0)
+        yield np.clip(img, 0, 255).astype(np.uint8), int(rs.randint(1000))
+
+
+def write_packs(root):
+    """The JPEG pack (``recordio.pack_img``, quality 95) and the raw
+    uint8 HWC pack of the same images, each with its ``.idx``; returns
+    their paths and the bytes of each record file."""
+    import mxnet_tpu_torch as mx
+
+    rec = mx.recordio
+    paths = {k: (os.path.join(root, f"{k}.rec"), os.path.join(root,
+                                                              f"{k}.idx"))
+             for k in ("jpeg", "raw")}
+    w_jpg = rec.MXIndexedRecordIO(paths["jpeg"][1], paths["jpeg"][0], "w")
+    w_raw = rec.MXIndexedRecordIO(paths["raw"][1], paths["raw"][0], "w")
+    t0 = time.perf_counter()
+    for i, (img, label) in enumerate(smooth_images()):
+        hdr = rec.IRHeader(0, float(label), i, 0)
+        w_jpg.write_idx(i, rec.pack_img(hdr, img, quality=95, img_fmt=".jpg"))
+        w_raw.write_idx(i, rec.pack(hdr, img.tobytes()))
+    w_jpg.close()
+    w_raw.close()
+    sizes = {k: os.path.getsize(p[0]) for k, p in paths.items()}
+    say("data-records", images=DATA_IMAGES, size=DATA_SIZE,
+        jpeg_bytes=sizes["jpeg"], raw_bytes=sizes["raw"],
+        jpeg_bytes_per_image=sizes["jpeg"] // DATA_IMAGES,
+        compression=f"{sizes['raw'] / sizes['jpeg']:.2f}",
+        write_s=f"{time.perf_counter() - t0:.2f}")
+    return paths
+
+
+def _iter_kwargs(rec, threads, **kw):
+    args = dict(path_imgrec=rec, data_shape=DATA_SHAPE,
+                batch_size=DATA_BATCH, rand_crop=True, rand_mirror=True,
+                shuffle=True, preprocess_threads=threads, seed=SEED,
+                mean_r=IMAGENET_MEAN[0], mean_g=IMAGENET_MEAN[1],
+                mean_b=IMAGENET_MEAN[2], std_r=IMAGENET_STD[0],
+                std_g=IMAGENET_STD[1], std_b=IMAGENET_STD[2])
+    args.update(kw)
+    return args
+
+
+def data_recordio_phase(rec):
+    """``mx.io.ImageRecordIter`` over the JPEG pack (module docstring,
+    phase 10h). Returns a function that makes a fresh training iterator, and its
+    route."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _native
+    from mxnet_tpu_torch.io.io import _NativeImageRecordIter
+
+    threads = os.cpu_count()
+    try:
+        _native.get_lib()
+        build_error = None
+    except mx.MXNetError as e:
+        build_error = str(e)
+    if build_error is None:
+        route = "native"
+
+        def make(**kw):
+            return mx.io.ImageRecordIter(**_iter_kwargs(rec, threads, **kw))
+
+        check(isinstance(make(), _NativeImageRecordIter),
+              "ImageRecordIter did not take the native pipeline")
+    else:
+        missing = [h for h in ("jpeglib.h", "png.h", "libjpeg", "libpng")
+                   if h in build_error]
+        say("data-native-build", built=False, missing=missing,
+            error=f'"{build_error.splitlines()[-1][:200]}"')
+        check(bool(missing), "the native data plane failed to build for "
+              f"another reason than a missing codec (libjpeg, libpng): "
+              f"{build_error[:500]}")
+        try:
+            mx.io.ImageRecordIter(**_iter_kwargs(rec, threads))
+            quiet = True
+        except mx.MXNetError as e:
+            quiet = str(e) != build_error
+        check(not quiet, "ImageRecordIter went on without the native "
+              "library instead of raising its build error")
+        route = "python-aug_list"
+
+        def make(**kw):
+            args = _iter_kwargs(rec, threads, **kw)
+            aug = mx.image.CreateAugmenter(
+                DATA_SHAPE, rand_crop=args["rand_crop"],
+                rand_mirror=args["rand_mirror"],
+                mean=np.array(IMAGENET_MEAN), std=np.array(IMAGENET_STD))
+            return mx.io.ImageRecordIter(aug_list=aug, **args)
+
+    # a centre-cropped batch against mx.image on the same records (one
+    # pipeline thread: several deliver the records in the order they end)
+    it = make(rand_crop=False, rand_mirror=False, shuffle=False,
+              preprocess_threads=1)
+    batch = next(iter(it))
+    got = batch.data[0].asnumpy()
+    reader = mx.recordio.MXIndexedRecordIO(rec[:-4] + ".idx", rec, "r")
+    mean = np.array(IMAGENET_MEAN, np.float32)
+    std = np.array(IMAGENET_STD, np.float32)
+    worst, labels_ok = 0.0, True
+    for i in range(DATA_BATCH):
+        hdr, payload = mx.recordio.unpack(reader.read_idx(i))
+        img, _ = mx.image.center_crop(mx.image.imdecode(payload), (224, 224))
+        want = ((img.asnumpy().astype(np.float32) - mean) / std).transpose(
+            2, 0, 1)
+        worst = max(worst, float(np.abs(got[i] - want).max()))
+        labels_ok &= float(batch.label[0].asnumpy()[i, 0]) == float(hdr.label)
+    reader.close()
+    if hasattr(it, "close"):
+        it.close()
+    epochs = []
+    it = make()
+    for epoch in range(2):
+        t0 = time.perf_counter()
+        n, shapes, finite = 0, set(), True
+        for b in it:
+            x = b.data[0].asnumpy()
+            shapes.add(x.shape)
+            finite &= bool(np.isfinite(x).all())
+            n += DATA_BATCH - (b.pad or 0)
+        epochs.append((n, time.perf_counter() - t0, shapes, finite))
+        it.reset()
+    if hasattr(it, "close"):
+        it.close()
+    say("data-recordio", route=route, iterator=type(it).__name__,
+        preprocess_threads=threads, cores=os.cpu_count(),
+        batch=DATA_BATCH, centre_crop_vs_mx_image=f"{worst:.2e}",
+        labels_equal=labels_ok,
+        epoch1_images_per_s=f"{epochs[0][0] / epochs[0][1]:.2f}",
+        epoch2_images_per_s=f"{epochs[1][0] / epochs[1][1]:.2f}",
+        images=[e[0] for e in epochs])
+    check(worst <= DATA_TOL, f"a centre-cropped batch is {worst:.2e} from "
+          "the records decoded and normalised by mx.image")
+    check(labels_ok, "the batch's labels differ from the records'")
+    for n, _, shapes, finite in epochs:
+        check(n == DATA_IMAGES and shapes == {(DATA_BATCH,) + DATA_SHAPE}
+              and finite, f"an epoch gave {n} images of {shapes}")
+    return make, route
+
+
+def _copy_stream_split(prof):
+    """(device ms of each image batch's host-to-device copy, the copies'
+    streams, the streams of every other device event) in a profiled
+    window; a batch's copy is a host-to-device copy over 0.05 ms (the
+    label copies take microseconds)."""
+    copies, copy_streams, other = [], set(), set()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "HtoD" in e.name:
+            copy_streams.add(e.device_resource_id)
+            if e.time_range.elapsed_us() > 50:
+                copies.append(e.time_range.elapsed_us() / 1e3)
+        else:
+            other.add(e.device_resource_id)
+    return copies, copy_streams, other
+
+
+def _fed_steps(mx, fused, trainer, batches, steps, launches, tag):
+    """``steps`` ResNet-50 steps on ``batches`` (an iterator of (x, y)
+    device batches): the host-clock step, the wait in ``next()``, the
+    losses, the launch counts over exactly these steps, then one
+    profiled window of 6 more steps (more than the prefetcher's depth
+    plus one, so that the batches staged while the profiler started are
+    used up inside it): busy ms, idle share, each batch copy's device ms
+    and the copies' streams against the step's streams."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def one():
+        t0 = time.perf_counter()
+        x, y = next(batches)
+        wait = time.perf_counter() - t0
+        loss = _resnet_fwd_bwd(mx, fused, x, y)
+        trainer.step(x.shape[0])
+        return loss, wait
+
+    torch.cuda.synchronize()
+    launches.clear()
+    losses, wait = [], 0.0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss, w = one()
+        losses.append(loss)
+        wait += w
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    counts = dict(launches)
+    window = 6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(window):
+            losses.append(one()[0])
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t1) * 1e6
+    busy = sum(_device_us(prof).values())
+    copies, copy_streams, other = _copy_stream_split(prof)
+    check(busy > 0, f"[{tag}] the profiler saw no device time")
+    return dict(step_ms=step_s * 1e3, wait_ms=wait / steps * 1e3,
+                busy_ms=busy / window / 1e3,
+                idle=1 - busy / window_us,
+                copy_ms=float(np.mean(copies)) if copies else 0.0,
+                copies=len(copies), copy_streams=copy_streams,
+                step_streams=other, losses=[float(v) for v in losses],
+                counts=counts)
+
+
+def _labelled(prefetcher, keep=None):
+    """Endless (x, y) device batches from a DevicePrefetcher, a new epoch
+    after each end; ``keep`` receives the first staged batch."""
+    while True:
+        for b in prefetcher:
+            if type(b).__name__ == "DataBatch":
+                x, y = b.data[0], b.label[0]
+            else:
+                x, y = b
+            if keep is not None and not keep:
+                keep.append((x, y))
+            yield x, y.reshape((-1,))
+
+
+def resnet_train_data_phase(ctx, launches, make_iter, route,
+                            steps=DATA_STEPS):
+    """ResNet-50 (phase 10b's net, hybridized, through ``optimize_for``)
+    fed by ``make_iter()`` through ``DevicePrefetcher(device=ctx,
+    depth=2)`` (module docstring, phase 10h). Returns the net's fused
+    block and trainer for ``data_gluon_phase``."""
+    import mxnet_tpu_torch as mx
+
+    net, fused, x, y, marked, _ = resnet_setup(ctx)
+    fused.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(RESNET_SGD))
+    host_first = []
+    it = make_iter()
+
+    def source():
+        while True:  # epochs back to back, reset between them
+            for b in it:
+                if not host_first:
+                    host_first.append((b.data[0].data.clone(),
+                                       b.label[0].data.clone()))
+                yield b
+            it.reset()
+
+    pf = mx.gluon.data.DevicePrefetcher(source(), device=ctx, depth=2)
+    staged = []
+    batches = _labelled(pf, keep=staged)
+    xb, yb = next(batches)  # the capturing step
+    _resnet_fwd_bwd(mx, fused, xb, yb)
+    trainer.step(DATA_BATCH)
+    torch.cuda.synchronize()
+    equal = (torch.equal(staged[0][0].data.cpu(), host_first[0][0])
+             and torch.equal(staged[0][1].data.cpu(), host_first[0][1]))
+    fed = _fed_steps(mx, fused, trainer, batches, steps, launches,
+                     "resnet-train-data")
+    pf.close()
+    if hasattr(it, "close"):
+        it.close()
+    resident = _fed_steps(mx, fused, trainer, iter(lambda: (x, y), None),
+                          steps, launches, "resnet-train-data-resident")
+    nbytes = DATA_BATCH * (int(np.prod(DATA_SHAPE)) + 1) * 4
+    losses = fed["losses"]
+    say("resnet-train-data", route=route, steps=steps,
+        staged_equals_host=equal, step_ms=f"{fed['step_ms']:.3f}",
+        images_per_s=f"{DATA_BATCH / fed['step_ms'] * 1e3:.2f}",
+        busy_ms=f"{fed['busy_ms']:.3f}", idle_share=f"{fed['idle']:.4f}",
+        timed_idle_share=f"{1 - fed['busy_ms'] / fed['step_ms']:.4f}",
+        prefetch_wait_ms_per_step=f"{fed['wait_ms']:.3f}",
+        staged_bytes_per_step=nbytes,
+        h2d_ms_per_batch=f"{fed['copy_ms']:.3f}", batch_copies=fed["copies"],
+        h2d_gb_per_s=f"{nbytes / max(fed['copy_ms'], 1e-9) / 1e6:.2f}",
+        copy_streams=sorted(fed["copy_streams"]),
+        step_streams=sorted(fed["step_streams"]),
+        resident_step_ms=f"{resident['step_ms']:.3f}",
+        resident_busy_ms=f"{resident['busy_ms']:.3f}",
+        resident_idle_share=f"{resident['idle']:.4f}",
+        fed_over_resident=f"{fed['step_ms'] / resident['step_ms']:.3f}",
+        loss_first=f"{losses[0]:.5f}", loss_last=f"{losses[-1]:.5f}",
+        fused_fwd=fed["counts"].get("fused_fwd", 0),
+        fused_dw=fed["counts"].get("fused_dw", 0),
+        fused_dx=fed["counts"].get("fused_dx", 0))
+    check(equal, "a staged batch differs from its host batch")
+    check(fed["copy_streams"] and not fed["copy_streams"]
+          & fed["step_streams"], "the host-to-device copies did not run "
+          "on a stream of their own")
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    head, tail = np.mean(losses[:3]), np.mean(losses[-3:])
+    check(tail < head, f"the loss did not fall: {losses}")
+    for name in ("fused_fwd", "fused_dw", "fused_dx"):
+        n = fed["counts"].get(name, 0)
+        check(n == len(marked) * steps, f"{name} launched {n} times in "
+              f"{steps} fed steps of {len(marked)} fused convs")
+    return net, fused, trainer
+
+
+class RawImage:
+    """A raw record (``recordio.pack`` of ``size`` x ``size`` uint8 HWC
+    bytes) to ``(image, label)``, the image a host NDArray read with
+    ``np.frombuffer``; a class, so that DataLoader's worker processes can
+    unpickle it."""
+
+    def __init__(self, size):
+        self.size = size
+
+    def __call__(self, record):
+        import mxnet_tpu_torch as mx
+
+        hdr, body = mx.recordio.unpack(record)
+        img = np.frombuffer(body, np.uint8).reshape(self.size, self.size, 3)
+        return mx.nd.array(img, ctx=mx.cpu(), dtype="uint8"), hdr.label
+
+
+def data_gluon_phase(ctx, launches, paths, fused, trainer, workers,
+                     steps=GLUON_STEPS):
+    """The Gluon data path over the JPEG pack and over the raw pack
+    (module docstring, phase 10h)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.data import vision
+    from mxnet_tpu_torch.gluon.data.vision import transforms
+
+    tf = transforms.Compose([
+        transforms.RandomResizedCrop(DATA_SHAPE[1]),
+        transforms.RandomFlipLeftRight(),
+        transforms.ToTensor(),
+        transforms.Normalize(tuple(m / 255 for m in IMAGENET_MEAN),
+                             tuple(s / 255 for s in IMAGENET_STD))])
+    for tag, ds in (
+            ("data-gluon", vision.ImageRecordDataset(paths["jpeg"][0])),
+            ("data-gluon-raw", mx.gluon.data.RecordFileDataset(
+                paths["raw"][0]).transform(RawImage(DATA_SIZE)))):
+        loader = mx.gluon.data.DataLoader(
+            ds.transform_first(tf), batch_size=DATA_BATCH, shuffle=True,
+            num_workers=workers, pin_memory=True, device=ctx)
+        try:
+            rates = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                n = 0
+                for xb, yb in loader:
+                    check(xb.shape == (DATA_BATCH,) + DATA_SHAPE
+                          and xb.context == ctx, f"[{tag}] batch "
+                          f"{xb.shape} on {xb.context}")
+                    n += xb.shape[0]
+                torch.cuda.synchronize()
+                rates.append(n / (time.perf_counter() - t0))
+                check(n == DATA_IMAGES, f"[{tag}] an epoch gave {n} images")
+
+            def endless():
+                while True:
+                    for xb, yb in loader:
+                        yield xb, yb.reshape((-1,))
+
+            fed = _fed_steps(mx, fused, trainer, endless(), steps, launches,
+                             tag)
+        finally:
+            loader._worker_pool.terminate()
+        say(tag, workers=workers, pin_memory=True,
+            epoch1_images_per_s=f"{rates[0]:.2f}",
+            epoch2_images_per_s=f"{rates[1]:.2f}", steps=steps,
+            step_ms=f"{fed['step_ms']:.3f}",
+            images_per_s=f"{DATA_BATCH / fed['step_ms'] * 1e3:.2f}",
+            busy_ms=f"{fed['busy_ms']:.3f}", idle_share=f"{fed['idle']:.4f}",
+            timed_idle_share=f"{1 - fed['busy_ms'] / fed['step_ms']:.4f}",
+            loader_wait_ms_per_step=f"{fed['wait_ms']:.3f}",
+            h2d_ms_per_batch=f"{fed['copy_ms']:.3f}",
+            batch_copies=fed["copies"],
+            loss_last=f"{fed['losses'][-1]:.5f}")
+        check(all(np.isfinite(fed["losses"])), f"[{tag}] non-finite loss")
+        check(fed["copy_streams"] and not fed["copy_streams"]
+              & fed["step_streams"], f"[{tag}] the host-to-device copies "
+              "did not run on a stream of their own")
+
+
+def _scaled(data, label):
+    """examples/train_mnist_gluon.py's ``tf``: uint8 image to float32 in
+    [0, 1], on the host."""
+    import mxnet_tpu_torch as mx
+
+    return (mx.nd.array(data, ctx=mx.cpu()).astype("float32") / 255.0,
+            label)
+
+
+def mnist_phase(ctx, epochs=3, batch=128):
+    """BASELINE.json's first config through the port: the example's
+    synthetic stand-in (2,048 images of 28 x 28 whose class draws a
+    bright band, so the classes are separable), ``DataLoader`` ->
+    hybridized MLP (Dense 256 relu, 128 relu, 10) -> ``Trainer`` SGD lr
+    0.02 -> ``SoftmaxCrossEntropyLoss``, batch 128, ``epochs`` epochs on
+    the card; validation accuracy (the example validates on the training
+    set) must exceed 0.9."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    rng = np.random.RandomState(0)
+    imgs = (rng.rand(2048, 28, 28, 1) * 255).astype(np.uint8)
+    labels = rng.randint(0, 10, (2048,)).astype(np.int32)
+    for i in range(2048):
+        imgs[i, labels[i] * 2:labels[i] * 2 + 3] = 255
+    train = gluon.data.ArrayDataset(
+        mx.nd.array(imgs, ctx=mx.cpu(), dtype="uint8"),
+        labels.astype(np.float32))
+    train_loader = gluon.data.DataLoader(train.transform(_scaled), batch,
+                                         shuffle=True)
+    val_loader = gluon.data.DataLoader(train.transform(_scaled), batch)
+    torch.manual_seed(SEED)
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(256, activation="relu"),
+            gluon.nn.Dense(128, activation="relu"), gluon.nn.Dense(10))
+    net.initialize(init=mx.initializer.Xavier(seed=SEED), ctx=ctx)
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.02})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    accs, rates = [], []
+    for _ in range(epochs):
+        metric = mx.metric.Accuracy()
+        t0, n = time.perf_counter(), 0
+        for data, label in train_loader:
+            data = data.as_in_context(ctx).reshape((data.shape[0], -1))
+            label = label.as_in_context(ctx)
+            with autograd.record():
+                out = net(data)
+                loss = loss_fn(out, label)
+            loss.backward()
+            trainer.step(data.shape[0])
+            metric.update([label], [out])
+            n += data.shape[0]
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - t0))
+        accs.append(metric.get()[1])
+    metric = mx.metric.Accuracy()
+    for data, label in val_loader:
+        data = data.as_in_context(ctx).reshape((data.shape[0], -1))
+        metric.update([label.as_in_context(ctx)], [net(data)])
+    val = metric.get()[1]
+    say("mnist", epochs=epochs, batch=batch, optimizer="sgd", lr=0.02,
+        train_accuracy=[f"{a:.4f}" for a in accs],
+        samples_per_s=[f"{r:.1f}" for r in rates],
+        validation_accuracy=f"{val:.4f}", ctx=ctx)
+    check(val > 0.9, f"MNIST validation accuracy {val:.4f} <= 0.9")
+
+
+def data_phases(ctx, launches):
+    """Phase 10h: the records, then ``[data-recordio]``,
+    ``[resnet-train-data]``, ``[data-gluon]`` and ``[mnist]``."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        paths = write_packs(root)
+        make_iter, route = data_recordio_phase(paths["jpeg"][0])
+        net, fused, trainer = resnet_train_data_phase(ctx, launches,
+                                                      make_iter, route)
+        workers = max(1, min(6, (os.cpu_count() or 2) - 2))
+        data_gluon_phase(ctx, launches, paths, fused, trainer, workers)
+        del net, fused, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        mnist_phase(ctx)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def zlib_crc(name):
     import zlib
 
@@ -5054,6 +5712,7 @@ def main():
     row["launches"] = serving_phase(net, dev, _kernels.LAUNCHES, smi)
     decode_chunk_phase(net, _kernels.LAUNCHES)
     repo_generation_phase(net)
+    prefill_graph_phase(net)
     del net
     torch.cuda.empty_cache()
 
@@ -5109,6 +5768,9 @@ def main():
     del net, fused, x, y, marked, build
     torch.cuda.empty_cache()
     resnet_train_hybrid_phase(mx.gpu(0), _kernels.LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    data_phases(mx.gpu(0), _kernels.LAUNCHES)
     gc.collect()
     torch.cuda.empty_cache()
 

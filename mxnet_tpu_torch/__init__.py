@@ -55,11 +55,21 @@ from . import autograd  # noqa: F401
 from . import initializer  # noqa: F401
 from . import lr_scheduler  # noqa: F401
 from . import optimizer  # noqa: F401
+from .optimizer import Optimizer  # noqa: F401
 from . import fusedstep  # noqa: F401
 from . import metric  # noqa: F401
 from . import callback  # noqa: F401
 from . import gluon  # noqa: F401
+from . import recordio  # noqa: F401
+from . import image  # noqa: F401
+from . import io  # noqa: F401
 from . import models  # noqa: F401
 from . import parallel  # noqa: F401
 from . import serving  # noqa: F401
 from . import test_utils  # noqa: F401
+from . import runtime  # noqa: F401
+from . import util  # noqa: F401
+from . import name  # noqa: F401
+from . import attribute  # noqa: F401
+from .attribute import AttrScope  # noqa: F401
+from .util import is_np_array, reset_np, set_np  # noqa: F401

@@ -3,6 +3,7 @@
 from . import data, loss, model_zoo, nn, utils  # noqa: F401
 from .block import Block, HybridBlock  # noqa: F401
 from .parameter import (  # noqa: F401
+    Constant,
     DeferredInitializationError,
     Parameter,
     ParameterDict,

@@ -25,9 +25,13 @@ K-step superstep, the serving decode chunk) can reuse it:
   every capture (torch does that); a capture that draws from generators
   of its own (the serving engine's sampler) names them, and each replay
   then draws the next numbers of each stream.
-- Serving captures while another engine serves: they capture in
-  ``"thread_local"`` error mode, so another thread's synchronising calls
-  (a device-to-host copy of its results) do not invalidate the capture.
+- Captures run while other threads use the card: serving captures while
+  another engine serves, a hybridized block's first step while a data
+  thread stages the next batches (pinned allocations, event records and
+  queries). Every capture runs in ``"thread_local"`` error mode, so
+  another thread's calls that a stream capture forbids (a device-to-host
+  copy of its results, a pinned allocation) do not invalidate it, as
+  they would in torch's default ``"global"`` mode (C19).
 
 Python's garbage collector is off while a graph is captured: blocks sit
 in reference cycles, and a collection that frees a dropped block's
@@ -86,15 +90,13 @@ class Graph:
     """One captured CUDA graph over the memory pool ``pool``; ``what``
     names it in the errors a failed capture or replay raises.
     ``generators``: CUDA generators other than the default one that the
-    captured function draws from. ``error_mode``: the stream capture's
-    mode, ``"global"`` (torch's default) or ``"thread_local"``."""
+    captured function draws from."""
 
-    def __init__(self, pool, what, generators=(), error_mode="global"):
+    def __init__(self, pool, what, generators=()):
         self._graph = torch.cuda.CUDAGraph()
         self._pool = pool
         self._what = what
         self._generators = tuple(generators)
-        self._mode = error_mode
         for gen in self._generators:
             self._graph.register_generator_state(gen)
         #: the kernel launches one replay makes, by wrapper name
@@ -103,15 +105,14 @@ class Graph:
     def capture(self, fn):
         """Capture ``fn()`` and return what it returned (tensors in the
         pool, rewritten by every replay)."""
-        mode = {} if self._mode == "global" else \
-            {"capture_error_mode": self._mode}
         with _CAPTURE_LOCK:
             counts = collections.Counter()
             _kernels.capture_counts(counts)
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(self._graph, pool=self._pool, **mode):
+                with torch.cuda.graph(self._graph, pool=self._pool,
+                                      capture_error_mode="thread_local"):
                     out = fn()
             except Exception as err:
                 _release_generator()

@@ -13,7 +13,9 @@ package's numbers: parity tests carry the weights across instead.
 from __future__ import annotations
 
 import math
+import re
 
+import numpy as _np
 import torch
 
 from .base import MXNetError
@@ -24,6 +26,17 @@ _REGISTRY = {}
 def register(klass):
     _REGISTRY[klass.__name__.lower()] = klass
     return klass
+
+
+class InitDesc(str):
+    """A parameter's name with its attributes (reference: ``InitDesc``):
+    an ``__init__`` attribute names the initializer that fills it."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        ret = super().__new__(cls, name)
+        ret.attrs = attrs or {}
+        ret.global_init = global_init
+        return ret
 
 
 class Initializer:
@@ -41,9 +54,18 @@ class Initializer:
         return gen
 
     def __call__(self, name, arr):
-        """Initialise ``arr`` (an NDArray) for the parameter ``name``."""
+        """Initialise ``arr`` (an NDArray) for the parameter ``name`` (a
+        string or an :class:`InitDesc`)."""
+        if not isinstance(name, str):
+            raise TypeError("desc must be a string or InitDesc")
+        init = getattr(name, "attrs", {}).get("__init__", "")
+        if init:
+            create(init)._init_weight(name, arr)
+            return
         suffix = name.lower()
-        if suffix.endswith("bias") or suffix.endswith("beta"):
+        if suffix.endswith("moving_inv_var") or suffix.endswith("moving_avg"):
+            self._init_zero(name, arr)
+        elif suffix.endswith("bias") or suffix.endswith("beta"):
             self._init_zero(name, arr)
         elif suffix.endswith("gamma"):
             self._init_one(name, arr)
@@ -77,6 +99,12 @@ class Initializer:
                            generator=self._generator(t.device))
             t.copy_(u * (2 * scale) - scale)
 
+    def _set(self, arr, value):
+        """Write host values (numpy) into ``arr`` in its type."""
+        t = arr.data
+        with torch.no_grad():
+            t.copy_(torch.as_tensor(_np.asarray(value)).to(t.dtype))
+
     def _init_weight(self, desc, arr):
         raise NotImplementedError
 
@@ -87,10 +115,16 @@ class Zero(Initializer):
         self._init_zero(_, arr)
 
 
+zeros = Zero
+
+
 @register
 class One(Initializer):
     def _init_weight(self, _, arr):
         self._init_one(_, arr)
+
+
+ones = One
 
 
 @register
@@ -151,12 +185,126 @@ class Xavier(Initializer):
             self._normal(arr, scale)
 
 
-_ALIASES = {"zeros": "zero", "ones": "one", "gaussian": "normal"}
+@register
+class Orthogonal(Initializer):
+    """An orthogonal matrix times ``scale``, from the singular vectors of
+    a uniform (``rand_type="uniform"``) or normal draw (reference:
+    ``Orthogonal``)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform", seed=None):
+        super().__init__(seed=seed)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        t = arr.data
+        nout = t.shape[0]
+        nin = int(math.prod(t.shape[1:]))
+        gen = self._generator(t.device)
+        if self.rand_type == "uniform":
+            tmp = torch.rand((nout, nin), device=t.device, generator=gen,
+                             dtype=torch.float64) * 2.0 - 1.0
+        else:
+            tmp = torch.randn((nout, nin), device=t.device, generator=gen,
+                              dtype=torch.float64)
+        u, _s, v = torch.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        with torch.no_grad():
+            t.copy_((self.scale * q).reshape(t.shape).to(t.dtype))
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He et al.'s initialization for PReLU nets: Gaussian Xavier with
+    magnitude ``2 / (1 + slope^2)`` (reference: ``MSRAPrelu``)."""
+
+    def __init__(self, factor_type="avg", slope=0.25, seed=None):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2),
+                         seed=seed)
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel of a deconvolution's weight
+    (reference: ``Bilinear``)."""
+
+    def _init_weight(self, _, arr):
+        shape = arr.shape
+        weight = _np.zeros(shape, dtype="float32")
+        f = _np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(int(_np.prod(shape))):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight.flat[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        self._set(arr, weight)
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros but the forget gate's quarter, ``forget_bias`` (reference:
+    ``LSTMBias``)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__()
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        b = _np.zeros(arr.shape)
+        num_hidden = arr.shape[0] // 4
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        self._set(arr, b)
+
+
+class Mixed:
+    """The first initializer whose pattern matches the parameter's name
+    (reference: ``initializer.py:Mixed``)."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise MXNetError("patterns and initializers must have same length")
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError(f"Parameter name {name} did not match any pattern")
+
+
+class Load:
+    """Values from a loaded ``{name: NDArray}`` dict (``arg:``/``aux:``
+    prefixes dropped), else ``default_init`` (reference: ``Load``)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {
+            k.replace("arg:", "").replace("aux:", ""): v
+            for k, v in param.items()}
+        self.default_init = default_init
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            src = self.param[name]
+            src = src.data if hasattr(src, "data") and isinstance(
+                src.data, torch.Tensor) else torch.as_tensor(_np.asarray(src))
+            with torch.no_grad():
+                arr.data.copy_(src.to(arr.data.device, arr.data.dtype))
+        elif self.default_init is not None:
+            self.default_init(name, arr)
+        else:
+            raise ValueError(f"Cannot init parameter {name} from loaded params")
+
+
+_ALIASES = {"zeros": "zero", "ones": "one", "gaussian": "normal",
+            "msraprelu": "msraprelu", "xavier": "xavier"}
 
 
 def create(name, **kwargs):
     """An initializer from an instance or a registered name (``"zeros"``,
-    ``"ones"``, ``"normal"``, ``"uniform"``, ``"xavier"``)."""
+    ``"ones"``, ``"gaussian"``/``"normal"``, ``"uniform"``, ``"xavier"``,
+    ``"msraprelu"``, ``"orthogonal"``, ``"bilinear"``, ``"lstmbias"``,
+    ...)."""
     if isinstance(name, Initializer):
         return name
     if name is None or name == "":
@@ -165,3 +313,6 @@ def create(name, **kwargs):
     if key not in _REGISTRY:
         raise MXNetError(f"unknown initializer {name}")
     return _REGISTRY[key](**kwargs)
+
+
+registry = _REGISTRY

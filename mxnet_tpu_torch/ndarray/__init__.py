@@ -4,8 +4,9 @@ PyTorch counterpart of ``mxnet_tpu/ndarray``. Constructors place on the
 current context (the first CUDA card by default; ``ctx=mx.cpu()`` for the
 host). The operator namespace is generated from the registry
 (``op.py``), and the common operators are attached as NDArray methods,
-as in the reference. ``nd.contrib``, ``nd.sparse``, ``nd.image`` and
-``nd.linalg`` are ROADMAP A13's.
+as in the reference. ``nd.image`` is the image operator family
+(``ops/image_ops.py``); ``nd.contrib``, ``nd.sparse`` and ``nd.linalg``
+are ROADMAP A13's.
 """
 
 from .ndarray import (  # noqa: F401
@@ -34,6 +35,7 @@ from .op import (  # noqa: F401
     _contrib_fused_scaled_matmul_stats,
 )
 from . import random  # noqa: F401
+from . import image  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # method attachment (reference: NDArray methods generated over the same ops)

@@ -723,7 +723,8 @@ def array(source_array, ctx=None, dtype=None) -> NDArray:
         if dtype is None and (a.dtype == _np.float64
                               or not hasattr(source_array, "dtype")):
             a = a.astype(_np.float32)
-        t = torch.from_numpy(a if a.flags.c_contiguous else a.copy())
+        t = torch.from_numpy(a if a.flags.c_contiguous and a.flags.writeable
+                             else a.copy())
     dev = _device(ctx)
     t = t.to(device=dev, dtype=torch_dtype(dtype) if dtype else None,
              copy=True)
@@ -798,10 +799,12 @@ def concatenate(arrays, axis=0, always_copy=True):
     return NDArray(torch.cat([a._t.detach() for a in arrays], dim=axis))
 
 
-def imdecode(buf, **kw):
-    """Image decoding belongs to the data path (ROADMAP A6)."""
-    raise MXNetError("nd.imdecode: the image and data path is not in the "
-                     "port yet (ROADMAP A6)")
+def imdecode(buf, flag=1, to_rgb=True, out=None, **kw):
+    """Decode image bytes into an HWC uint8 host NDArray (Pillow;
+    ``mx.image.imdecode``)."""
+    from ..image.image import imdecode as _imdecode
+
+    return _imdecode(buf, flag=flag, to_rgb=to_rgb, out=out)
 
 
 def waitall():

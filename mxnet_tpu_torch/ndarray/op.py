@@ -3,7 +3,7 @@
 PyTorch counterpart of ``mxnet_tpu/ndarray/op.py`` (reference:
 ``python/mxnet/ndarray/register.py``, op stubs generated at import time).
 The namespace is made from :mod:`mxnet_tpu_torch.ops.registry` (the
-operator modules, flash attention, CTC, the fused matmul-stats operators
+operator modules, the image operators, flash attention, CTC, the fused matmul-stats operators
 and the optimizer updates): each op takes NDArrays positionally, binds a
 positional non-array argument to the op's parameter of that position
 (``x.expand_dims(0)``), passes keywords through, and writes ``out=`` in
@@ -24,6 +24,7 @@ from .. import autograd
 from ..ops import ctc as _ctc  # noqa: F401  (these modules register
 from ..ops import flash_attention as _fa  # noqa: F401  # their operators)
 from ..ops import fused_conv_bn as _fcbn  # noqa: F401
+from ..ops import image_ops as _image_ops  # noqa: F401
 from ..ops import math as _math  # noqa: F401
 from ..ops import nn as _nn
 from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401

@@ -266,7 +266,7 @@ class InferenceEngine:
                 _capture.warm_up(run)
                 entry.graph = _capture.Graph(
                     pool, f"serving {self._name}:{self._version} bucket "
-                    f"{bucket}", error_mode="thread_local")
+                    f"{bucket}")
                 out = entry.graph.capture(run)
                 entry.graph.replay()  # warm execution
                 entry.host_in = torch.empty(entry.static.shape,

@@ -26,7 +26,11 @@ updated in place by every prefill and decode step. Slot liveness is an
 operand, never a shape. On a CUDA device every decode step launches the
 Hopper paged-decode kernel (its split kernel and its combine kernel) once
 per layer. The pools are updated in place and never reallocated, since
-the graph reads them through fixed addresses. Prefill stays eager.
+the graphs read them through fixed addresses. On a CUDA device each prompt
+bucket's prefill is one captured CUDA graph too (the JAX package seals one
+prefill executable per bucket): the request's padded prompt, table row
+and length go to the bucket's static buffer in one pinned host-to-device
+copy, and a replay writes the pools and the logits.
 
 Sampling reproducibility: a request's first token is drawn from its own
 ``seed``; later tokens draw from the engine's generator (registered with
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import threading
 import time
 
@@ -365,8 +370,11 @@ class GenerationEngine:
         live. On a CUDA device the chunk body is captured as one CUDA
         graph over the static slot buffers and the cache's pools (after a
         warm-up run that builds the kernel) and replayed once; on the CPU
-        it runs once. Then one prefill per bucket (length 0, every write
-        to the null block) checks each bucket."""
+        it runs once. Then each prompt bucket's prefill: on a CUDA device
+        captured as one CUDA graph per bucket over a static buffer (the
+        padded prompt, the table row and the length; the pools written in
+        place) and replayed once, on the CPU run once eagerly. Every
+        sealing run has length 0, so it writes only to the null block."""
         self._step = self._net.decode_step_fn()
         self._prefill_step = self._net.prefill_fn()
         self._params = self._net.params()
@@ -397,7 +405,7 @@ class GenerationEngine:
             self._chunk_graph = _capture.Graph(
                 torch.cuda.graph_pool_handle(),
                 f"the decode chunk of {self._name}:{self._version}",
-                generators=(self._gen,), error_mode="thread_local")
+                generators=(self._gen,))
             self._chunk_out = self._chunk_graph.capture(self._chunk_body)
             self._chunk_graph.replay()
             self._host_out = torch.empty(self._chunk_out.shape,
@@ -405,20 +413,63 @@ class GenerationEngine:
         else:
             self._run_chunk(_np.zeros((self._slots, self._mb), _np.int32))
         self._compiles += 1
+        self._prefill_graphs = {}
         for tb in self._buckets:
             if tb > self.max_seq:
                 raise MXNetError(
                     f"prompt bucket {tb} exceeds the net's max_seq "
                     f"{self.max_seq}")
-            k, v = self.cache.pools()
-            self._prefill_step(
-                self._params, self._dev(_np.zeros((1, tb)), torch.long),
-                k, v, self._dev(_np.zeros((1, self._mb), _np.int32)),
-                self._dev([0], torch.int32))
+            if cuda:
+                self._prefill_graphs[tb] = self._capture_prefill(tb)
+            else:
+                k, v = self.cache.pools()
+                self._prefill_step(
+                    self._params, self._dev(_np.zeros((1, tb)), torch.long),
+                    k, v, self._dev(_np.zeros((1, self._mb), _np.int32)),
+                    self._dev([0], torch.int32))
             self._compiles += 1
         if cuda:
             torch.cuda.synchronize(self.device)
         self._sealed = True
+
+    def _prefill_body(self, buf, tb):
+        """One prefill from the static buffer ``buf`` (int64: the padded
+        prompt ``(tb,)``, the table row ``(mb,)``, the length ``(1,)``)
+        over the cache's pools, written in place; returns the logits
+        ``(1, V)`` at the last real position."""
+        mb = self._mb
+        k, v = self.cache.pools()
+        logits, _, _ = self._prefill_step(
+            self._params, buf[:tb].view(1, tb), k, v,
+            buf[tb:tb + mb].to(torch.int32).view(1, mb),
+            buf[tb + mb:].to(torch.int32))
+        return logits
+
+    def _capture_prefill(self, tb):
+        """Capture bucket ``tb``'s prefill as one CUDA graph (after a
+        warm-up run), replay it once, and return ``(graph, device buffer,
+        logits, pinned host buffer)``."""
+        from ..gluon import _capture
+
+        buf = torch.zeros(tb + self._mb + 1, dtype=torch.long,
+                          device=self.device)
+        body = functools.partial(self._prefill_body, buf, tb)
+        _capture.warm_up(body)
+        graph = _capture.Graph(
+            torch.cuda.graph_pool_handle(),
+            f"the prefill of bucket {tb} of {self._name}:{self._version}")
+        logits = graph.capture(body)
+        graph.replay()
+        host = torch.zeros(buf.shape, dtype=torch.long, pin_memory=True)
+        return graph, buf, logits, host
+
+    def _check_pools(self, what):
+        """Refuse to replay ``what`` over pools other than those the
+        graphs were captured over."""
+        k, v = self.cache.pools()
+        if k is not self._graph_pools[0] or v is not self._graph_pools[1]:
+            raise MXNetError(f"the KV cache's pools are not the ones {what} "
+                             "was captured over")
 
     def _slot_inputs(self):
         """The static slot buffers (views of ``_dev_in``) in their types."""
@@ -487,11 +538,7 @@ class GenerationEngine:
         if self._chunk_graph is None:
             packed = self._chunk_body().cpu().numpy()
         else:
-            k, v = self.cache.pools()
-            if k is not self._graph_pools[0] or v is not self._graph_pools[1]:
-                raise MXNetError(
-                    "the KV cache's pools are not the ones the decode "
-                    "chunk was captured over")
+            self._check_pools("the decode chunk")
             self._chunk_graph.replay()
             self._host_out.copy_(self._chunk_out, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
@@ -653,19 +700,41 @@ class GenerationEngine:
                 self._fail(req, e if isinstance(e, ServingError) else
                            ServingError(f"prefill failed: {e}"), "error")
 
-    def _prefill(self, req, table, slot):
-        plen = len(req.prompt)
+    def _prefill_logits(self, prompt, table):
+        """Prefill ``prompt`` into ``table``'s blocks and return the logits
+        ``(1, V)`` at its last position. On the card: one host-to-device
+        copy into the bucket's static buffer and one replay of its graph;
+        the logits are the graph's output, rewritten by the next replay,
+        and the pinned host buffer may be rewritten only after the caller
+        has synchronised on them. On the CPU: the eager prefill."""
+        plen = len(prompt)
         tb = self._bucket_for(plen)
         padded = _np.zeros((1, tb), _np.int64)
-        padded[0, :plen] = req.prompt
+        padded[0, :plen] = prompt
+        if self._prefill_graphs:
+            self._check_pools("the prefill")
+            graph, buf, logits, host = self._prefill_graphs[tb]
+            host[:tb] = torch.from_numpy(padded[0])
+            host[tb:tb + self._mb] = torch.from_numpy(
+                _np.asarray(table.device_row(self._mb), _np.int64))
+            host[-1] = plen
+            buf.copy_(host, non_blocking=True)
+            graph.replay()
+            return logits
         dev = self._dev
         k, v = self.cache.pools()
-        t0 = time.perf_counter()
         logits, k, v = self._prefill_step(
             self._params, dev(padded), k, v,
             dev(table.device_row(self._mb)[None, :]),
             dev([plen], torch.int32))
         self.cache.update_pools(k, v)
+        return logits
+
+    def _prefill(self, req, table, slot):
+        plen = len(req.prompt)
+        dev = self._dev
+        t0 = time.perf_counter()
+        logits = self._prefill_logits(req.prompt, table)
         gen = torch.Generator(device=self.device).manual_seed(req.seed)
         tok = sample_tokens(
             logits, gen, dev([max(req.temperature, 1e-6)], torch.float32),
@@ -918,6 +987,7 @@ class GenerationEngine:
         self._closed = True
         self._chunk_graph = None
         self._chunk_out = None
+        self._prefill_graphs = {}
         self._graph_pools = None
         self._params = None
         self.cache.k_pool = None

@@ -165,3 +165,82 @@ def test_inference_engine_needs_cuda_or_explicit_cpu(monkeypatch):
         assert eng.predict([1.0, 2.0], timeout=10.0).shape == (1, 3)
     finally:
         eng.close()
+
+
+# the data path (recordio, the native data plane, mx.image, mx.io,
+# gluon.data) and the small modules of the seventeenth slice
+DATA_MODULES = ("recordio.py", "_native.py", "image/__init__.py",
+                "image/image.py", "image/detection.py", "io/__init__.py",
+                "io/io.py", "ops/image_ops.py", "ndarray/image.py",
+                "gluon/data/dataset.py", "gluon/data/sampler.py",
+                "gluon/data/dataloader.py", "gluon/data/prefetcher.py",
+                "gluon/data/stream.py", "gluon/data/vision/__init__.py",
+                "gluon/data/vision/datasets.py",
+                "gluon/data/vision/transforms.py", "runtime.py", "util.py",
+                "name.py", "attribute.py")
+
+
+@pytest.mark.parametrize("rel", DATA_MODULES)
+def test_data_modules_are_scanned(rel):
+    path = os.path.join(PKG, rel)
+    assert path in _port_files()
+    assert not [n for n, _ in _imported_roots(path) if n in FORBIDDEN]
+
+
+def _string_constants(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    return [(node.value, node.lineno) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_module_loads_the_reference_library(path):
+    """The JAX package's ``cxx/libmxtpu.so`` is never a path the port
+    builds or loads: ``_native.py`` builds ``libmxtpu_io-<hash>.so``
+    into ``mxnet_tpu_torch/_build/``. A docstring may name the file."""
+    tree = ast.parse(open(path).read(), filename=path)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef,
+                             ast.AsyncFunctionDef)):
+            doc = ast.get_docstring(node, clean=False)
+            if doc is not None:
+                docs.add(doc)
+    bad = [(v, line) for v, line in _string_constants(path)
+           if "libmxtpu.so" in v and v not in docs]
+    assert not bad, f"{os.path.relpath(path, ROOT)} names {bad}"
+
+
+def test_data_path_imports_no_jax():
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import mxnet_tpu_torch as mx; mx.io.ImageRecordIter; "
+            "mx.gluon.data.DataLoader; mx.gluon.data.vision.transforms; "
+            "mx.image.imdecode; mx.recordio.pack; mx.nd.image.to_tensor; "
+            "from mxnet_tpu_torch import _native; _native.get_lib(); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code, ROOT], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_data_path_stages_to_the_card_only_when_asked(monkeypatch):
+    """The data path works on host arrays; the card is reached through
+    ``DevicePrefetcher``/``DataLoader(device=...)``, which without a
+    card raises for a CUDA device rather than staying on the host."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = mx.gluon.data.ArrayDataset(np.zeros((4, 2), np.float32),
+                                    np.zeros(4, np.float32))
+    x, _ = next(iter(mx.gluon.data.DataLoader(ds, batch_size=2)))
+    assert x.context == mx.cpu()
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mx.gluon.data.DataLoader(ds, batch_size=2, device=mx.gpu(0))
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mx.gluon.data.DevicePrefetcher([], device=mx.gpu(0))

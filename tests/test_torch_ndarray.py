@@ -213,7 +213,13 @@ def test_astype_copy_and_scalars_match_jax():
         a.wait_to_write()
     with pytest.raises(mx.MXNetError, match="A13"):
         mx.nd.ones((2,), **KW).tostype("csr")
-    with pytest.raises(mx.MXNetError, match="A6"):
+    # the data path (ROADMAP A6) is ported: imdecode decodes as the JAX
+    # package's does, and refuses bytes that are no image as Pillow does
+    png = jmx.image.imencode(np.arange(12, dtype=np.uint8).reshape(2, 2, 3),
+                             img_fmt=".png")
+    np.testing.assert_array_equal(mx.nd.imdecode(png).asnumpy(),
+                                  jmx.nd.imdecode(png).asnumpy())
+    with pytest.raises(OSError):
         mx.nd.imdecode(b"")
 
 

@@ -372,16 +372,16 @@ def test_capture_pauses_the_garbage_collector(monkeypatch):
     """A collection during a capture could free a dropped block's graphs
     and their memory pool, which the stream capture refuses: the
     collector is off inside ``_capture.Graph.capture`` and back on after,
-    also when the capture fails."""
+    also when the capture fails. Every capture is thread-local (C19)."""
     import gc
 
     from mxnet_tpu_torch.gluon import _capture
 
-    seen = []
+    seen, modes = [], []
 
     class FakeGraph:
-        def __init__(self, graph, pool=None):
-            pass
+        def __init__(self, graph, pool=None, capture_error_mode="global"):
+            modes.append(capture_error_mode)
 
         def __enter__(self):
             seen.append(gc.isenabled())
@@ -398,6 +398,7 @@ def test_capture_pauses_the_garbage_collector(monkeypatch):
     with pytest.raises(MXNetError, match="a test function"):
         graph.capture(lambda: 1 / 0)
     assert seen == [False, False] and gc.isenabled()
+    assert modes == ["thread_local", "thread_local"]
 
 
 def test_capture_amid_cyclic_garbage_on_cuda():

@@ -8,9 +8,12 @@ tree at ``--root`` (this checkout by default), on one CUDA card.
 Each run is the tree's own ``serving_phase``, which prints its
 ``[serving]`` line (inter-token latency p50/p99, end-to-end and decode
 tokens/s, launches); the last run is also profiled, for the device's busy
-time and idle share over the whole serving window (``[serve-ab]``). To
-compare two trees, unpack one beside the other and run both on the same
-card in the order A, B, B, A.
+time and idle share over the whole serving window (``[serve-ab]``), and
+every run's time to first token is read from its requests (p50/p99, all
+20 submitted at once). Then one request at a time (prompts of 200 and
+1000 tokens, one new token, 5 each) gives the time to first token of a
+prefill alone (``[serve-ab-ttft]``). To compare two trees, unpack one
+beside the other and run both on the same card in the order A, B, B, A.
 """
 
 import argparse
@@ -19,6 +22,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 
@@ -53,9 +57,30 @@ def main():
     with torch.inference_mode():
         net = TransformerDecoderLM(**cs.STARCODERBASE_1B, seed=cs.SEED,
                                    device=dev)
+    from mxnet_tpu_torch.serving import GenerationEngine
+
+    submitted = []
+    submit = GenerationEngine.submit
+
+    def recording_submit(self, *a, **kw):
+        t = time.perf_counter()
+        fut = submit(self, *a, **kw)
+        submitted.append((t, fut))
+        return fut
+
+    GenerationEngine.submit = recording_submit
+
+    def ttft_ms():
+        first = min(t for t, _ in submitted)
+        ms = [(f.token_times()[0] - first) * 1e3 for _, f in submitted]
+        submitted.clear()
+        return (f"{np.percentile(ms, 50):.3f}", f"{np.percentile(ms, 99):.3f}")
+
     cs.say("serve-ab", root=root, device=f'"{smi}"')
     for _ in range(args.runs - 1):
         cs.serving_phase(net, dev, _kernels.LAUNCHES, smi)
+        p50, p99 = ttft_ms()
+        cs.say("serve-ab", root=root, ttft_p50_ms=p50, ttft_p99_ms=p99)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -64,9 +89,29 @@ def main():
         window_us = (time.perf_counter() - t0) * 1e6
     busy = sum(e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA)
+    p50, p99 = ttft_ms()
     cs.say("serve-ab", root=root, profiled_window_s=f"{window_us / 1e6:.3f}",
            busy_s=f"{busy / 1e6:.3f}",
-           idle_share=f"{1 - busy / window_us:.4f}")
+           idle_share=f"{1 - busy / window_us:.4f}", ttft_p50_ms=p50,
+           ttft_p99_ms=p99)
+    GenerationEngine.submit = submit
+    eng = GenerationEngine(net, shapes=[256, 1024], slots=8, chunk=8,
+                           cache_blocks=1024, name="starcoderbase-1b-ttft")
+    try:
+        rs = np.random.RandomState(cs.SEED + 9)
+        for plen in (200, 1000):
+            ms = []
+            for _ in range(6):
+                prompt = rs.randint(0, net.vocab_size, plen)
+                t = time.perf_counter()
+                f = eng.submit(prompt, max_new_tokens=1)
+                f.result(timeout=300)
+                ms.append((f.token_times()[0] - t) * 1e3)
+            cs.say("serve-ab-ttft", root=root, prompt=plen,
+                   ttft_ms=[f"{v:.3f}" for v in ms[1:]],
+                   median_ms=f"{np.median(ms[1:]):.3f}")
+    finally:
+        eng.close()
 
 
 if __name__ == "__main__":
