@@ -141,6 +141,26 @@ Phases (each prints one line of facts; any failure exits non-zero):
    are parameters); then the net cast to bfloat16 with
    ``multi_precision``, 2 fused steps, every weight its fp32 master
    rounded, the loss finite;
+8d. bert amp superstep (``[bert-amp-superstep]``) — phase 7f's
+   BERT-base pretraining under ``amp.init("bfloat16")`` +
+   ``convert_model`` with Adam's fp32 masters, fed from host batches by
+   ``gluon.data.SuperstepRing(k=4)`` into ``gluon.Superstep(k=4)``
+   (``run``: three supersteps, each ONE captured CUDA graph of four
+   iterations, then a tail of two single steps): at dropout 0 a superstep
+   against four hybridized ``trainer.step``s (losses 2^-8, fp32 weights
+   and masters 1e-5 of their largest; bit for bit expected); over 8 steps
+   within (0.08, 0.05) of an fp32 run; K1 and K2 launched in bfloat16
+   inside the graph, 48 each; one replay a superstep and no host
+   synchronisation in ``step`` (``set_sync_debug_mode("error")``); two
+   runs from one seed equal bit for bit; ms a step on the device and the
+   host clock, idle share, busy split, peak memory;
+8e. checkpoint resume (``[checkpoint-resume]``) — the same net with a
+   ``CheckpointManager`` every 4 steps over three supersteps; a fresh net
+   and trainer ``load_checkpoint`` step 8 and run superstep 3 again:
+   loss, weights, fp32 masters and Adam's m, v and t equal to the
+   uninterrupted run's bit for bit; ``verify`` passes on every committed
+   step; the checkpoint's bytes, the snapshot's host time in the loop,
+   the writer thread's time;
 8b. transformer parity — Transformer-base MT at its published widths
    (Vaswani et al. 2017 Table 3 "base": 6 + 6 layers, units 512, hidden
    2048, 8 heads; shared vocabulary 37000; fp32, dropout 0), batch 32 x
@@ -179,6 +199,15 @@ Phases (each prints one line of facts; any failure exits non-zero):
    within 1e-5, gradients bit for bit or within K5's float64 gate), one
    recording entry, K4, K5-dW and K5-dX 30 times per step from the
    replays, and the same shape and cast recaptures;
+10b'. resnet amp fp16 (``[resnet-amp-fp16]``) — ResNet-50 v1 at batch
+   128 under ``amp.init("float16")``, ``convert_model``, ``init_trainer``,
+   ``optimize_for`` and ``hybridize()`` (K4/K5 in float16), SGD with fp32
+   masters, ``gluon.Superstep(k=2)``: the default scale overflows at
+   first and the scaler backs off until two supersteps run clean (the
+   supersteps reported); then three supersteps with ``resilience.chaos``
+   poisoning slot 0 of the second: that iteration's flag 1, the other
+   applied, the scale halved and the overflow total counting it once;
+   K4/K5 in float16, 60 of each a replay; ms a step beside fp32's;
 10c. nn layers — each layer of the rest of ``gluon.nn`` (the 1-D and 3-D
    convs, the transposed convs, the 1-D and 3-D pools, ReflectionPad2D,
    SyncBatchNorm, InstanceNorm, GroupNorm, LeakyReLU, PReLU, ELU, SELU,
@@ -256,6 +285,11 @@ Phases (each prints one line of facts; any failure exits non-zero):
    products, K1, K6, element-wise kernels and the Adam update); the loss
    must be finite and fall, K6 launch twice per step and K2 never.
 
+Phase 3 also times K1 and K2 in bfloat16 at BERT-base's shape and K4 and
+K5 in float16 at ResNet-50's 1x1 shapes (``[kernel-time-lowp]``), the
+types of phases 8d and 10b', beside the function's bound in that type
+and one library call in it.
+
 Phase 3 also checks K4 and K5's two kernels against their plain versions
 (fp32, bf16 and fp16, with and without the BatchNorm prologue, at ResNet-50's
 stage shapes, two ragged ones, MobileNetV2 1.0's extremes and
@@ -296,7 +330,8 @@ SEED = 0
 BLOCK = 16
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+            torch.float16: 989e12}
 # the flash kernels (K1, K2, K6) multiply fp32 on the tensor cores as
 # 3xTF32: three TF32 products (495 TFLOP/s dense) per product
 TF32_TC_OPS, TF32X3 = 495e12, 3
@@ -482,9 +517,10 @@ def queued_ms(fn, iters):
 
 
 def sdpa_bwd_ms(qs, ks, vs, g, causal, iters, timer=cuda_ms):
-    """Mean device milliseconds of SDPA's backward alone: one forward
-    outside the timed calls, then ``torch.autograd.grad`` of its output
-    over the kept graph, timed by ``timer``."""
+    """Mean device milliseconds of SDPA's backward alone (what ``timer``
+    returns): one forward outside the timed calls, then
+    ``torch.autograd.grad`` of its output over the kept graph, timed by
+    ``timer``."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     o = sdpa(qs, ks, vs, is_causal=causal)
@@ -4762,6 +4798,808 @@ def bert_pretrain_phase(ctx, launches, x, steps=10, **cut):
 
 
 # ---------------------------------------------------------------------------
+# phase 8f: AMP, the K-step superstep, checkpoint and resume
+# ---------------------------------------------------------------------------
+
+SS_K = 4  # [bert-amp-superstep]'s K
+SS_GROUPS = 3  # supersteps of the main run
+SS_TAIL = 2  # single steps after them (a short last group of the ring)
+# test_bf16_fp32_loss_trajectory_parity's allowance (rel, abs)
+BF16_DRIFT = (0.08, 0.05)
+# this cell's own limits on bf16 against fp32 over the main run's 14
+# steps: each loss within 0.2 (about three times the worst drift read on
+# the card, 0.0614), and the part of the masters' update that the weight
+# decay does not explain pointing the fp32 run's way. Adam's coupled
+# decay (wd * w, ~2e-4 at Normal(0.02)) outweighs most gradients, so the
+# whole update is 0.991 of the way along -sign(w) (the card's reading)
+# whatever the gradients; its rest is the gradients' work
+BF16_LOSS_ABS, BF16_RESIDUAL_COS = 0.2, 0.9
+# one superstep against four hybridized trainer.steps (bit for bit
+# expected): each loss within 2^-8 of its own value, each fp32 weight or
+# master within 1e-5 of its tensor's largest
+SS_LOSS_RTOL, SS_WEIGHT_RTOL = 2.0 ** -8, 1e-5
+CKPT_EVERY = 4
+RESNET_AMP_K = 2
+RESNET_AMP_SGD = {"learning_rate": 0.005, "momentum": 0.9,
+                  "multi_precision": True}
+AMP_GROUPS = (("flash_k1_k2", ("mxtpu_flash",)),
+              ("products", ("gemm", "gemv", "xmma", "nvjet", "cutlass")),
+              ("softmax_mlm", ("softmax", "logsumexp")),
+              ("dropout_random", ("distribution", "philox", "rand",
+                                  "bernoulli", "dropout")),
+              ("layer_norm", ("layer_norm",)),
+              ("embedding_index", ("index", "embedding", "gather",
+                                   "scatter")),
+              ("foreach_update", ("foreach", "multi_tensor")),
+              ("reductions", ("reduce",)),
+              ("elementwise", ("elementwise", "unrolled")))
+RESNET_AMP_GROUPS = (("k4", ("fcbn::(anonymous namespace)::fwd_kernel",)),
+                     ("k5_dw", ("fcbn::(anonymous namespace)::dw_kernel",)),
+                     ("k5_dx", ("fcbn::(anonymous namespace)::dx_kernel",)),
+                     ("conv_cudnn", ("conv", "cudnn", "sm90_xmma",
+                                     "implicit")),
+                     ("products", ("gemm", "nvjet", "cutlass")),
+                     ("foreach_update", ("foreach", "multi_tensor")),
+                     ("bn_elementwise", ("batch_norm", "bn_", "elementwise",
+                                         "unrolled", "reduce")))
+
+
+def lowp_kernel_time_phase(dev, gen):
+    """K1 and K2's two kernels in bfloat16 at BERT-base's training shape
+    and K4 and K5's two kernels in float16 at ResNet-50's nine 1x1 shapes
+    (per step, 30 calls), the low-precision types of
+    ``[bert-amp-superstep]`` and ``[resnet-amp-fp16]``, timed with CUDA
+    events beside their bounds, their plain versions and one library call
+    in the same type (SDPA's forward, SDPA's backward for each K2 row, as
+    the fp32 rows; for K4/K5 torch.matmul of the bare product). The bound
+    is the function's: the larger of the bytes at 2 bytes an element and
+    the operations over the 16-bit tensor cores' 989 TFLOP/s. The kernels
+    multiply as 3xTF32 whatever the storage type; that cost (3 x
+    operations over 495 TFLOP/s) is printed beside it as
+    ``tf32x3_ops_ms``, not as the bound. Each output is held against the
+    plain version first (FLASH_TOL and FUSED_TOL of the type)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
+
+    def bound16(ops, nbytes):
+        """(bound ms, bound by, bytes ms, 3xTF32 ms) of a 16-bit call."""
+        t_ops = ops / PEAK_OPS[torch.bfloat16] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+                else "bytes", t_bytes, tf32x3_ms(ops))
+
+    B, H, KVH, T, S, D, causal, window, _ = FLASH_CASES["bert_base"]
+    q, k, v, g = flash_inputs(gen, dev, B, H, KVH, T, S, D, torch.bfloat16)
+    scale = D ** -0.5
+    out, lse = fa._cuda_flash_fwd(q, k, v, scale, causal, window)
+    po, plse = fa._torch_flash_fwd(q, k, v, scale, causal, window)
+    err = float((out.float() - po.float()).abs().max()
+                / po.float().abs().max())
+    check(err <= FLASH_TOL[torch.bfloat16], f"K1 bf16 off by {err:.3e}")
+    bwd = fa._bwd_operands(q, k, v, out, lse, g)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    work = flash_work(B, H, KVH, T, S, D, causal, window, 2)
+    runs = {"flash_fwd": (
+        lambda: fa._cuda_flash_fwd(q, k, v, scale, causal, window),
+        lambda: fa._torch_flash_fwd(q, k, v, scale, causal, window)),
+        "flash_bwd_dq": (lambda: fa._launch_flash_bwd(
+            "dq", *bwd[:-1], delta, bwd[-1], (dq,), scale, causal, window),
+            lambda: fa._torch_flash_bwd(q, k, v, po, plse, g, scale,
+                                        causal, window)),
+        "flash_bwd_dkv": (lambda: fa._launch_flash_bwd(
+            "dkv", *bwd[:-1], delta, bwd[-1], (dk, dv), scale, causal,
+            window), lambda: fa._torch_flash_bwd(
+                q, k, v, po, plse, g, scale, causal, window))}
+    qs, ks, vs = (t.clone().requires_grad_() for t in (
+        q, k.repeat_interleave(H // KVH, 1),
+        v.repeat_interleave(H // KVH, 1)))
+    # SDPA's bf16 backward (cuDNN's) takes longer to enqueue through
+    # autograd than to run: both library calls are timed queued behind a
+    # spin, so that the host's rate does not set them
+    with torch.no_grad():
+        lib_fwd, lib_fwd_us = queued_ms(
+            lambda: sdpa(qs, ks, vs, is_causal=causal), 50)
+    lib_bwd, lib_bwd_us = sdpa_bwd_ms(qs, ks, vs, g, causal, 20,
+                                      timer=queued_ms)
+    for name, (kern, plain) in runs.items():
+        ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 20)
+        lib_ms, lib_us = (lib_fwd, lib_fwd_us) if name == "flash_fwd" \
+            else (lib_bwd, lib_bwd_us)
+        bound, by, t_bytes, t_tf32x3 = bound16(*work[name])
+        say("kernel-time-lowp", kernel=name,
+            shape=f"B{B}_H{H}_T{T}_S{S}_D{D}_bf16", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+            library_enqueue_us=f"{lib_us:.1f}",
+            over_library=f"{ms / lib_ms:.4f}",
+            bound_ms=f"{bound:.5f}", bound_by=by,
+            bytes_bound_ms=f"{t_bytes:.5f}",
+            tf32x3_ops_ms=f"{t_tf32x3:.5f}",
+            bound_share=f"{bound / ms:.4f}",
+            note='"plain_ms and library_ms of each K2 row are the whole '
+            'backward"')
+    del q, k, v, g, out, lse, po, plse, bwd, dq, dk, dv, qs, ks, vs
+    # ms, plain, library, bound, bytes bound, 3xTF32, ms bound by bytes
+    total = {n: [0.0] * 7 for n in ("fused_fwd", "fused_dw", "fused_dx")}
+    worst = 0.0
+    for M, K, N, calls in RESNET_1X1:
+        x, w, s, t, y, dy, ds, dq = fused_inputs(gen, dev, M, K, N,
+                                                 torch.float16, False)
+        got = fcbn._cuda_fused_fwd(x, w, s, t)[0].float()
+        want = fcbn._torch_fused_fwd(x, w, s, t)[0].float()
+        worst = max(worst, float((got - want).abs().max()
+                                 / want.abs().max()))
+        runs = {"fused_fwd": (lambda: fcbn._cuda_fused_fwd(x, w, s, t),
+                              lambda: fcbn._torch_fused_fwd(x, w, s, t),
+                              lambda: torch.matmul(x, w)),
+                "fused_dw": (lambda: fcbn._cuda_fused_dw(
+                    x, w, y, s, t, dy, ds, dq), lambda: fcbn._torch_fused_dw(
+                    x, y, s, t, dy, ds, dq, False, w.dtype),
+                    lambda: torch.matmul(x.t(), dy)),
+                "fused_dx": (lambda: fcbn._cuda_fused_dx(
+                    x, w, y, s, t, dy, ds, dq), lambda: fcbn._torch_fused_dx(
+                    x, w, y, s, t, dy, ds, dq, False),
+                    lambda: torch.matmul(dy, w.t()))}
+        work = fused_work(M, K, N, item=2)
+        for name, (kern, plain, lib) in runs.items():
+            ms, plain_ms, lib_ms = (cuda_ms(kern, 20), cuda_ms(plain, 10),
+                                    cuda_ms(lib, 20))
+            bound, by, t_bytes, t_tf32x3 = bound16(*work[name])
+            for i, v in enumerate((ms, plain_ms, lib_ms, bound, t_bytes,
+                                   t_tf32x3, bound * (by == "bytes"))):
+                total[name][i] += calls * v
+        del x, w, s, t, y, dy
+    check(worst <= FUSED_TOL[torch.float16][0],
+          f"K4 fp16 off by {worst:.3e}")
+    for name, (ms, plain_ms, lib_ms, bound, t_bytes, t_tf32x3,
+               by_bytes) in total.items():
+        say("kernel-time-lowp", kernel=name, shape="resnet50_step_30_calls"
+            "_fp16", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            matmul_product_only_ms=f"{lib_ms:.4f}",
+            over_library=f"{ms / lib_ms:.4f}",
+            bound_ms=f"{bound:.4f}",
+            bound_by="bytes" if 2 * by_bytes > bound else "operations",
+            bytes_bound_ms=f"{t_bytes:.4f}",
+            tf32x3_ops_ms=f"{t_tf32x3:.4f}",
+            bound_share=f"{bound / ms:.4f}", k4_rel_err=f"{worst:.2e}")
+
+
+def _pretrain_block(mx, net):
+    """A HybridBlock over ``net`` taking ids and token types stacked on
+    axis 1, ``(B, 2, T)``, and returning the NSP and MLM logits: the one
+    input a ``Superstep`` iteration gives its block."""
+
+    class Pretrain(mx.gluon.HybridBlock):
+        def __init__(self, inner, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.net = inner
+
+        def hybrid_forward(self, F, x):
+            out = self.net(x[:, 0], x[:, 1])
+            return out[-2], out[-1]
+
+    return Pretrain(net)
+
+
+def pretrain_xy_loss(mx):
+    """``pretrain_loss``'s arithmetic over the packed label block ``y``
+    (``(B, 2T + 1)``: the true ids, the mask, the NSP label), the form a
+    ``Superstep`` loss takes: ``loss_fn(block(x), y)``."""
+
+    def loss_fn(out, y):
+        nsp, mlm = out
+        T = mlm.shape[1]
+        ids, mask, nsp_y = y[:, :T], y[:, T:2 * T], y[:, 2 * T]
+        ce = -mx.nd.pick(mx.nd.log_softmax(mlm, axis=-1), ids, axis=-1)
+        return (ce * mask).sum() / mask.sum() + \
+            mx.nd.softmax_cross_entropy(nsp, nsp_y) / mlm.shape[0]
+
+    return loss_fn
+
+
+def pretrain_host_batches(n, B, T, vocab, seed=SEED):
+    """``n`` host batches of the pretraining task from numpy seed
+    ``seed``: x ``(B, 2, T)`` int32 (ids with 15% of the positions masked
+    to MASK_ID, token types 0 then 1), y ``(B, 2T + 1)`` float32."""
+    rs = np.random.RandomState(seed)
+    types = np.repeat((np.arange(T) >= T // 2)[None], B, 0)
+    out = []
+    for _ in range(n):
+        ids = rs.randint(0, vocab, (B, T))
+        mask = (rs.rand(B, T) < MASK_P).astype(np.float32)
+        x = np.stack([np.where(mask > 0, MASK_ID, ids), types], 1)
+        y = np.concatenate([ids, mask, rs.randint(0, 2, (B, 1))], 1)
+        out.append((x.astype(np.int32), y.astype(np.float32)))
+    return out
+
+
+def bert_amp_setup(ctx, amp_dtype="bfloat16", dropout=0.1, **cut):
+    """``[bert-pretrain]``'s BERT-base (heads, Normal(0.02) from SEED),
+    wrapped by ``_pretrain_block``, converted to ``amp_dtype`` (None:
+    fp32), hybridized, with Adam lr 1e-4 wd 0.01 ``multi_precision``."""
+    import mxnet_tpu_torch as mx
+
+    torch.manual_seed(SEED)
+    net = mx.models.bert_base(dropout=dropout, **cut)
+    net.initialize(init=mx.initializer.Normal(0.02, seed=SEED), ctx=ctx)
+    block = _pretrain_block(mx, net)
+    if amp_dtype is not None:
+        mx.amp.convert_model(block, amp_dtype)
+    block.hybridize()
+    trainer = mx.gluon.Trainer(block.collect_params(), "adam",
+                               dict(BERT_ADAM, multi_precision=True))
+    return block, trainer
+
+
+def _stack_dev(mx, ctx, batches):
+    from mxnet_tpu_torch.gluon.data import stack_batches
+
+    xs = stack_batches([mx.nd.array(x, dtype="int32", ctx=ctx)
+                        for x, _ in batches])
+    ys = stack_batches([mx.nd.array(y, ctx=ctx) for _, y in batches])
+    return xs, ys
+
+
+def _masters(trainer, block):
+    """Every parameter's fp32 value: its master under
+    ``multi_precision``, else itself."""
+    out = {}
+    for k, p in block._collect_params_with_prefix().items():
+        st = trainer._fused_states.get(p.name)
+        w = p.data().data
+        out[k] = st[0] if st and w.dtype != torch.float32 else w.float()
+    return out
+
+
+class _KernelTypes:
+    """Inside: the storage type of every K1, K2, K4 and K5 launch is
+    recorded by kernel name (``seen``), captured launches included."""
+
+    def __enter__(self):
+        from mxnet_tpu_torch.ops import flash_attention as fa
+        from mxnet_tpu_torch.ops import fused_conv_bn as fcbn
+
+        self.seen = collections.defaultdict(set)
+        self._fa, self._fcbn = fa, fcbn
+        self._orig = (fa._cuda_flash_fwd, fa._launch_flash_bwd,
+                      fcbn._launch)
+        codes = {v: k for k, v in fcbn._DTYPE_CODES.items()}
+
+        def fwd(q, *a, **kw):
+            self.seen["flash_fwd"].add(str(q.dtype))
+            return self._orig[0](q, *a, **kw)
+
+        def bwd(kernel, q, *a, **kw):
+            self.seen[f"flash_bwd_{kernel}"].add(str(q.dtype))
+            return self._orig[1](kernel, q, *a, **kw)
+
+        def launch(lib, name, *a):
+            if name in ("mxtpu_fused_fwd", "mxtpu_fused_dw",
+                        "mxtpu_fused_dx"):
+                self.seen[name[len("mxtpu_"):]].add(str(codes[a[0]]))
+            return self._orig[2](lib, name, *a)
+
+        fa._cuda_flash_fwd, fa._launch_flash_bwd, fcbn._launch = \
+            fwd, bwd, launch
+        return self
+
+    def __exit__(self, *exc):
+        (self._fa._cuda_flash_fwd, self._fa._launch_flash_bwd,
+         self._fcbn._launch) = self._orig
+        return False
+
+
+def _profile_superstep(fn, k=1):
+    """One superstep ``fn()`` of ``k`` steps under torch.profiler: device
+    microseconds a step (the superstep's over ``k``) by kernel name, and
+    the host-clock window a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6 / k
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / k
+    return by_name, window_us
+
+
+def _timed_supersteps(step, n):
+    """Host-clock and device (CUDA events) ms of each of ``n`` supersteps
+    ``step()``, each synchronised."""
+    host, dev = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    return host, dev
+
+
+def bert_amp_superstep_phase(ctx, launches, **cut):
+    """BERT-base pretraining (``[bert-pretrain]``'s net, heads, batch 64 x
+    128, Adam lr 1e-4 wd 0.01) under ``amp.init("bfloat16")`` +
+    ``convert_model`` with Adam's fp32 masters (``multi_precision``), fed
+    from host batches through ``SuperstepRing(k=4)`` into
+    ``gluon.Superstep(k=4)`` by ``run()``: three supersteps, then a tail
+    of two single steps. Checks:
+
+    a. at dropout 0, one superstep against four hybridized
+       ``trainer.step``s on the same batches: losses within SS_LOSS_RTOL,
+       fp32 weights and masters within SS_WEIGHT_RTOL of their tensor's
+       largest (bit for bit expected, and said);
+    b. over 8 steps the bf16 losses follow an fp32 run's (no AMP, the same
+       seed and batches, the same ring and ``run()``) within BF16_DRIFT;
+       over all 14 within BF16_LOSS_ABS; and the fp32 masters' update
+       over the 14 (from their first values), less its projection on a
+       weight decay's direction (-sign of the first weights), has a
+       cosine of at least BF16_RESIDUAL_COS with the fp32 run's;
+    c. K1 and K2 launched in bfloat16 inside the graph (the capture's
+       launch accounting, each launch's storage type recorded);
+    d. one graph launch per superstep, and ``ss.step`` makes no host
+       synchronisation (``torch.cuda.set_sync_debug_mode("error")``);
+    e. two runs from one seed repeat bit for bit (losses and weights).
+
+    Reports ms a step on the device and the host clock, the idle share
+    and the split of one profiled superstep (AMP_GROUPS), peak memory,
+    beside ``[bert-pretrain]``'s fp32 152.443 ms replayed (PR 15)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.data import SuperstepRing
+
+    layers = cut.get("num_layers", BERT_LAYERS)
+    B, T = BERT_BATCH if not cut else 8, BERT_SEQ if not cut else 16
+    vocab = cut.get("vocab_size", BERT_VOCAB)
+    n = SS_K * SS_GROUPS + SS_TAIL
+    batches = pretrain_host_batches(n, B, T, vocab)
+    loss_fn = pretrain_xy_loss(mx)
+    mx.amp.init("bfloat16")
+    try:
+        # a. one superstep against four hybridized trainer.steps, dropout 0
+        ref, ref_tr = bert_amp_setup(ctx, dropout=0.0, **cut)
+        ref_losses = []
+        for x, y in batches[:SS_K]:
+            xd = mx.nd.array(x, dtype="int32", ctx=ctx)
+            yd = mx.nd.array(y, ctx=ctx)
+            with mx.autograd.record():
+                loss = loss_fn(ref(xd), yd)
+            loss.backward()
+            ref_tr.step(B)
+            ref_losses.append(loss.data.detach().float().reshape(()))
+        ref_losses = torch.stack(ref_losses)
+        ref_w = _masters(ref_tr, ref)
+        blk, tr = bert_amp_setup(ctx, dropout=0.0, **cut)
+        ss = mx.gluon.Superstep(blk, loss_fn, tr, k=SS_K)
+        got = ss.step(*_stack_dev(mx, ctx, batches[:SS_K]), B).data
+        got_w = _masters(tr, blk)
+        torch.cuda.synchronize()
+        loss_rel = float(((got - ref_losses).abs()
+                          / ref_losses.abs()).max())
+        w_rel = max(_rel(got_w[k], ref_w[k]) for k in ref_w)
+        mine = blk._collect_params_with_prefix()
+        bitwise = torch.equal(got, ref_losses) and all(
+            torch.equal(got_w[k], ref_w[k]) for k in ref_w) and all(
+            torch.equal(mine[k].data().data, p.data().data)
+            for k, p in ref._collect_params_with_prefix().items())
+        say("bert-amp-superstep-parity", dropout=0.0, k=SS_K,
+            loss_rel=f"{loss_rel:.3e}", tol_loss=f"{SS_LOSS_RTOL:.3e}",
+            weight_rel=f"{w_rel:.3e}", tol_weight=SS_WEIGHT_RTOL,
+            bitwise=bitwise, replays=ss.replays)
+        check(loss_rel <= SS_LOSS_RTOL and w_rel <= SS_WEIGHT_RTOL,
+              "[bert-amp-superstep] a superstep disagrees with four "
+              "hybridized steps")
+        check(ss.replays == 1, f"{ss.replays} replays for one superstep")
+        del ref, ref_tr, blk, tr, ss, ref_w, got_w
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the main run: dropout 0.1, the ring, run(); twice from one seed
+        runs = []
+        for rep in range(2):
+            blk, tr = bert_amp_setup(ctx, **cut)
+            ss = mx.gluon.Superstep(blk, loss_fn, tr, k=SS_K)
+            mx.random.seed(SEED)
+            launches.clear()
+            torch.cuda.reset_peak_memory_stats()
+            with _KernelTypes() as kt:
+                ring = SuperstepRing(batches, SS_K, device=ctx)
+                t0 = time.perf_counter()
+                losses = ss.run(ring, B)
+                run_s = time.perf_counter() - t0
+            graph = ss._plan["graph"]
+            glaunch = dict(graph.launches) if graph is not None else {}
+            runs.append((losses, [
+                p.data().data.clone() for _, p in sorted(
+                    blk._collect_params_with_prefix().items())]))
+            if rep == 0:
+                bf16_masters = {k: v.clone() for k, v in
+                                _masters(tr, blk).items()}
+                bf16_types = {k: p.data().data.dtype for k, p in
+                              blk._collect_params_with_prefix().items()}
+                counts = dict(launches)
+                say("bert-amp-superstep-run", steps=len(losses),
+                    supersteps=SS_GROUPS, tail=SS_TAIL, replays=ss.replays,
+                    run_s=f"{run_s:.2f}",
+                    losses=[f"{v:.5f}" for v in losses],
+                    graph_launches=glaunch,
+                    kernel_types={k: sorted(v) for k, v in
+                                  kt.seen.items()},
+                    launches=counts,
+                    peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+                check(len(losses) == n and all(np.isfinite(losses)),
+                      f"[bert-amp-superstep] losses {losses}")
+                check(ss.replays == SS_GROUPS, f"{ss.replays} graph "
+                      f"launches for {SS_GROUPS} supersteps")
+                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                    check(glaunch.get(name, 0) == layers * SS_K,
+                          f"the graph launches {name} "
+                          f"{glaunch.get(name, 0)} times, not "
+                          f"{layers * SS_K}")
+                    check(kt.seen.get(name) == {"torch.bfloat16"},
+                          f"{name} ran in {kt.seen.get(name)}")
+                    # n steps; the graph's warm-up iteration and the
+                    # tail's entry's warm-up; forward only, the one-row
+                    # predict pass that resolves deferred shapes
+                    want = layers * (n + 2 + (name == "flash_fwd"))
+                    check(counts.get(name, 0) == want, f"{name} "
+                          f"launched {counts.get(name, 0)} times, not "
+                          f"{want}, in {n} steps of {layers} layers")
+                # d. one replay and no host synchronisation per superstep
+                xs, ys = _stack_dev(mx, ctx, batches[:SS_K])
+                torch.cuda.synchronize()
+                before = ss.replays
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    ss.step(xs, ys, B)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                check(ss.replays == before + 1, "a superstep replayed "
+                      f"{ss.replays - before} times")
+                host, dev = _timed_supersteps(lambda: ss.step(xs, ys, B),
+                                              5)
+                by_name, window_us = _profile_superstep(
+                    lambda: ss.step(xs, ys, B), SS_K)
+                busy = sum(by_name.values())
+                say("bert-amp-superstep", k=SS_K, batch=B, seq=T,
+                    step_ms_host=f"{min(host) / SS_K:.3f}-"
+                    f"{max(host) / SS_K:.3f}",
+                    step_ms_device=f"{min(dev) / SS_K:.3f}-"
+                    f"{max(dev) / SS_K:.3f}",
+                    sequences_per_s=f"{B * SS_K / (min(host) / 1e3):.2f}",
+                    profiled_busy_ms_per_step=f"{busy / 1e3:.3f}",
+                    profiled_idle_share=f"{1 - busy / window_us:.4f}",
+                    fp32_replayed_ms_pr15=152.443,
+                    no_host_sync=True, replays=ss.replays)
+                say_step_split("bert-amp-superstep", by_name, busy,
+                               groups=AMP_GROUPS)
+                del xs, ys
+            del blk, tr, ss, ring, graph
+            gc.collect()
+            torch.cuda.empty_cache()
+        (la, wa), (lb, wb) = runs
+        same = la == lb and all(torch.equal(a, b) for a, b in zip(wa, wb))
+        say("bert-amp-superstep-repeat", seed=SEED, bitwise=same)
+        check(same, "[bert-amp-superstep] two runs from one seed differ")
+        del runs, wa, wb
+    finally:
+        mx.amp.disable()
+    # b. fp32 over the same steps against bf16's
+    blk, tr = bert_amp_setup(ctx, amp_dtype=None, **cut)
+    with mx.autograd.predict_mode():  # resolve the deferred shapes
+        blk(mx.nd.array(batches[0][0][:1], dtype="int32", ctx=ctx))
+    # the first weights, as Normal(0.02, seed=SEED) draws them in both
+    # runs; the bf16 run's first masters are these rounded to bf16
+    w0 = {k: p.data().data.clone()
+          for k, p in blk._collect_params_with_prefix().items()}
+    ss = mx.gluon.Superstep(blk, loss_fn, tr, k=SS_K)
+    mx.random.seed(SEED)
+    l32 = ss.run(SuperstepRing(batches, SS_K, device=ctx), B)
+    m32 = _masters(tr, blk)
+    # Gram matrix of the fp32 update, the bf16 update and the decay's
+    # direction s, summed over every parameter
+    gram = torch.zeros(3, 3, dtype=torch.float64,
+                       device=next(iter(w0.values())).device)
+    for k, w in w0.items():
+        vecs = torch.stack([
+            (m32[k] - w).double().reshape(-1),
+            (bf16_masters[k] - w.to(bf16_types[k]).float()).double()
+            .reshape(-1), -torch.sign(w).double().reshape(-1)])
+        gram += vecs @ vecs.t()
+    g = gram.tolist()
+    cos = g[0][1] / (g[0][0] * g[1][1]) ** 0.5
+    cos_wd = g[0][2] / (g[0][0] * g[2][2]) ** 0.5
+    # r = d - (d.s / s.s) s for each update d: their dot products
+    r = [[g[i][j] - g[i][2] * g[j][2] / g[2][2] for j in (0, 1)]
+         for i in (0, 1)]
+    cos_r = r[0][1] / (r[0][0] * r[1][1]) ** 0.5
+    rel, ab = BF16_DRIFT
+    drift = [abs(b - a) for a, b in zip(l32, la)]
+    say("bert-amp-superstep-fp32", losses_fp32=[f"{v:.5f}" for v in l32],
+        losses_bf16=[f"{v:.5f}" for v in la],
+        worst_drift_8=f"{max(drift[:2 * SS_K]):.5f}",
+        worst_drift_all=f"{max(drift):.5f}", rel=rel, abs=ab,
+        abs_limit_all=BF16_LOSS_ABS, update_cos=f"{cos:.6f}",
+        update_cos_weight_decay_alone=f"{cos_wd:.6f}",
+        residual_cos=f"{cos_r:.6f}", residual_cos_limit=BF16_RESIDUAL_COS,
+        residual_share=f"{(r[0][0] / g[0][0]) ** 0.5:.5f}",
+        update_norm_ratio=f"{(g[1][1] / g[0][0]) ** 0.5:.5f}")
+    check(all(abs(b - a) <= ab + rel * abs(a)
+              for a, b in zip(l32[:2 * SS_K], la[:2 * SS_K])),
+          "[bert-amp-superstep] bf16 losses left the fp32 trajectory")
+    check(len(l32) == len(la) and max(drift) <= BF16_LOSS_ABS,
+          f"[bert-amp-superstep] a bf16 loss {max(drift):.4f} from fp32's")
+    check(cos_r >= BF16_RESIDUAL_COS,
+          f"[bert-amp-superstep] beyond the weight decay, the bf16 update's"
+          f" cosine with fp32's is {cos_r:.4f}")
+    del blk, tr, ss, w0, m32, bf16_masters, bf16_types
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def checkpoint_resume_phase(ctx, **cut):
+    """``[bert-amp-superstep]``'s net (bf16, dropout 0.1) with a
+    ``CheckpointManager`` every CKPT_EVERY steps: three supersteps of K =
+    4 on device-resident batches (the checkpoints at steps 4, 8 and 12);
+    then a fresh net and trainer in the same process ``load_checkpoint``
+    step 8 and run superstep 3 again. Its loss, weights, fp32 masters and
+    Adam's m, v and t must equal the uninterrupted run's bit for bit, and
+    ``verify`` must pass on every committed step. Reports the
+    checkpoint's bytes, the snapshot's host time in the loop and the
+    writer thread's time."""
+    import shutil
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import resilience
+
+    B, T = BERT_BATCH if not cut else 8, BERT_SEQ if not cut else 16
+    vocab = cut.get("vocab_size", BERT_VOCAB)
+    batches = pretrain_host_batches(SS_K * SS_GROUPS, B, T, vocab,
+                                    seed=SEED + 1)
+    loss_fn = pretrain_xy_loss(mx)
+    root = os.path.join(ROOT, ".chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    mx.amp.init("bfloat16")
+    try:
+        blocks = [_stack_dev(mx, ctx, batches[i:i + SS_K])
+                  for i in range(0, len(batches), SS_K)]
+        blk, tr = bert_amp_setup(ctx, **cut)
+        mgr = resilience.CheckpointManager(root, every_n_steps=CKPT_EVERY,
+                                           keep=3, net=blk, trainer=tr,
+                                           install_sigterm=False).attach()
+        ss = mx.gluon.Superstep(blk, loss_fn, tr, k=SS_K)
+        mx.random.seed(SEED)
+        step_ms = []
+        for g, (xs, ys) in enumerate(blocks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ss.step(xs, ys, B)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if g == 1:
+                check(mgr.flush(), "the checkpoint writer did not drain")
+        check(mgr.flush(), "the checkpoint writer did not drain")
+        want_loss = out.data.clone()
+        want = {k: p.data().data.clone()
+                for k, p in blk._collect_params_with_prefix().items()}
+        want_st = {k: tuple(t.clone() for t in st) for k, p in
+                   blk._collect_params_with_prefix().items()
+                   for st in [tr._fused_states.get(p.name)] if st}
+        mgr.close()
+        steps = resilience.list_checkpoints(root)
+        problems = [p for _, path in steps for p in resilience.verify(path)]
+        with open(os.path.join(steps[-1][1], "MANIFEST.json")) as f:
+            nbytes = json.load(f)["payload_bytes"]
+        del blk, tr, ss
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        blk2, tr2 = bert_amp_setup(ctx, **cut)
+        t0 = time.perf_counter()
+        rep = resilience.load_checkpoint(
+            os.path.join(root, "step_%010d" % (2 * SS_K)), net=blk2,
+            trainer=tr2)
+        load_s = time.perf_counter() - t0
+        ss2 = mx.gluon.Superstep(blk2, loss_fn, tr2, k=SS_K)
+        got_loss = ss2.step(*blocks[2], B).data
+        torch.cuda.synchronize()
+        got = {k: p.data().data
+               for k, p in blk2._collect_params_with_prefix().items()}
+        got_st = {k: st for k, p in
+                  blk2._collect_params_with_prefix().items()
+                  for st in [tr2._fused_states.get(p.name)] if st}
+        same_w = all(torch.equal(got[k], w) for k, w in want.items())
+        same_st = set(got_st) == set(want_st) and all(
+            len(got_st[k]) == len(s) and all(
+                torch.equal(a, b) for a, b in zip(got_st[k], s))
+            for k, s in want_st.items())
+        same_loss = torch.equal(got_loss, want_loss)
+        say("checkpoint-resume", every=CKPT_EVERY,
+            committed=[s for s, _ in steps], resumed_step=rep.step,
+            verify_problems=len(problems), checkpoint_bytes=nbytes,
+            snapshot_ms=[f"{v * 1e3:.2f}" for v in mgr.snapshot_seconds],
+            writer_s=[f"{v:.2f}" for v in mgr.write_seconds],
+            load_s=f"{load_s:.2f}",
+            superstep_ms=[f"{v:.1f}" for v in step_ms],
+            loss_bitwise=same_loss, weights_bitwise=same_w,
+            adam_m_v_t_and_masters_bitwise=same_st)
+        check(not problems, f"verify: {problems[:3]}")
+        check([s for s, _ in steps] == [4, 8, 12],
+              f"committed steps {[s for s, _ in steps]}")
+        check(rep.step == 2 * SS_K, f"resumed at step {rep.step}")
+        check(same_loss and same_w and same_st, "[checkpoint-resume] the "
+              "resumed superstep differs from the uninterrupted run")
+    finally:
+        mx.amp.disable()
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def resnet_amp_fp16_phase(ctx, launches, batch=RESNET_BATCH,
+                          size=RESNET_SIZE, spec=None, settle=12):
+    """ResNet-50 v1 at batch 128 x 224 x 224 built as ``resnet_setup``
+    builds it, under ``amp.init("float16")``: ``convert_model``,
+    ``init_trainer`` (the reference's default scaler: 65536, factor 2,
+    window 2000), then ``optimize_for("tpu_fused_conv_bn")``, hybridized,
+    so K4/K5 run in float16; SGD momentum 0.9 lr 0.005
+    ``multi_precision``; ``Superstep(k=2)`` on seeded batches. At the
+    default scale the summed losses' gradients overflow float16 in both
+    packages, and the scaler backs off on its own: supersteps run until
+    two in a row have no overflow (at most ``settle``), reported as they
+    come. Then
+    three supersteps with ``chaos.configure("nan@superstep:2")``
+    poisoning slot 0 of the second. Checks: that iteration's overflow
+    flag is 1, the other iteration's 0 and the weights moved (it
+    applied); the scale halves across it and the overflow total counts
+    it once; K4/K5 ran in float16, 30 launches of each an iteration in
+    the graph; the trainable weights stay finite (BatchNorm's running
+    statistics take the poisoned batch's NaN, as the reference's
+    superstep carries them: ROADMAP C20). Reports ms a step (device,
+    host) beside fp32's 162.1-163.4 ms."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.data import stack_batches
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.resilience import chaos
+
+    mx.amp.init("float16")
+    try:
+        torch.manual_seed(SEED)
+        net = vision.resnet50_v1(classes=1000) if spec is None else \
+            vision.ResNetV1(vision.BottleneckV1, *spec)
+        net.initialize(init=mx.initializer.Xavier(seed=SEED), ctx=ctx)
+        rs = np.random.RandomState(SEED)
+        xs = [mx.nd.array(rs.rand(batch, 3, size, size).astype(np.float32),
+                          ctx=ctx).astype("float16")
+              for _ in range(2 * RESNET_AMP_K)]
+        ys = [mx.nd.array(rs.randint(0, 10, (batch,)).astype(np.float32),
+                          ctx=ctx) for _ in range(2 * RESNET_AMP_K)]
+        blocks = [(stack_batches(xs[i:i + RESNET_AMP_K]),
+                   stack_batches(ys[i:i + RESNET_AMP_K]))
+                  for i in range(0, len(xs), RESNET_AMP_K)]
+        mx.amp.convert_model(net)
+        net(xs[0][0:2])
+        fused = net.optimize_for(backend="tpu_fused_conv_bn")
+        fused.hybridize()
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                              dict(RESNET_AMP_SGD))
+        mx.amp.init_trainer(tr)
+        scaler = tr._amp_loss_scaler
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        ss = mx.gluon.Superstep(fused, loss_fn, tr, k=RESNET_AMP_K)
+        trained = [p for _, p in sorted(net.collect_params().items())
+                   if p.grad_req != "null"]
+        settling = []
+        # the graph is captured at the first superstep: the launchers'
+        # storage types are recorded from there on
+        kt = _KernelTypes().__enter__()
+        try:
+            for g in range(settle):
+                ss.step(*blocks[g % 2], batch)
+                settling.append(([int(v) for v in
+                                  ss.last_overflow.tolist()],
+                                 scaler.loss_scale))
+                if len(settling) > 1 and not any(settling[-1][0]) \
+                        and not any(settling[-2][0]):
+                    break
+            say("resnet-amp-fp16-settle", init_scale=65536.0,
+                supersteps=[f"{f}@{sc}" for f, sc in settling],
+                natural_overflows=scaler.overflow_total)
+            check(not any(settling[-1][0]), "the scaler did not settle "
+                  f"in {settle} supersteps: {settling}")
+            chaos.configure("nan@superstep:2")
+            flags, scales, totals = [], [scaler.loss_scale], \
+                [scaler.overflow_total]
+            launches.clear()
+            for g in range(3):
+                before = [p.data().data.clone() for p in trained] \
+                    if g == 1 else None
+                losses = ss.step(*blocks[g % 2], batch)
+                flags.append([int(v) for v in ss.last_overflow.tolist()])
+                scales.append(scaler.loss_scale)
+                totals.append(scaler.overflow_total)
+                if g == 1:
+                    moved = any(not torch.equal(b, p.data().data)
+                                for b, p in zip(before, trained))
+                    del before
+            fired = chaos.fired()
+        finally:
+            chaos.reset()
+            kt.__exit__(None, None, None)
+        counts = dict(launches)
+        graph = ss._plan["graph"]
+        glaunch = dict(graph.launches) if graph is not None else {}
+        finite = all(torch.isfinite(p.data().data.float()).all()
+                     for p in trained)
+        stats_finite = sum(
+            bool(torch.isfinite(p.data().data.float()).all())
+            for k, p in net.collect_params().items() if "running" in k)
+        say("resnet-amp-fp16-run", k=RESNET_AMP_K, flags=flags,
+            scales=scales, overflow_totals=totals, fired=fired,
+            last_losses=[f"{v:.5f}" for v in losses.data.float().tolist()],
+            kernel_types={k: sorted(v) for k, v in kt.seen.items()},
+            graph_launches=glaunch, launches=counts,
+            trained_weights_finite=finite,
+            running_stats_finite=f"{stats_finite}/"
+            f"{sum('running' in k for k in net.collect_params())}")
+        poisoned = flags[1]
+        check(poisoned[0] == 1, f"the poisoned iteration's flag is "
+              f"{poisoned[0]}")
+        check(poisoned[1] == 0 and moved, "the other iteration of the "
+              "poisoned superstep did not apply")
+        check(scales[2] == scales[1] / 2, f"the scale went {scales[1]} -> "
+              f"{scales[2]} across the poisoned superstep")
+        check(totals[2] == totals[1] + 1, f"overflow total {totals[1]} -> "
+              f"{totals[2]}")
+        check(finite, "a trained weight is not finite")
+        if spec is None:
+            for name in ("fused_fwd", "fused_dw", "fused_dx"):
+                check(glaunch.get(name, 0) == RESNET_FUSED * RESNET_AMP_K,
+                      f"the graph launches {name} {glaunch.get(name, 0)} "
+                      "times")
+                check(counts.get(name, 0) == 3 * RESNET_FUSED
+                      * RESNET_AMP_K, f"{name} launched "
+                      f"{counts.get(name, 0)} times in 3 supersteps")
+                check(kt.seen.get(name) == {"torch.float16"},
+                      f"{name} ran in {kt.seen.get(name)}")
+        host, dev = _timed_supersteps(lambda: ss.step(*blocks[0], batch), 5)
+        by_name, window_us = _profile_superstep(
+            lambda: ss.step(*blocks[0], batch), RESNET_AMP_K)
+        busy = sum(by_name.values())
+        say("resnet-amp-fp16", batch=batch, image=size,
+            step_ms_host=f"{min(host) / RESNET_AMP_K:.3f}-"
+            f"{max(host) / RESNET_AMP_K:.3f}",
+            step_ms_device=f"{min(dev) / RESNET_AMP_K:.3f}-"
+            f"{max(dev) / RESNET_AMP_K:.3f}",
+            images_per_s=f"{batch * RESNET_AMP_K / (min(host) / 1e3):.1f}",
+            profiled_busy_ms_per_step=f"{busy / 1e3:.3f}",
+            profiled_idle_share=f"{1 - busy / window_us:.4f}",
+            fp32_hybrid_ms="162.1-163.4",
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+            loss_scale=scaler.loss_scale)
+        say_step_split("resnet-amp-fp16", by_name, busy,
+                       groups=RESNET_AMP_GROUPS)
+        del net, fused, tr, ss, xs, ys, blocks, graph, trained
+    finally:
+        mx.amp.disable()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 8e: the nd operators on the card against the host in float64
 # ---------------------------------------------------------------------------
 
@@ -5698,6 +6536,7 @@ def main():
     mnv2_rows = fused_time_phase(dev, gen, fused_worst, MOBILENETV2_1X1,
                                  "mobilenetv2")
     fused_determinism(dev, gen)
+    lowp_kernel_time_phase(dev, gen)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -5749,6 +6588,8 @@ def main():
     torch.cuda.empty_cache()
     trainer_fused_phase(mx.gpu(0))
     torch.cuda.empty_cache()
+    bert_amp_superstep_phase(mx.gpu(0), _kernels.LAUNCHES)
+    checkpoint_resume_phase(mx.gpu(0))
 
     transformer_parity_phase(mx.gpu(0))
     counts, by_case = transformer_train_phase(mx.gpu(0), _kernels.LAUNCHES)
@@ -5770,6 +6611,7 @@ def main():
     resnet_train_hybrid_phase(mx.gpu(0), _kernels.LAUNCHES)
     gc.collect()
     torch.cuda.empty_cache()
+    resnet_amp_fp16_phase(mx.gpu(0), _kernels.LAUNCHES)
     data_phases(mx.gpu(0), _kernels.LAUNCHES)
     gc.collect()
     torch.cuda.empty_cache()

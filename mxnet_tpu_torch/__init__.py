@@ -54,6 +54,7 @@ from .ndarray import NDArray  # noqa: F401
 from . import autograd  # noqa: F401
 from . import initializer  # noqa: F401
 from . import lr_scheduler  # noqa: F401
+from . import amp  # noqa: F401
 from . import optimizer  # noqa: F401
 from .optimizer import Optimizer  # noqa: F401
 from . import fusedstep  # noqa: F401
@@ -65,6 +66,8 @@ from . import image  # noqa: F401
 from . import io  # noqa: F401
 from . import models  # noqa: F401
 from . import parallel  # noqa: F401
+from . import contrib  # noqa: F401
+from . import resilience  # noqa: F401
 from . import serving  # noqa: F401
 from . import test_utils  # noqa: F401
 from . import runtime  # noqa: F401

@@ -11,11 +11,13 @@ single-device Trainer and ``SPMDTrainStep`` read:
   never silent, and never a wrong answer (the per-parameter path takes
   over);
 - ``retrace_budget()`` — how many input-shape signatures a hybridized
-  block may capture before it warns (``gluon/block.py``).
+  block may capture before it warns (``gluon/block.py``);
+- ``superstep_k()`` / ``set_superstep_k()`` — the default K of
+  ``gluon.Superstep`` (``MXTPU_SUPERSTEP_K``, default 1).
 
 The reference's ``DONATE`` has no counterpart (torch updates in place);
-its bucket, overlap, superstep, pipeline, MoE, ZeRO and elastic knobs
-come with the paths that read them (ROADMAP A8, A11).
+its bucket, overlap, pipeline, MoE, ZeRO and elastic knobs come with the
+paths that read them (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ ENABLED = bool(getenv("MXTPU_FUSED_STEP", True, dtype=bool))
 
 _RETRACE_BUDGET_DEFAULT = 8
 
+#: K-step superstep: how many forward + backward + update iterations one
+#: gluon.Superstep call runs (MXTPU_SUPERSTEP_K, default 1)
+SUPERSTEP_K = max(1, int(getenv("MXTPU_SUPERSTEP_K", 1, dtype=int)))
+
 _logger = logging.getLogger("mxnet_tpu_torch.fusedstep")
 _LOGGED: set = set()
 
@@ -41,6 +47,20 @@ def set_enabled(on: bool) -> bool:
     """Flip the fused update at runtime; returns the previous state."""
     global ENABLED
     prev, ENABLED = ENABLED, bool(on)
+    return prev
+
+
+def superstep_k() -> int:
+    """Default iteration count of a ``gluon.Superstep``
+    (``MXTPU_SUPERSTEP_K``); 1 makes each call one captured step."""
+    return SUPERSTEP_K
+
+
+def set_superstep_k(k: int) -> int:
+    """Set the default superstep K; returns the previous value. Existing
+    Superstep objects keep their K."""
+    global SUPERSTEP_K
+    prev, SUPERSTEP_K = SUPERSTEP_K, max(1, int(k))
     return prev
 
 

@@ -1,4 +1,5 @@
-"""Gluon of the port: blocks, layers, losses, Trainer, model zoo."""
+"""Gluon of the port: blocks, layers, losses, Trainer, Superstep, model
+zoo."""
 
 from . import data, loss, model_zoo, nn, utils  # noqa: F401
 from .block import Block, HybridBlock  # noqa: F401
@@ -8,4 +9,4 @@ from .parameter import (  # noqa: F401
     Parameter,
     ParameterDict,
 )
-from .trainer import Trainer  # noqa: F401
+from .trainer import Superstep, Trainer  # noqa: F401

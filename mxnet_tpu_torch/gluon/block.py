@@ -38,6 +38,7 @@ import torch
 from .. import autograd
 from .. import fusedstep as _fusedstep
 from .. import observability as _obs
+from ..amp import policy as _amp_policy
 from ..base import MXNetError
 from ..context import current_context
 from ..ndarray.ndarray import NDArray, zeros
@@ -1070,11 +1071,12 @@ class _CachedGraph:
 
     The key: each NDArray input's (shape, dtype), ``training``,
     ``recording``, ``inputs_tracked`` (an input requires grad) and
-    ``recording and fusedstep.ENABLED``; the JAX package's last field, the
-    AMP policy, is None until AMP is ported. An entry whose parameter
-    handles no longer hold the tensors it captured (``Parameter.cast``, a
-    re-initialisation) is captured again, cause ``params``. The eager path
-    runs only where the JAX package's does: arguments that are not flat
+    ``recording and fusedstep.ENABLED`` and the AMP policy,
+    ``(target_dtype, cast_ops)`` while it is on (None otherwise), so
+    toggling ``amp.init`` or extending its fp32 list captures again, cause
+    ``amp``. An entry whose parameter handles no longer hold the tensors it
+    captured (``Parameter.cast``, a re-initialisation) is captured again,
+    cause ``params``. The eager path runs only where the JAX package's does: arguments that are not flat
     (lists, tuples, keyword arguments) and the first call, which resolves
     deferred shapes. ``retrace_causes`` lists, in order, why each entry
     after the first was captured."""
@@ -1104,8 +1106,11 @@ class _CachedGraph:
         recording = autograd.is_recording()
         training = autograd.is_training()
         tracked = recording and any(a._t.requires_grad for a in arrays)
+        amp = _amp_policy._STATE
         key = (tuple((a.shape, str(a.dtype)) for a in arrays), training,
-               recording, tracked, recording and _fusedstep.ENABLED, None)
+               recording, tracked, recording and _fusedstep.ENABLED,
+               None if amp["target_dtype"] is None
+               else (amp["target_dtype"], amp["cast_ops"]))
         entry = self._cache.get(key)
         if entry is not None and entry.holds(handles):
             if _obs.ENABLED:

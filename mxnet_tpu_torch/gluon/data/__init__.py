@@ -1,7 +1,8 @@
 """``mx.gluon.data`` of the port (reference: ``python/mxnet/gluon/data/``):
-datasets, samplers, ``DataLoader``, ``DevicePrefetcher``, the batch-shape
-guard and ``vision``. ``SuperstepRing`` raises naming ROADMAP A8, the
-streaming reader's names (``stream.py``) ROADMAP A13."""
+datasets, samplers, ``DataLoader``, ``DevicePrefetcher`` and the K-deep
+``SuperstepRing`` of ``gluon.Superstep``, the batch-shape guard and
+``vision``. The streaming reader's names (``stream.py``) raise naming
+ROADMAP A13."""
 
 from .dataset import (  # noqa: F401
     Dataset,

@@ -25,8 +25,10 @@ On a CUDA device the copy runs on a side stream:
   memory while the consumer's stream may still read them.
 
 ``device=None`` keeps batches on the host, as the reference does. A
-``mesh`` (sharded staging) is ROADMAP A11's, ``SuperstepRing`` A8's and
-the chaos hook A9's; each raises ``MXNetError`` naming its item.
+``mesh`` (sharded staging) is ROADMAP A11's and raises ``MXNetError``
+naming it. ``resilience.chaos``'s ``nan`` fault at site ``prefetch``
+poisons the float leaves of a staged batch. :class:`SuperstepRing` groups
+the staged batches K at a time for ``gluon.Superstep``.
 
 Error contract: an exception raised by the source (or the copy) reaches
 the consumer's ``next()``, never a silent hang; ``close()`` is idempotent
@@ -38,6 +40,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from contextlib import nullcontext as _nullcontext
 
 import numpy as _np
 import torch
@@ -86,9 +89,6 @@ class DevicePrefetcher:
         if mesh is not None:
             raise MXNetError("DevicePrefetcher(mesh=...): sharded staging "
                              "over a device mesh is ROADMAP A11's")
-        if getenv("MXTPU_CHAOS"):
-            raise MXNetError("DevicePrefetcher: fault injection "
-                             "(MXTPU_CHAOS) comes with ROADMAP A9")
         self._lifecycle_lock = threading.Lock()
         self._source = source
         self._batch_axis = batch_axis
@@ -155,6 +155,14 @@ class DevicePrefetcher:
         box = [0]
         t0 = time.perf_counter()
         out = self._convert_leaf(batch, box)
+        from ...resilience import chaos as _chaos
+
+        if _chaos.ENABLED and _chaos.nan_due("prefetch"):
+            # an injected bad batch (MXTPU_CHAOS=nan@prefetch:N): the
+            # float leaves of the Nth staged batch become NaN
+            with torch.cuda.stream(self._stream) if self._stream \
+                    is not None else _nullcontext():
+                out = _chaos.poison_struct(out)
         event = None
         if self._stream is not None:
             event = torch.cuda.Event()
@@ -395,13 +403,105 @@ def stack_batches(batches):
 
 
 class SuperstepRing:
-    """The K-deep staging ring of the training superstep (reference:
-    ``SuperstepRing``). The superstep is ROADMAP A8's; until then this
-    raises."""
+    """The K-deep staging ring of a training superstep.
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("SuperstepRing feeds the K-step superstep, which "
-                         "is not in the port yet (ROADMAP A8)")
+    Wraps a batch source in a :class:`DevicePrefetcher` whose queue is at
+    least ``k`` deep, so the thread stages the next superstep's K batches
+    while the current one runs. Iterating yields ``(group, n)``: with
+    ``n == k``, ``group`` is the stacked ``[K, ...]`` batch
+    (:func:`stack_batches`); a short last group (the source ran out) is
+    the list of its staged batches with ``n < k``, for the consumer to
+    single-step.
+
+    Error contract: a source or copy error reaches ``next()`` after the
+    batches staged before it (a group interrupted by an error is yielded
+    short, and the error is raised at the next ``next()``);
+    ``KeyboardInterrupt`` and ``SystemExit`` are not deferred.
+    ``close()`` is idempotent and joins the thread.
+
+    >>> ring = SuperstepRing(loader, k=8, device=mx.gpu())
+    >>> for group, n in ring:
+    ...     if n == ring.k:
+    ...         sstep.step(group[0], group[1], batch_size)
+    """
+
+    def __init__(self, source, k, device=None, mesh=None, depth=None):
+        self.k = max(1, int(k))
+        if isinstance(source, DevicePrefetcher):
+            if device is not None or mesh is not None or depth is not None:
+                raise ValueError(
+                    "SuperstepRing: device/mesh/depth apply only when "
+                    "the ring builds its own prefetcher; configure them "
+                    "on the DevicePrefetcher you passed in")
+            if source._depth < self.k:
+                import logging
+
+                logging.getLogger(__name__).warning(
+                    "SuperstepRing: wrapped DevicePrefetcher depth %d "
+                    "< k=%d: the next superstep's batches cannot all "
+                    "stage while the current one runs; build the "
+                    "prefetcher with depth >= k", source._depth, self.k)
+            self._pf = source
+            self._own = False
+        else:
+            d = depth if depth is not None \
+                else self.k + (prefetch_depth() or _DEPTH_DEFAULT)
+            self._pf = DevicePrefetcher(source, device=device, mesh=mesh,
+                                        depth=d)
+            self._own = True
+        self._err = None
+
+    def __iter__(self):
+        iter(self._pf)
+        return self
+
+    def __next__(self):
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+        group = []
+        for _ in range(self.k):
+            try:
+                group.append(next(self._pf))
+            except StopIteration:
+                break
+            except Exception as e:
+                if not group:
+                    raise
+                self._err = e
+                break
+        if not group:
+            raise StopIteration
+        if self._err is not None or len(group) < self.k:
+            return group, len(group)
+        return stack_batches(group), self.k
+
+    @property
+    def cursor(self):
+        """Batches delivered through the ring this epoch (a stacked group
+        counts its K): the input position a checkpoint records."""
+        return self._pf.cursor
+
+    def repartition(self, mesh=None, device=None, batch_axis=None,
+                    world=None, rank=None):
+        """Delegate to the prefetcher; the cursor is kept."""
+        self._pf.repartition(mesh=mesh, device=device,
+                             batch_axis=batch_axis, world=world, rank=rank)
+        return self
+
+    def reset(self):
+        self._err = None
+        self._pf.reset()
+
+    def close(self):
+        if self._own:
+            self._pf.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 - interpreter teardown
+            pass
 
 
 def wrap_for_fit(source, ctx=None, depth=None):

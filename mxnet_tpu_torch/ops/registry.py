@@ -7,8 +7,8 @@ with its attributes as keywords; the ``nd`` namespace, the NDArray
 methods and ``ops.dispatch.invoke`` are generated from this registry.
 There is no executable cache: torch runs an op eagerly, and a hybridized
 block captures a CUDA graph of a whole forward (``gluon/_capture.py``).
-The AMP cast policy that the JAX package applies here comes with the AMP
-layer (ROADMAP A7).
+The AMP cast policy that the JAX package applies here is applied where
+an op is dispatched (``ops/dispatch.py``, ``amp/policy.py``).
 """
 
 from __future__ import annotations

@@ -24,7 +24,7 @@ from ..base import MXNetError
 from ..gluon.block import _bound
 from ..ndarray.ndarray import NDArray, array
 from ..optimizer import multi_tensor
-from ..optimizer.multi_tensor import is_low_precision_dtype
+from ..amp.policy import is_low_precision_dtype
 
 
 def _state_dtype(w):
@@ -176,6 +176,7 @@ class SPMDTrainStep:
     >>> step = SPMDTrainStep(net, loss_fn, "adam", {}, mesh=None)
     >>> loss = step(batch_x, batch_y, lr=1e-4)       # a float
     >>> loss = step.run_steps(batch_x, batch_y, 10)  # on the device
+    >>> losses = step.run_superstep(xs, ys, lr=[1e-4] * 4)  # K batches
 
     The loss is the mean over the batch of ``loss_fn(block(x), y)``. The
     step keeps its own copy of the parameters and the optimizer state;
@@ -292,7 +293,9 @@ class SPMDTrainStep:
                     [params[i] for i in diff_idx], grads,
                     [opt_states[i] for i in diff_idx], [lr] * n,
                     [self._hyper.get("wd", 0.0)] * n,
-                    [self._num_update] * n, self._multi_precision)
+                    # every state starts at init_state and steps with
+                    # the others: one step count for all
+                    self._multi_precision, t_uniform=True)
                 grads.clear()
                 return
             lr_t = torch.full((), lr, dtype=torch.float32,
@@ -341,6 +344,34 @@ class SPMDTrainStep:
         for _ in range(int(n)):
             self._last_loss = self._step(*args)
         return self._last_loss
+
+    def run_superstep(self, xs, ys, lr=0.01):
+        """K distinct batches, stacked on a leading ``[K]`` axis
+        (``gluon.data.stack_batches``), one step each, with no host
+        synchronisation between them (the JAX package scans its compiled
+        step over them). ``lr`` is a scalar or K values (iteration ``i``
+        takes ``lr[i]``). The first call resolves deferred shapes with a
+        predict pass on one row, consuming no update. Returns the K
+        losses, one device tensor."""
+        raw_x, raw_y = _raw(xs), _raw(ys)
+        if self._state is None:
+            row = raw_x[0]
+            with _bound(), autograd.predict_mode():
+                self.block(NDArray(row[0:1] if row.dim() and
+                                   row.shape[0] > 1 else row))
+            self.init_state()
+        k = int(raw_x.shape[0])
+        lrs = [float(v) for v in torch.as_tensor(lr).reshape(-1).tolist()]
+        if len(lrs) == 1:
+            lrs = lrs * k
+        if len(lrs) != k:
+            raise MXNetError(f"run_superstep: lr must be a scalar or {k} "
+                             f"values; got {len(lrs)}")
+        losses = [self._step(*self._prepare(raw_x[i], raw_y[i], lrs[i]))
+                  for i in range(k)]
+        out = torch.stack(losses)
+        self._last_loss = out[-1]
+        return out
 
     def sync_to_block(self):
         """Write the step's parameters back into the Gluon parameters

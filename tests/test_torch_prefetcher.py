@@ -215,9 +215,10 @@ def test_unported_prefetcher_options_raise(monkeypatch):
         DevicePrefetcher([]).repartition(mesh=object())
     with pytest.raises(mx.MXNetError, match="A13"):
         DevicePrefetcher([]).repartition(world=2, rank=0)
+    # the chaos hook is ported (``resilience.chaos``, site ``prefetch``):
+    # MXTPU_CHAOS no longer refuses a prefetcher
     monkeypatch.setenv("MXTPU_CHAOS", "nan@prefetch:2")
-    with pytest.raises(mx.MXNetError, match="A9"):
-        DevicePrefetcher([])
+    assert list(DevicePrefetcher([])) == []
 
 
 def test_repartition_restages_onto_the_new_device():
