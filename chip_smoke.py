@@ -285,6 +285,42 @@ Phases (each prints one line of facts; any failure exits non-zero):
    products, K1, K6, element-wise kernels and the Adam update); the loss
    must be finite and fall, K6 launch twice per step and K2 never.
 
+13. distributed — ``[dist-nccl]``: a world of one rank through
+   ``kvstore.init_distributed()`` under the launcher's environment contract
+   on ``cuda:0``, backend NCCL (its default on a card): NCCL's version,
+   ``dist_tpu_sync``'s rank 0 of 1, a barrier, one ``all_reduce`` of a
+   64 MiB bucket timed. Then two worker processes of this script
+   (``--dist-worker``) share the card in a world of two ranks, backend
+   ``DIST_BACKEND`` (gloo: NCCL refuses two ranks on one card,
+   ``tools/dist_probe.py``), each with its half (32 x 128) of
+   ``[bert-pretrain]``'s global batch of 64 on BERT-base at full width
+   (pooler, NSP and MLM heads, 133,547,324 parameters, Normal(0.02) from
+   SEED, fp32, dropout 0). ``[dist-bert-trainer]``: ``Trainer(kvstore=
+   "dist_tpu_sync")``, Adam lr 1e-4 wd 0.01, 3 steps of the pretraining
+   loss; after the first ``allreduce_grads`` both ranks' gradients equal
+   bit for bit and each within DIST_GRAD_RTOL of its layer's largest of
+   the one-process gradient of the whole batch, and each rank's losses
+   within DIST_LOSS_RTOL of the one-process run's on its half (that run,
+   3 steps of the same Trainer without a store, made here before the
+   world starts, then freed); after 3 steps the parameters equal bit for
+   bit across ranks; the losses finite and the last below the first; K1
+   and K2's two kernels 12 times a step in each rank. ``[dist-bert-zero]``:
+   ``SPMDTrainStep(mesh=make_mesh({"dp": 2}))`` with Adam at ZeRO 0, 2
+   and 3 (``overlap="ready"``) and at 0 with ``"barrier"``, 3 steps each:
+   stages 2 and 3 equal stage 0 and ``ready`` equals ``barrier``, losses
+   and parameters bit for bit; 0/ready's losses within
+   DIST_ZERO_LOSS_RTOL and each parameter's update within
+   DIST_ZERO_UPDATE_RTOL (norm-wise; the attention's key biases within
+   Adam's step bound) of ``SPMDTrainStep(mesh=None)``'s over the whole
+   batch (made before the world starts, then freed);
+   ``zero_memory_report`` shows stage 2/3's
+   optimizer + gradient bytes within 1.05/2 of replicated and stage 3's
+   parameter bytes below stage 0's. Each prints its step ms, the
+   reduction's ms, bytes and buckets a step, the backend, each rank's
+   peak memory and the idle share of a profiled step. A worker that fails
+   fails the phase with its output; the world has a hard time limit and
+   is killed with its process groups.
+
 Phase 3 also times K1 and K2 in bfloat16 at BERT-base's shape and K4 and
 K5 in float16 at ResNet-50's 1x1 shapes (``[kernel-time-lowp]``), the
 types of phases 8d and 10b', beside the function's bound in that type
@@ -6497,6 +6533,554 @@ def zlib_crc(name):
     return zlib.crc32(name.encode())
 
 
+# The two-rank world of phase 13 shares the machine's one card: NCCL
+# 2.28.9 refuses two ranks of one communicator on one device ("Duplicate
+# GPU detected", tools/dist_probe.py), so the world's backend is gloo,
+# whose collectives take CUDA tensors through the host. Fixed here.
+DIST_BACKEND = "gloo"
+DIST_RANKS = 2
+DIST_BATCH = 32  # per rank: the global batch is [bert-pretrain]'s 64
+DIST_STEPS = 3
+DIST_TIMEOUT_S = 420  # the world's hard limit, its start to its end
+# the two ranks' summed gradient against one process's gradient of the
+# whole batch, each within this of its layer's largest |gradient|
+DIST_GRAD_RTOL = 1e-5
+# each rank's losses against the one-process run's on its half, relative
+DIST_LOSS_RTOL = 1e-5
+# [dist-bert-zero]'s 0/ready against SPMDTrainStep(mesh=None) over the
+# whole batch: the losses relative, and each parameter's update of the
+# DIST_STEPS Adam steps as ||got - want|| / ||want||, but the attention's
+# key biases: their gradient is zero in exact arithmetic (the softmax over
+# the keys ignores the shift q.b_k), so Adam turns its rounding noise into
+# steps of up to lr each, and they are held to 2 x DIST_STEPS x lr apart.
+# Read on the H100: losses equal, worst update 5.2e-5 (a bias), key biases
+# 3.9e-9 apart; a dropped 1/dp postscale reads 0.63 (host rehearsal)
+DIST_ZERO_LOSS_RTOL = 1e-5
+DIST_ZERO_UPDATE_RTOL = 1e-3
+DIST_ZERO_RUNS = ((0, "ready"), (2, "ready"), (3, "ready"),
+                  (0, "barrier"))
+DIST_DIR = ".chip_smoke_dist"  # git-ignored; removed after the phase
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def dist_nccl_phase():
+    """``[dist-nccl]``: a one-rank NCCL world on ``cuda:0`` through the
+    environment contract, the store's rank and size, a barrier, and one
+    ``all_reduce`` of a 64 MiB bucket timed (the store's own reductions
+    are the identity in a world of one)."""
+    import torch.distributed as dist
+
+    import mxnet_tpu_torch as mx
+
+    env = {"MXTPU_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "MXTPU_NUM_PROCESSES": "1", "MXTPU_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        backend = mx.kv.init_distributed()
+        kv = mx.kv.create("dist_tpu_sync")
+        t0 = time.perf_counter()
+        kv.barrier()
+        barrier_ms = (time.perf_counter() - t0) * 1e3
+        bucket = torch.ones((64 << 20) // 4, device="cuda")
+        ms = cuda_ms(lambda: dist.all_reduce(bucket), 10)
+        ok = bool((bucket == 1).all())
+        say("dist-nccl", backend=backend,
+            nccl=".".join(map(str, torch.cuda.nccl.version())),
+            rank=kv.rank, num_workers=kv.num_workers,
+            barrier_ms=f"{barrier_ms:.3f}", all_reduce_64MiB_ms=f"{ms:.4f}",
+            sum_ok=ok)
+        check(backend == "nccl", f"[dist-nccl] backend {backend}")
+        check(kv.rank == 0 and kv.num_workers == 1,
+              "[dist-nccl] rank/num_workers of a one-rank world")
+        check(ok, "[dist-nccl] a one-rank all_reduce changed its tensor")
+    finally:
+        mx.kv.shutdown_distributed()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dist_bert_batch(shape):
+    """The global batch of phase 13 (``shape``: per-rank rows, sequence
+    length and vocabulary), from numpy seed SEED: ids, token types (0
+    then 1), the 15% MLM mask (position 1 always), NSP labels and the
+    labels of the SPMD step's MLM loss."""
+    B, T, vocab = DIST_RANKS * shape["batch"], shape["seq"], shape["vocab"]
+    rs = np.random.RandomState(SEED)
+    ids = rs.randint(0, vocab, (B, T)).astype(np.int32)
+    types = np.repeat((np.arange(T) >= T // 2)[None], B, 0).astype(np.int32)
+    mask = (rs.uniform(size=(B, T)) < MASK_P).astype(np.float32)
+    mask[:, 1] = 1.0
+    nsp = rs.randint(0, 2, (B,)).astype(np.float32)
+    labels = rs.randint(0, vocab, (B, T)).astype(np.float32)
+    return ids, types, mask, nsp, labels
+
+
+def dist_bert_net(mx, ctx, **cut):
+    """BERT-base as ``bert_pretrain_phase`` builds it, at dropout 0, with
+    shapes resolved by one forward."""
+    torch.manual_seed(SEED)
+    net = mx.models.bert_base(dropout=0.0, **cut)
+    net.initialize(init=mx.initializer.Normal(0.02, seed=SEED), ctx=ctx)
+    with mx.autograd.predict_mode():
+        net(mx.nd.zeros((1, 8), dtype="int32", ctx=ctx))
+    return net
+
+
+def _digest(tensors):
+    """SHA-256 of the tensors' bytes, in order (bit-for-bit comparison of
+    replicas across ranks)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _busy_share(step):
+    """Run ``step()`` once under the profiler: (device-busy ms, the
+    window's ms on the host clock)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return busy, window
+
+
+def _dist_trainer_run(mx, rank, ctx, launches, ref_path, shape):
+    """``[dist-bert-trainer]`` in one rank; returns its readings."""
+    net = dist_bert_net(mx, ctx, **shape["cut"])
+    params = net.collect_params()
+    ids, types, mask, nsp, _ = dist_bert_batch(shape)
+    b = shape["batch"]
+    rows = slice(rank * b, (rank + 1) * b)
+    mine = [mx.nd.array(a[rows], dtype=a.dtype.name, ctx=ctx)
+            for a in (ids, types, mask, nsp)]
+    tr = mx.gluon.Trainer(params, "adam", dict(BERT_ADAM),
+                          kvstore="dist_tpu_sync")
+    out = {"losses": [], "step_ms": [], "allreduce_ms": []}
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+
+    def step(i):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = pretrain_loss(mx, net, *mine)[0]
+        loss.backward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr.allreduce_grads()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i == 0:
+            grads = [p.grad().data for p in params.values()]
+            out["grad_digest"] = _digest(grads)
+            ref = torch.load(ref_path, map_location=grads[0].device)
+            worst, name = _layer_grad_errors(
+                dict(zip(params.keys(), grads)), ref["grads"])
+            out["grad_worst_rel"], out["grad_worst"] = worst, name
+            out["ref_losses"] = [ls[rank] for ls in ref["losses"]]
+            del ref
+        tr.update(1)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["allreduce_ms"].append((t2 - t1) * 1e3)
+        out["losses"].append(float(loss.asscalar()))
+
+    for i in range(DIST_STEPS - 1):
+        step(i)
+    busy, window = _busy_share(lambda: step(DIST_STEPS - 1))
+    out["busy_ms"], out["window_ms"] = busy, window
+    out["launches"] = dict(launches)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["param_digest"] = _digest([p.data().data for p in params.values()])
+    out["bytes_reduced"] = sum(p.grad().data.numel() * 4
+                               for p in params.values()
+                               if p.grad_req != "null")
+    plans = tr._kvstore._bucket_plans
+    out["buckets"] = sum(len(pl["plan"].buckets) for pl in plans.values())
+    out["params"] = sum(p.data().size for p in params.values())
+    del tr, net, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_spmd_step(mx, net, ctx, shape, mesh, **kw):
+    """``[dist-bert-zero]``'s step on ``net`` (the MLM logits against the
+    batch's labels, Adam) over ``mesh`` (None: one process), its state
+    made, and the global batch on ``ctx``."""
+    ids, _, _, _, labels = dist_bert_batch(shape)
+    x = mx.nd.array(ids, dtype="int32", ctx=ctx)
+    y = mx.nd.array(labels, ctx=ctx)
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    step = mx.parallel.SPMDTrainStep(
+        net, lambda out, lab: sce(out[-1], lab), "adam",
+        {"wd": BERT_ADAM["wd"]}, mesh, **kw)
+    step.init_state()  # shapes are known: no predict pass in step 1
+    return step, x, y
+
+
+def _sorted_weights(net):
+    return {k: p.data().data for k, p in sorted(net.collect_params().items())}
+
+
+def _update_errors(got, want):
+    """``got`` against ``want`` (parameter updates, dicts in the same
+    order): the worst ||got - want|| / ||want|| of a parameter and its
+    name, but the attention's key biases (DIST_ZERO_UPDATE_RTOL), and
+    their largest |got - want|."""
+    worst, worst_name, key_bias = 0.0, "", 0.0
+    for (name, w), g in zip(want.items(), got.values()):
+        d = (g - w).float()
+        if name.endswith("attn_key_bias"):
+            key_bias = max(key_bias, float(d.abs().max()))
+            continue
+        rel = float(d.norm()) / max(float(w.float().norm()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name, key_bias
+
+
+def _dist_zero_run(mx, rank, ctx, launches, stage, overlap, shape,
+                   ref_path=None):
+    """One ``[dist-bert-zero]`` run in one rank; with ``ref_path``, its
+    losses and parameter updates against the one-process run's there."""
+    net = dist_bert_net(mx, ctx, **shape["cut"])
+    mesh = mx.parallel.make_mesh({"dp": DIST_RANKS})
+    step, x, y = _dist_spmd_step(mx, net, ctx, shape, mesh,
+                                 zero_stage=stage, overlap=overlap)
+    w0 = {k: w.clone() for k, w in _sorted_weights(net).items()} \
+        if ref_path else None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    out = {"losses": [], "step_ms": []}
+
+    def one():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(x, y, lr=BERT_ADAM["learning_rate"], sync=False)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(loss))
+
+    for _ in range(DIST_STEPS - 1):
+        one()
+    out["busy_ms"], out["window_ms"] = _busy_share(one)
+    out["launches"] = dict(launches)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["report"] = step.zero_memory_report()
+    out["buckets"] = len(step._plan.buckets)
+    out["mode"] = f"{step._mode}/{step._overlap_mode}"
+    step.sync_to_block()
+    out["param_digest"] = _digest(list(_sorted_weights(net).values()))
+    if ref_path:
+        ref = torch.load(ref_path, map_location=x.data.device)
+        got = {k: w - w0[k] for k, w in _sorted_weights(net).items()}
+        (out["update_worst_rel"], out["update_worst"],
+         out["key_bias_abs"]) = _update_errors(got, ref["delta"])
+        out["ref_losses"] = ref["losses"]
+        del ref, got, w0
+    del step, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _host_rehearsal():
+    """Phase 13's rehearsal on the host (``device="cpu"``, README): the
+    card's synchronisation and memory calls become no-ops. Never on the
+    card."""
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        setattr(torch.cuda, fn, lambda *a, **k: None)
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+
+
+def dist_worker(out_dir, shape_json, device="gpu"):
+    """One rank of phase 13's world (``--dist-worker``): joins it through
+    the environment contract, runs ``[dist-bert-trainer]`` and every
+    ``[dist-bert-zero]`` run and writes its readings as JSON. ``shape``:
+    the per-rank batch, sequence, vocabulary and BERT's width overrides
+    (``cut``, empty on the card); ``device`` "cpu" is the host
+    rehearsal."""
+    sys.path.insert(0, ROOT)
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import _kernels
+
+    shape = json.loads(shape_json)
+    if device == "cpu":
+        _host_rehearsal()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = mx.kv.init_distributed(backend=DIST_BACKEND)
+    rank = mx.kv.create("dist_tpu_sync").rank
+    ctx = mx.gpu(0) if device == "gpu" else mx.cpu()
+    res = {"rank": rank, "backend": backend,
+           "device": str(mx.resolve_device(ctx))}
+    res["trainer"] = _dist_trainer_run(
+        mx, rank, ctx, _kernels.LAUNCHES,
+        os.path.join(out_dir, "ref_grads.pt"), shape)
+    ref_zero = os.path.join(out_dir, "ref_zero.pt")
+    res["zero"] = {f"{s}/{o}": _dist_zero_run(
+        mx, rank, ctx, _kernels.LAUNCHES, s, o, shape,
+        ref_zero if (s, o) == DIST_ZERO_RUNS[0] else None)
+        for s, o in DIST_ZERO_RUNS}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    mx.kv.shutdown_distributed()
+
+
+def _dist_reference_grads(ctx, path, shape):
+    """One process's run of ``[dist-bert-trainer]`` over the whole batch:
+    the pretraining loss of each rank's half, summed in one graph (the
+    sum the two ranks' ``allreduce_grads`` forms), the same Adam through a
+    Trainer without a store, DIST_STEPS steps. Saves the first step's
+    gradients and each step's per-half losses to ``path``, then frees it
+    all. Then ``[dist-bert-zero]``'s: ``SPMDTrainStep(mesh=None)`` over
+    the whole batch, DIST_STEPS steps, its losses and each parameter's
+    update saved beside ``path`` (``ref_zero.pt``)."""
+    import mxnet_tpu_torch as mx
+
+    net = dist_bert_net(mx, ctx, **shape["cut"])
+    params = net.collect_params()
+    batch = dist_bert_batch(shape)
+    b = shape["batch"]
+    halves = [[mx.nd.array(a[r * b:(r + 1) * b],
+                           dtype=a.dtype.name, ctx=ctx) for a in batch[:4]]
+              for r in range(DIST_RANKS)]
+    tr = mx.gluon.Trainer(params, "adam", dict(BERT_ADAM), kvstore=None)
+    out = {"losses": []}
+    for i in range(DIST_STEPS):
+        with mx.autograd.record():
+            losses = [pretrain_loss(mx, net, *h)[0] for h in halves]
+            total = losses[0]
+            for loss in losses[1:]:
+                total = total + loss
+        total.backward()
+        if i == 0:
+            out["grads"] = {k: p.grad().data.clone()
+                            for k, p in params.items()}
+        tr.step(1)
+        out["losses"].append([float(loss.asscalar()) for loss in losses])
+    torch.save(out, path)
+    del net, params, halves, total, tr, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = dist_bert_net(mx, ctx, **shape["cut"])
+    step, x, y = _dist_spmd_step(mx, net, ctx, shape, None)
+    w0 = {k: w.clone() for k, w in _sorted_weights(net).items()}
+    losses = [float(step(x, y, lr=BERT_ADAM["learning_rate"], sync=False))
+              for _ in range(DIST_STEPS)]
+    step.sync_to_block()
+    delta = {k: w - w0[k] for k, w in _sorted_weights(net).items()}
+    torch.save({"losses": losses, "delta": delta},
+               os.path.join(os.path.dirname(path), "ref_zero.pt"))
+    del net, step, x, y, w0, delta
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dist_bert_phases(smi, device="gpu", cut=None, timeout=DIST_TIMEOUT_S):
+    """``[dist-bert-trainer]`` and ``[dist-bert-zero]`` (module
+    docstring, phase 13): the reference gradient here, then the world of
+    DIST_RANKS worker processes of this script; their readings printed
+    and gated. ``device="cpu"`` and ``cut`` rehearse it on the host."""
+    import shutil
+    import signal
+
+    import mxnet_tpu_torch as mx
+
+    cut = cut or {}
+    shape = {"batch": DIST_BATCH, "seq": BERT_SEQ,
+             "vocab": cut.get("vocab_size", BERT_VOCAB), "cut": cut}
+    out_dir = os.path.join(ROOT, DIST_DIR)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        t0 = time.perf_counter()
+        _dist_reference_grads(mx.gpu(0) if device == "gpu" else mx.cpu(),
+                              os.path.join(out_dir, "ref_grads.pt"), shape)
+        ref_s = time.perf_counter() - t0
+        port = _free_port()
+        procs = []
+        for r in range(DIST_RANKS):
+            env = dict(os.environ, MXTPU_COORDINATOR=f"127.0.0.1:{port}",
+                       MXTPU_NUM_PROCESSES=str(DIST_RANKS),
+                       MXTPU_PROCESS_ID=str(r))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                 out_dir, json.dumps(shape), device], env=env, cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                start_new_session=True))
+        deadline = time.monotonic() + timeout
+        logs = []
+        for p in procs:
+            try:
+                text, _ = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    try:
+                        os.killpg(q.pid, signal.SIGKILL)
+                    except ProcessLookupError:
+                        pass
+                text, _ = p.communicate()
+                text = (text or "") + f"\n[killed after {timeout} s]"
+            logs.append((p.returncode, text))
+        world_s = time.perf_counter() - t0 - ref_s
+        for r, (rc, text) in enumerate(logs):
+            if rc != 0 or not os.path.exists(
+                    os.path.join(out_dir, f"rank{r}.json")):
+                print(text[-6000:], flush=True)
+            check(rc == 0, f"[dist-bert] rank {r} exited {rc}")
+        res = []
+        for r in range(DIST_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        for p in locals().get("procs", []):
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    _dist_gates(res, smi, ref_s, world_s, shape)
+
+
+def _dist_gates(res, smi, ref_s, world_s, shape):
+    layers = shape["cut"].get("num_layers", BERT_LAYERS)
+
+    def loss_rel(t):
+        return max(abs(a - b) / abs(b)
+                   for a, b in zip(t["losses"], t["ref_losses"]))
+
+    tr = [r["trainer"] for r in res]
+    for r, t in zip(res, tr):
+        per_step = {k: t["launches"].get(k, 0) / DIST_STEPS
+                    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        say("dist-bert-trainer", rank=r["rank"], backend=r["backend"],
+            device=r["device"], nvidia_smi=f'"{smi}"', params=t["params"],
+            batch=f"{shape['batch']}x{shape['seq']}",
+            losses="/".join(f"{v:.6f}" for v in t["losses"]),
+            step_ms="/".join(f"{v:.1f}" for v in t["step_ms"]),
+            allreduce_grads_ms="/".join(f"{v:.1f}" for v in
+                                        t["allreduce_ms"]),
+            bytes_reduced_per_step=t["bytes_reduced"],
+            buckets_per_step=t["buckets"],
+            busy_ms=f"{t['busy_ms']:.1f}",
+            idle_share=f"{1 - t['busy_ms'] / t['window_ms']:.4f}",
+            peak_gb=f"{t['peak_gb']:.2f}",
+            k1_k2_per_step="/".join(f"{v:g}" for v in per_step.values()),
+            one_process_losses="/".join(f"{v:.6f}" for v in
+                                        t["ref_losses"]),
+            loss_rel=f"{loss_rel(t):.3e}",
+            grad_worst_rel=f"{t['grad_worst_rel']:.3e}",
+            grad_worst=t["grad_worst"] or "-")
+        check(loss_rel(t) <= DIST_LOSS_RTOL,
+              f"[dist-bert-trainer] rank {r['rank']}: losses "
+              f"{t['losses']} off the one-process run's {t['ref_losses']}")
+        check(t["grad_worst_rel"] <= DIST_GRAD_RTOL,
+              f"[dist-bert-trainer] rank {r['rank']}: summed gradient "
+              f"{t['grad_worst']} off the one-process gradient by "
+              f"{t['grad_worst_rel']}")
+        check(all(v == layers for v in per_step.values()),
+              f"[dist-bert-trainer] rank {r['rank']}: K1/K2 per step "
+              f"{per_step}, want {layers}")
+        check(all(np.isfinite(t["losses"])) and
+              t["losses"][-1] < t["losses"][0],
+              f"[dist-bert-trainer] losses {t['losses']}")
+        check(r["backend"] == DIST_BACKEND, f"backend {r['backend']}")
+    check(len({t["grad_digest"] for t in tr}) == 1,
+          "[dist-bert-trainer] the ranks' summed gradients differ")
+    check(len({t["param_digest"] for t in tr}) == 1,
+          "[dist-bert-trainer] the ranks' parameters differ after "
+          f"{DIST_STEPS} steps")
+    say("dist-bert-world", ranks=DIST_RANKS, backend=DIST_BACKEND,
+        reference_grad_s=f"{ref_s:.1f}", world_s=f"{world_s:.1f}",
+        grads_equal=True, replicas_equal=True)
+    base = res[0]["zero"]["0/ready"]
+    for key in res[0]["zero"]:
+        for r in res:
+            z = r["zero"][key]
+            rep = z["report"]
+            per_step = {k: z["launches"].get(k, 0) / DIST_STEPS
+                        for k in ("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv")}
+            say("dist-bert-zero", run=key, rank=r["rank"], mode=z["mode"],
+                losses="/".join(f"{v:.6f}" for v in z["losses"]),
+                step_ms="/".join(f"{v:.1f}" for v in z["step_ms"]),
+                buckets_per_step=z["buckets"],
+                busy_ms=f"{z['busy_ms']:.1f}",
+                idle_share=f"{1 - z['busy_ms'] / z['window_ms']:.4f}",
+                peak_gb=f"{z['peak_gb']:.2f}",
+                opt_bytes=f"{rep['opt_bytes_per_device']}/"
+                          f"{rep['opt_bytes_replicated']}",
+                grad_bytes=f"{rep['grad_bytes_per_device']}/"
+                           f"{rep['grad_bytes_replicated']}",
+                param_bytes=f"{rep['param_bytes_per_device']}/"
+                            f"{rep['param_bytes_replicated']}",
+                k1_k2_per_step="/".join(f"{v:g}" for v in per_step.values()))
+            check(all(np.isfinite(z["losses"])),
+                  f"[dist-bert-zero] {key} losses {z['losses']}")
+            check(z["losses"] == base["losses"] and
+                  z["param_digest"] == base["param_digest"],
+                  f"[dist-bert-zero] {key} rank {r['rank']} differs from "
+                  "0/ready")
+            check(all(v == layers for v in per_step.values()),
+                  f"[dist-bert-zero] {key}: K1/K2 per step {per_step}")
+        rep = res[0]["zero"][key]["report"]
+        if key in ("2/ready", "3/ready"):
+            dev = rep["opt_bytes_per_device"] + rep["grad_bytes_per_device"]
+            repl = rep["opt_bytes_replicated"] + rep["grad_bytes_replicated"]
+            check(dev <= repl / DIST_RANKS * 1.05,
+                  f"[dist-bert-zero] {key}: optimizer + gradient bytes "
+                  f"{dev} of {repl} replicated")
+    check(res[0]["zero"]["3/ready"]["report"]["param_bytes_per_device"]
+          < base["report"]["param_bytes_per_device"],
+          "[dist-bert-zero] ZeRO-3 keeps whole parameters at rest")
+    for r in res:
+        z = r["zero"]["0/ready"]
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(z["losses"], z["ref_losses"]))
+        key_bias_bound = 2 * DIST_STEPS * BERT_ADAM["learning_rate"]
+        say("dist-bert-zero-vs-one-process", rank=r["rank"],
+            losses="/".join(f"{v:.6f}" for v in z["losses"]),
+            one_process_losses="/".join(f"{v:.6f}" for v in
+                                        z["ref_losses"]),
+            loss_rel=f"{loss_rel:.3e}",
+            update_worst_rel=f"{z['update_worst_rel']:.3e}",
+            update_worst=z["update_worst"] or "-",
+            key_bias_abs=f"{z['key_bias_abs']:.3e}")
+        check(loss_rel <= DIST_ZERO_LOSS_RTOL,
+              f"[dist-bert-zero] rank {r['rank']}: losses {z['losses']} off "
+              f"the one-process step's {z['ref_losses']}")
+        check(z["update_worst_rel"] <= DIST_ZERO_UPDATE_RTOL,
+              f"[dist-bert-zero] rank {r['rank']}: update of "
+              f"{z['update_worst']} off the one-process step's by "
+              f"{z['update_worst_rel']}")
+        check(z["key_bias_abs"] <= key_bias_bound,
+              f"[dist-bert-zero] rank {r['rank']}: key biases "
+              f"{z['key_bias_abs']} apart")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAILED: no CUDA device visible")
@@ -6653,6 +7237,12 @@ def main():
     torch.cuda.empty_cache()
     counts = llama_train_phase(llama, x, y, _kernels.LAUNCHES)
     k6_row["launches"] = counts["flash_bwd_fused"]
+    del llama, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dist_nccl_phase()
+    dist_bert_phases(smi)
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [row] + flash_rows + fused_rows
                       + mnv2_rows + [k6_row]}))
@@ -6663,4 +7253,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-worker"]:
+        dist_worker(*sys.argv[2:5])
+    else:
+        main()

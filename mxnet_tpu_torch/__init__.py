@@ -58,6 +58,8 @@ from . import amp  # noqa: F401
 from . import optimizer  # noqa: F401
 from .optimizer import Optimizer  # noqa: F401
 from . import fusedstep  # noqa: F401
+from . import kvstore  # noqa: F401
+from . import kvstore as kv  # noqa: F401
 from . import metric  # noqa: F401
 from . import callback  # noqa: F401
 from . import gluon  # noqa: F401

@@ -12,6 +12,19 @@ context raises when it is used.
 ``with ctx:`` pushes a default context for the thread, as in MXNet; it is
 what ``current_context()`` returns, and what ``nd.array`` and
 ``net.initialize()`` place on when no ``ctx`` is given.
+
+``mx.cpu(i)`` for distinct ``i`` are distinct contexts, as in the JAX
+package and in MXNet: each names a host device of its own (a parameter
+initialised on ``[cpu(0), cpu(1)]`` keeps two copies), though every one of
+them resolves to ``torch.device("cpu")``. An ``NDArray`` remembers the
+context it was placed on, so ``x.context`` tells ``cpu(1)`` from
+``cpu(0)``.
+
+In a world of several processes (``kvstore.init_distributed``) each rank
+owns one card: card ``rank % device_count``, which ``mx.gpu(0)`` names
+inside that rank (device ids index process-local devices, as in the JAX
+package), and ``num_gpus()`` is 1. On a machine with one card every rank
+owns ``cuda:0``.
 """
 
 from __future__ import annotations
@@ -24,6 +37,15 @@ from .base import MXNetError
 
 _ALIASES = {"cpu": "cpu", "cpu_pinned": "cpu", "gpu": "cuda", "tpu": "cuda",
             "cuda": "cuda"}
+
+#: The card this process owns in a world of several ranks (set by
+#: ``kvstore.dist.init_distributed``); None: every card is visible.
+_LOCAL_CARD = [None]
+
+
+def set_local_card(index):
+    """Make ``mx.gpu(0)`` name CUDA card ``index`` (None: undo)."""
+    _LOCAL_CARD[0] = None if index is None else int(index)
 
 
 class Context:
@@ -40,14 +62,22 @@ class Context:
                 device_type.device_id
         elif isinstance(device_type, torch.device):
             device_type, device_id = device_type.type, device_type.index or 0
+            if device_type == "cuda" and _LOCAL_CARD[0] is not None:
+                device_id -= _LOCAL_CARD[0]
         if device_type not in _ALIASES:
             raise MXNetError(f"unknown device type {device_type!r}")
         self.device_type = "gpu" if device_type == "cuda" else device_type
         self.device_id = int(device_id)
 
     def _key(self):
+        return (_ALIASES[self.device_type], self.device_id)
+
+    def _places(self, device: torch.device) -> bool:
+        """Whether a tensor on ``device`` can belong to this context:
+        every host context resolves to the one CPU device."""
         kind = _ALIASES[self.device_type]
-        return (kind, 0 if kind == "cpu" else self.device_id)
+        return kind == device.type and (
+            kind == "cpu" or Context(device).device_id == self.device_id)
 
     def __eq__(self, other):
         if isinstance(other, (Context, torch.device)):
@@ -86,7 +116,8 @@ def tpu(device_id: int = 0) -> Context:
 
 
 def cpu(device_id: int = 0) -> Context:
-    """The host CPU (``device_id`` is accepted for API symmetry)."""
+    """The ``device_id``-th host device; all of them are the host CPU to
+    torch, and distinct contexts to Gluon."""
     return Context("cpu", device_id)
 
 
@@ -98,8 +129,10 @@ def cpu_pinned(device_id: int = 0) -> Context:
 
 def num_gpus() -> int:
     """The number of CUDA cards this process sees (reference:
-    ``context.py:num_gpus``)."""
-    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+    ``context.py:num_gpus``): one in a rank of a distributed world."""
+    if not torch.cuda.is_available():
+        return 0
+    return 1 if _LOCAL_CARD[0] is not None else torch.cuda.device_count()
 
 
 def num_tpus() -> int:
@@ -118,14 +151,22 @@ def resolve_device(device=None) -> torch.device:
     """Map ``None`` / a :class:`Context` / a string / a ``torch.device``
     to a concrete ``torch.device``.
 
-    ``None`` means ``cuda:0``. A CUDA device is checked against what this
-    process can see and raises :class:`MXNetError` when there is none:
-    the port never runs on the CPU unless ``device="cpu"`` was asked for.
+    ``None`` means ``gpu(0)``: ``cuda:0``, or the rank's own card in a
+    distributed world. A CUDA device is checked against what this process
+    can see and raises :class:`MXNetError` when there is none: the port
+    never runs on the CPU unless ``device="cpu"`` was asked for.
     """
     if device is None:
-        dev = torch.device("cuda", 0)
-    elif isinstance(device, Context):
-        dev = torch.device(_ALIASES[device.device_type], device.device_id)
+        device = Context("gpu", 0)
+    if isinstance(device, Context):
+        kind = _ALIASES[device.device_type]
+        if kind == "cpu":
+            return torch.device("cpu")
+        local = _LOCAL_CARD[0]
+        if local is not None and device.device_id != 0:
+            raise MXNetError(f"{device} requested, but a rank of a "
+                             "distributed world owns one card, gpu(0)")
+        dev = torch.device(kind, device.device_id + (local or 0))
     else:
         dev = torch.device(device)
     if dev.type == "cpu":
@@ -136,7 +177,7 @@ def resolve_device(device=None) -> torch.device:
         raise MXNetError(
             f"device {dev} requested but no CUDA device is available; pass "
             "device='cpu' (ctx=mx.cpu()) to run on the host explicitly")
-    index = 0 if dev.index is None else dev.index
+    index = (_LOCAL_CARD[0] or 0) if dev.index is None else dev.index
     if index >= torch.cuda.device_count():
         raise MXNetError(f"device {dev} requested but only "
                          f"{torch.cuda.device_count()} CUDA device(s) exist")

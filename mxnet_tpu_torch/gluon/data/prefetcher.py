@@ -88,7 +88,9 @@ class DevicePrefetcher:
             raise ValueError("pass device OR mesh, not both")
         if mesh is not None:
             raise MXNetError("DevicePrefetcher(mesh=...): sharded staging "
-                             "over a device mesh is ROADMAP A11's")
+                             "over a device mesh is ROADMAP A11's; in a "
+                             "world of several ranks stage each rank's rows "
+                             "(parallel.shard_batch) with device=")
         self._lifecycle_lock = threading.Lock()
         self._source = source
         self._batch_axis = batch_axis

@@ -121,7 +121,7 @@ class Parameter:
         for c in ctx_list:
             arr = NDArray(torch.zeros(self._shape,
                                       dtype=torch_dtype(self.dtype),
-                                      device=_device(c)))
+                                      device=_device(c)), c)
             used(self.name, arr)
             if self.grad_req != "null":
                 arr.attach_grad(self.grad_req)
@@ -166,7 +166,7 @@ class Parameter:
                 return
             data = {}
             for c in ctx:
-                arr = NDArray(t.to(_device(c), copy=True))
+                arr = NDArray(t.to(_device(c), copy=True), c)
                 if self.grad_req != "null":
                     arr.attach_grad(self.grad_req)
                 data[c] = arr

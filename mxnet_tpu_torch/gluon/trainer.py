@@ -40,9 +40,19 @@ an attached ``CheckpointManager`` once.
 stacked batches; on a CUDA card the K iterations are one captured CUDA
 graph.
 
-Multi-device training is not ported: a ``dist*`` kvstore, a store
-object, ``compression_params`` or a parameter on more than one device
-raises (ROADMAP A11). The grad-norm gauge waits for A12.
+Several contexts and several ranks (reference: ``_init_kvstore``,
+``_allreduce_grads``): parameters on more than one context (``cpu(0)``
+and ``cpu(1)``, or one card per rank of a ``torch.distributed`` world)
+sum their gradients through a store, made from ``kvstore`` (``"device"``,
+``"local"``, a ``dist*`` name or a store object) with
+``compression_params`` handed to it. ``step`` sets ``rescale_grad =
+scale / batch_size`` and the store sums, exactly as in the JAX package.
+The fused update declines several contexts (logged once), and the
+per-parameter path updates the first context's copy and copies it to the
+others. ``update_on_kvstore`` is kept and, as in the JAX package, not
+read: the Trainer updates and the store only sums. ``Superstep``
+declines a store (logged), running K single steps. The grad-norm gauge
+waits for A12.
 """
 
 from __future__ import annotations
@@ -66,12 +76,6 @@ from ..resilience import checkpoint as _ckptmod
 from ..resilience.checkpoint import _flatten_state, _unflatten_state
 from . import _capture
 from .parameter import Parameter, ParameterDict
-
-
-def _no_multi_device(what):
-    return MXNetError(f"Trainer: {what} needs multi-device training, which "
-                      "is not ported yet (ROADMAP A11); this port trains on "
-                      "one device")
 
 
 def _to_numpy(t):
@@ -213,16 +217,15 @@ class Trainer:
                 raise MXNetError(f"invalid parameter {p}")
             self._params.append(p)
             self._param2idx[p.name] = i
-        if compression_params:
-            raise _no_multi_device("compression_params")
-        if kvstore is not None and not isinstance(kvstore, str):
-            raise _no_multi_device("a kvstore object")
-        if isinstance(kvstore, str) and kvstore.startswith("dist"):
-            raise _no_multi_device(f"kvstore={kvstore!r}")
-        # one device: "device", "local" and None are all the identity
+        self._compression_params = compression_params
         self._kvstore_type = kvstore
+        # kept and not read, as in the JAX package: the Trainer updates,
+        # the store only sums
         self._update_on_kvstore = update_on_kvstore
-        self._check_contexts()
+        self._kvstore = None
+        self._kv_initialized = False
+        self._params_to_init = list(self._params)
+        self._contexts = self._check_contexts()
         self._init_optimizer(optimizer, optimizer_params or {})
         self._scale = self._optimizer.rescale_grad
         self._fused = None  # fused-update plan (None = undecided)
@@ -233,6 +236,8 @@ class Trainer:
         self._restores = 0
 
     def _check_contexts(self):
+        """The contexts every parameter lives on (or is deferred to); they
+        must be the same for all."""
         contexts = None
         for p in self._params:
             if p._data is not None:
@@ -241,13 +246,64 @@ class Trainer:
                 ctx = p._deferred_init[1]
             else:
                 continue
-            if len(ctx) > 1:
-                raise _no_multi_device(f"{p.name} on {len(ctx)} devices")
             if contexts is not None and set(map(str, ctx)) \
                     != set(map(str, contexts)):
                 raise MXNetError("All Parameters must be initialized on "
                                  "the same contexts")
             contexts = ctx
+        return contexts or []
+
+    def _init_kvstore(self):
+        """The store (reference: ``Trainer._init_kvstore``): a store object
+        as given; a name makes one when the parameters live on several
+        contexts or the name is a ``dist*`` one; one context needs none.
+        ``compression_params`` go to the store."""
+        from ..kvstore import create as _create_kvstore
+        from ..kvstore.base import KVStoreBase
+
+        if isinstance(self._kvstore_type, KVStoreBase):
+            self._kvstore = self._kvstore_type
+        elif self._kvstore_type is None:
+            self._kvstore = None
+        else:
+            n_dev = max(len(self._contexts), 1)
+            if n_dev > 1 or (isinstance(self._kvstore_type, str)
+                             and self._kvstore_type.startswith("dist")):
+                self._kvstore = _create_kvstore(self._kvstore_type)
+            else:
+                self._kvstore = None
+        if self._kvstore is not None and self._compression_params:
+            self._kvstore.set_gradient_compression(self._compression_params)
+        self._kv_initialized = True
+
+    def _init_params(self):
+        """Give the store each parameter that is initialised by now (its
+        first context's copy; ``dist_tpu_sync`` takes rank 0's)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        remaining, keys, values = [], [], []
+        for param in self._params_to_init:
+            if param._deferred_init is not None:
+                remaining.append(param)
+                continue
+            if self._kvstore is not None and param._data is not None:
+                keys.append(self._param2idx[param.name])
+                values.append(param.list_data()[0])
+        initialized_any = len(remaining) < len(self._params_to_init)
+        if keys:
+            # one call: a dist store broadcasts rank 0's values in buckets
+            self._kvstore.init(keys, values)
+        self._params_to_init = remaining
+        if not self._contexts:
+            self._contexts = self._check_contexts()
+        if initialized_any:
+            self._invalidate_fused()
+
+    def _ready(self):
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._params_to_init:
+            self._init_params()
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = dict(enumerate(self._params))
@@ -277,27 +333,53 @@ class Trainer:
             self._invalidate_fused()
 
     def step(self, batch_size, ignore_stale_grad=False):
-        """Scale gradients by ``1 / batch_size``, reduce them across
-        devices and update every parameter. A fault point of
-        ``resilience.chaos`` (site ``trainer``); the update runs inside
-        ``step_critical_section()`` (a SIGTERM's final checkpoint waits
-        for its end) and ticks an attached ``CheckpointManager``."""
+        """Scale gradients by ``1 / batch_size``, sum them across contexts
+        and ranks through the store and update every parameter.
+        ``batch_size`` is what the caller passes, as in the JAX package:
+        with ``dist_tpu_sync`` the gradients are the sum over every rank's
+        batch, so passing one rank's batch size scales the step by the
+        number of ranks. A fault
+        point of ``resilience.chaos`` (site ``trainer``); the update runs
+        inside ``step_critical_section()`` (a SIGTERM's final checkpoint
+        waits for its end) and ticks an attached ``CheckpointManager``."""
         if _chaos.ENABLED:
             _chaos.step_point("trainer")
         with _ckptmod.step_critical_section():
+            self._ready()
             self._optimizer.rescale_grad = self._scale / batch_size
-            self.allreduce_grads()
+            self._allreduce_grads()
             self._update(ignore_stale_grad)
             mgr = getattr(self, "_ckpt_manager", None)
             if mgr is not None:
                 mgr.on_step(1)
 
     def allreduce_grads(self):
-        """Sum gradients across the devices a parameter lives on; one
-        device has nothing to reduce."""
-        self._check_contexts()
+        """Sum every gradient across the contexts and ranks its parameter
+        lives on (one multi-key ``pushpull``); with no store, nothing."""
+        self._ready()
+        self._allreduce_grads()
+
+    def _grad_keys(self):
+        keys, params = [], []
+        for i, param in enumerate(self._params):
+            if param.grad_req == "null" or param._data is None:
+                continue
+            keys.append(i)
+            params.append(param)
+        return keys, params
+
+    def _allreduce_grads(self):
+        if self._kvstore is None:
+            return
+        keys, params = self._grad_keys()
+        if not keys:
+            return
+        grads = [p.list_grad() for p in params]
+        self._kvstore.pushpull(keys, grads, out=grads)
 
     def update(self, batch_size, ignore_stale_grad=False):
+        """The update alone, after :meth:`allreduce_grads`."""
+        self._ready()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
@@ -595,7 +677,8 @@ class Trainer:
         for i, param in enumerate(self._params):
             if param.grad_req == "null" or param._data is None:
                 continue
-            weight, grad = param.list_data()[0], param.list_grad()[0]
+            datas = param.list_data()
+            weight, grad = datas[0], param.list_grad()[0]
             if not hasattr(param, "_opt_state"):
                 param._opt_state = (
                     self._migrate_fused_to_eager(param, i, weight)
@@ -606,6 +689,10 @@ class Trainer:
                             i, weight)
             self._optimizer.update_multi_precision(i, weight, grad,
                                                    param._opt_state)
+            # after the allreduce every context holds the summed gradient:
+            # update once, copy the weight to the others
+            for d in datas[1:]:
+                d._set_data(weight.data.to(d.data.device))
 
     # -- optimizer state files --------------------------------------------
     def _state_index_map(self, saved_names):
@@ -759,9 +846,9 @@ class Superstep:
 
     Optimizer state is shared with ``trainer.step`` (``_fused_states``,
     updated in place), so the two interleave without resetting momentum
-    or Adam's ``t``. An optimizer without a fused rule, sparse or
-    multi-device parameters, parameters outside the block and a block
-    with nothing to train decline (logged through
+    or Adam's ``t``. An optimizer without a fused rule, a Trainer that
+    sums through a kvstore, sparse or multi-device parameters, parameters
+    outside the block and a block with nothing to train decline (logged through
     ``fusedstep.log_fallback``): the K batches then run as single steps.
     """
 
@@ -797,12 +884,15 @@ class Superstep:
         if self._plan is not None:
             return self._plan
         tr = self._trainer
+        tr._ready()
 
         def no(reason):
             _fusedstep.log_fallback("superstep", reason)
             self._plan = False
             return False
 
+        if tr._kvstore is not None:
+            return no("kvstore-backed gradient aggregation")
         rules = tr._fused_rules()
         if isinstance(rules, str):
             return no(rules)

@@ -5,14 +5,15 @@ PyTorch counterpart of ``mxnet_tpu/models/llama.py``, reproduced as it is
 optional sliding window). Attention goes through ``F.flash_attention``
 with the kv heads unrepeated: on the card the Hopper kernels K1 (forward)
 and K2 or, under ``MXTPU_FLASH_BWD=fused``, K6 (backward).
-``tp_sharding_map`` (tensor-parallel ``PartitionSpec``s) waits for the
-mesh path.
+``tp_sharding_map`` (tensor-parallel ``PartitionSpec``s) raises: tensor
+parallelism is ROADMAP A11's.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..base import MXNetError
 from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..ndarray.ndarray import apply
@@ -156,6 +157,12 @@ class LlamaModel(HybridBlock):
             x = layer(x)
         x = self.norm(x)
         return self.lm_head(x)
+
+    def tp_sharding_map(self, tp_axis="tp"):
+        """Megatron-style tensor-parallel shardings: not ported yet (ROADMAP
+        A11's tensor parallelism); the data-parallel mesh needs none."""
+        raise MXNetError("Llama.tp_sharding_map: tensor parallelism is not "
+                         "ported yet (ROADMAP A11)")
 
 
 _LLAMA_CONFIGS = {

@@ -101,7 +101,9 @@ def apply(fn, *args, **kwargs):
 
 def _wrap(res, seen=()):
     if isinstance(res, torch.Tensor):
-        out = NDArray(res)
+        # a result takes the context of the op's first input, as in the
+        # JAX package (``context`` checks it still fits the device)
+        out = NDArray(res, seen[0][0]._ctx if seen else None)
         if seen and (res._base is not None
                      or any(res is t for _, t in seen)):
             _link(out, res, seen)
@@ -272,14 +274,15 @@ def _index_tensor(idx, device):
 class NDArray:
     """An n-dimensional array on one device (reference: ``NDArray``)."""
 
-    __slots__ = ("_t", "_grad", "_grad_req", "_alias", "_vers",
+    __slots__ = ("_t", "_ctx", "_grad", "_grad_req", "_alias", "_vers",
                  "__weakref__")
 
     # numpy's binary operators defer to ours
     __array_priority__ = 1000.0
 
-    def __init__(self, tensor: torch.Tensor):
+    def __init__(self, tensor: torch.Tensor, ctx=None):
         self._t = tensor
+        self._ctx = ctx  # the Context it was placed on (None: the device's)
         self._grad = None
         self._grad_req = "null"
         self._alias = None
@@ -312,6 +315,12 @@ class NDArray:
 
     @property
     def context(self) -> Context:
+        """The context the array was placed on (``cpu(1)`` stays
+        ``cpu(1)``, though every host context is torch's one CPU), else
+        the one its tensor's device names."""
+        c = self._ctx
+        if c is not None and c._places(self._t.device):
+            return c
         return Context(self._t.device)
 
     ctx = context
@@ -492,7 +501,7 @@ class NDArray:
 
     # -- copies, placement and conversion -------------------------------
     def copy(self) -> "NDArray":
-        return NDArray(self._t.detach().clone())
+        return NDArray(self._t.detach().clone(), self._ctx)
 
     def copyto(self, other):
         """Into an NDArray (its type kept) or to a context (a new array)."""
@@ -500,7 +509,8 @@ class NDArray:
             other._write(None, self._t.detach())
             return other
         if isinstance(other, (Context, str, torch.device)):
-            return NDArray(self._t.detach().to(_device(other), copy=True))
+            ctx = Context(other)
+            return NDArray(self._t.detach().to(_device(ctx), copy=True), ctx)
         raise TypeError(f"copyto does not support type {type(other)}")
 
     def as_in_context(self, context) -> "NDArray":
@@ -513,7 +523,7 @@ class NDArray:
     def detach(self) -> "NDArray":
         """The same values, off the tape; a write to either array is not
         seen by the other."""
-        out = NDArray(self._t.detach())
+        out = NDArray(self._t.detach(), self._ctx)
         _join(self._root(), out)
         return out
 
@@ -545,7 +555,8 @@ class NDArray:
         if self._t.grad_fn is None:
             self._t = self._t.detach().requires_grad_(True)
         self._grad = NDArray(torch.zeros_like(self._t,
-                                              requires_grad=False))
+                                              requires_grad=False),
+                             self._ctx)
         autograd._register_leaf(self)
 
     @property
@@ -678,6 +689,7 @@ class _View(NDArray):
         self._flipped = _reverses(index) or getattr(base, "_flipped", False)
         self._src = None
         self._tv = None
+        self._ctx = base._ctx
         self._grad = None
         self._grad_req = "null"
         self._alias = None
@@ -702,8 +714,8 @@ class _View(NDArray):
 
 
 def _rebuild(arr, devtype, devid):
-    return NDArray(torch.from_numpy(_np.array(arr)).to(
-        _device(Context(devtype, devid))))
+    ctx = Context(devtype, devid)
+    return NDArray(torch.from_numpy(_np.array(arr)).to(_device(ctx)), ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -725,10 +737,10 @@ def array(source_array, ctx=None, dtype=None) -> NDArray:
             a = a.astype(_np.float32)
         t = torch.from_numpy(a if a.flags.c_contiguous and a.flags.writeable
                              else a.copy())
-    dev = _device(ctx)
-    t = t.to(device=dev, dtype=torch_dtype(dtype) if dtype else None,
-             copy=True)
-    return NDArray(t)
+    ctx = Context(ctx) if ctx is not None else current_context()
+    t = t.to(device=_device(ctx), dtype=torch_dtype(dtype) if dtype
+             else None, copy=True)
+    return NDArray(t, ctx)
 
 
 def _shape(shape):
@@ -738,9 +750,10 @@ def _shape(shape):
 def _filled(fill, shape, ctx, dtype):
     """``shape`` filled with ``fill`` on ``ctx`` (the current context by
     default)."""
+    ctx = Context(ctx) if ctx is not None else current_context()
     return NDArray(torch.full(_shape(shape), fill,
                               dtype=torch_dtype(dtype or "float32"),
-                              device=_device(ctx)))
+                              device=_device(ctx)), ctx)
 
 
 def zeros(shape, ctx=None, dtype="float32", **kw) -> NDArray:

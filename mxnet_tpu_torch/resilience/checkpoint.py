@@ -397,6 +397,20 @@ def step_critical_section():
     return _StepCritical()
 
 
+def require_one_process(what):
+    """Raise where ``what`` would do the wrong thing in a world of several
+    ranks (every rank writing one directory, each restoring alone): the
+    multi-process checkpoint is ROADMAP A11's."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise MXNetError(
+            f"{what} in a world of {dist.get_world_size()} ranks: the "
+            "multi-process checkpoint (one commit for every rank) is not "
+            "ported yet (ROADMAP A11); checkpoint in a world of one")
+
+
 def default_commit_barrier():
     """The commit barrier of a sharded checkpoint: in one process, a
     no-op (the multi-process barrier is ROADMAP A11's)."""
@@ -688,6 +702,7 @@ class CheckpointManager:
 
     def __init__(self, directory, every_n_steps=100, keep=_KEEP_DEFAULT,
                  net=None, trainer=None, ring=None, install_sigterm=True):
+        require_one_process("CheckpointManager")
         self.directory = str(directory)
         self.every_n_steps = max(1, int(every_n_steps))
         self.keep = max(1, int(keep))

@@ -10,9 +10,10 @@ captured graphs, a Trainer's plan and a ``Superstep``'s captured graph
 over it stay valid. The learning-rate schedule continues from the
 restored update counts.
 
-A sharded checkpoint (``SPMDTrainStep``, ``save_spmd_checkpoint``) and a
-checkpoint written by more than one process need the mesh path (ROADMAP
-A11) and raise.
+A sharded checkpoint (``SPMDTrainStep``, ``save_spmd_checkpoint``), a
+checkpoint written by more than one process, and a restore in a world of
+several ranks need the multi-process checkpoint (ROADMAP A11) and
+raise.
 """
 
 from __future__ import annotations
@@ -215,6 +216,7 @@ def load_checkpoint(path, net=None, trainer=None, spmd_step=None,
     ``net`` and ``trainer``. Returns a :class:`ResumeReport`."""
     if spmd_step is not None:
         raise _no_spmd("load_checkpoint(spmd_step=...)")
+    _ckpt.require_one_process("load_checkpoint")
     manifest, tensors = _ckpt.read_checkpoint(
         path, verify_checksums=verify_checksums)
     extras = manifest.get("extras", {})

@@ -2,7 +2,8 @@
 ``chip_smoke.py`` imports JAX or any module of the JAX package
 ``mxnet_tpu`` (matched by exact top-level name, so ``mxnet_tpu_torch``
 itself is allowed); importing the port's serving and training surfaces
-loads no JAX; and without a CUDA card the entry points refuse to run
+loads no JAX, nor does the worker entry of ``tests/test_torch_dist.py``;
+and without a CUDA card the entry points refuse to run
 unless the CPU was asked for.
 """
 
@@ -65,6 +66,19 @@ def test_import_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code, ROOT], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_dist_worker_entry_loads_no_jax(tmp_path):
+    """``tests/test_torch_dist.py`` is also the worker of its worlds: run
+    as ``--worker``, it imports the port, the kvstore's dist module and
+    ``chip_smoke`` (its loss) and no JAX and no ``mxnet_tpu``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tests", "test_torch_dist.py"),
+         "--worker", "imports", str(tmp_path)], env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip() == "[]"
 
 
 def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):

@@ -302,17 +302,45 @@ def test_trainer_members_match_jax():
     {"compression_params": {"type": "2bit", "threshold": 0.5}},
 ], ids=["dist_sync", "dist_device_sync", "store_object", "compression"])
 def test_what_one_device_cannot_honour_raises(kwargs):
-    _, (_, net) = _dense_pair()
-    with pytest.raises(mx.MXNetError, match="ROADMAP A11"):
-        mx.gluon.Trainer(net.collect_params(), "sgd", {}, **kwargs)
+    """What needed several devices now makes a store (a ``dist*`` name in
+    a world of one is ``dist_tpu_sync``, whose sums are the identity; a
+    store object is used as given; ``compression_params`` reach the
+    store) and trains as the JAX package's Trainer does."""
+    x, (jnet, net) = _dense_pair()
+    jkw = dict(kwargs)
+    if "kvstore" in kwargs and not isinstance(kwargs["kvstore"], str):
+        kwargs = {"kvstore": mx.kv.create("dist_tpu_sync")}
+        jkw = {"kvstore": jmx.kv.create("dist_tpu_sync")}
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": 0.1}, **kwargs)
+    jtr = jmx.gluon.Trainer(jnet.collect_params(), "sgd",
+                            {"learning_rate": 0.1}, **jkw)
+    for mxmod, trainer, n, kw in ((jmx, jtr, jnet, {}), (mx, tr, net, KW)):
+        with mxmod.autograd.record():
+            loss = (n(mxmod.nd.array(x, **kw)) ** 2).sum()
+        loss.backward()
+        trainer.step(x.shape[0])
+    # one context: a store only for a dist name or a store object, in
+    # both packages alike
+    assert type(tr._kvstore).__name__ == type(jtr._kvstore).__name__
+    assert (tr._kvstore is None) == ("compression_params" in kwargs)
+    np.testing.assert_allclose(net.weight.data().asnumpy(),
+                               np.array(jnet.weight.data().asnumpy()),
+                               rtol=TOL, atol=TOL)
 
 
 def test_multi_device_parameter_raises():
-    # a deferred parameter bound for two devices (nothing is allocated)
+    """A parameter on two contexts is accepted (the store sums over
+    them); contexts that differ between parameters still raise, as in the
+    JAX package."""
     p = mx.gluon.Parameter("w", shape=(4, 0), allow_deferred_init=True)
-    p.initialize(ctx=[mx.cpu(), mx.gpu(0)])
-    with pytest.raises(mx.MXNetError, match="ROADMAP A11"):
-        mx.gluon.Trainer([p], "sgd", {"learning_rate": 0.1})
+    p.initialize(ctx=[mx.cpu(0), mx.cpu(1)])
+    tr = mx.gluon.Trainer([p], "sgd", {"learning_rate": 0.1})
+    assert tr._contexts == [mx.cpu(0), mx.cpu(1)]
+    q = mx.gluon.Parameter("v", shape=(4, 0), allow_deferred_init=True)
+    q.initialize(ctx=[mx.cpu(0)])
+    with pytest.raises(mx.MXNetError, match="same contexts"):
+        mx.gluon.Trainer([p, q], "sgd", {"learning_rate": 0.1})
 
 
 # ---------------------------------------------------------------------------

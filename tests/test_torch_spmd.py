@@ -16,7 +16,8 @@ its update rules against the JAX package's ``parallel/spmd.py``.
   statistics the step carries against the JAX step's.
 - ``run_steps(n)`` equals n calls, the Gluon parameters keep their values
   until ``sync_to_block``, dropout draws from torch's default generator,
-  and what the single-device path cannot honour raises.
+  the data-parallel options on one device change nothing, and tensor
+  parallelism raises.
 
 The JAX step donates its buffers: every JAX host array a test keeps is a
 copy (``np.array``).
@@ -279,9 +280,36 @@ def test_dropout_draws_from_the_default_generator():
     {"grad_dtype": "bfloat16"},
 ], ids=lambda kw: next(iter(kw)) + str(next(iter(kw.values())))[:6])
 def test_what_one_device_cannot_honour_raises(kwargs):
+    """On one device the data-parallel options have nothing to act on and
+    the step equals the plain one bit for bit (the JAX package's
+    single-device path ignores them too); a mesh must come from
+    ``parallel.make_mesh``, and tensor parallelism still raises (A11)."""
     net = mx.models.llama_tiny()
-    with pytest.raises(mx.MXNetError, match="ROADMAP A11"):
-        mx.parallel.SPMDTrainStep(net, _lm_loss(mx), "adam", {}, **kwargs)
+    if "param_sharding" in kwargs:
+        with pytest.raises(mx.MXNetError, match="ROADMAP A11"):
+            mx.parallel.SPMDTrainStep(net, _lm_loss(mx), "adam", {},
+                                      **kwargs)
+        return
+    if "mesh" in kwargs:
+        with pytest.raises(mx.MXNetError, match="make_mesh"):
+            mx.parallel.SPMDTrainStep(net, _lm_loss(mx), "adam", {},
+                                      **kwargs)
+        kwargs = {"mesh": mx.parallel.make_mesh({"dp": 1})}
+    _, a = _llama_pair()
+    x, y = _batch()
+    tx, ty = mx.nd.array(x, ctx=mx.cpu()), mx.nd.array(y, ctx=mx.cpu())
+    b = mx.models.llama_tiny()
+    b.initialize(ctx=mx.cpu())
+    b(tx)
+    load_numpy(b.collect_params(), {
+        k.replace(a.prefix, b.prefix, 1): p.data().asnumpy()
+        for k, p in a.collect_params().items()})
+    plain = mx.parallel.SPMDTrainStep(a, _lm_loss(mx), "adam", {})
+    opted = mx.parallel.SPMDTrainStep(b, _lm_loss(mx), "adam", {}, **kwargs)
+    assert [plain(tx, ty, lr=1e-3) for _ in range(2)] == \
+        [opted(tx, ty, lr=1e-3) for _ in range(2)]
+    for p, q in zip(plain._state[0], opted._state[0]):
+        assert torch.equal(p, q)
 
 
 def test_bad_arguments_raise_like_jax():

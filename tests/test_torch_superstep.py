@@ -409,5 +409,11 @@ def test_spmd_run_superstep_matches_jax():
         np.testing.assert_allclose(out[mx][1][k], w, rtol=1e-5, atol=1e-5)
     with pytest.raises(mx.MXNetError, match="lr must be"):
         step.run_superstep(xs, ys, lr=[0.1, 0.2])
-    with pytest.raises(mx.MXNetError, match="A11"):
+    # a mesh must come from make_mesh; the superstep on a data axis of
+    # several ranks is still ROADMAP A11's
+    with pytest.raises(mx.MXNetError, match="make_mesh"):
         mx.parallel.SPMDTrainStep(net, _loss(mx), "adam", {}, mesh=object())
+    dp2 = mx.parallel.make_mesh({"dp": 2}, devices=[0, 1])
+    with pytest.raises(mx.MXNetError, match="A11"):
+        mx.parallel.SPMDTrainStep(net, _loss(mx), "adam", {},
+                                  mesh=dp2).run_superstep(xs, ys)
