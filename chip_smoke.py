@@ -319,7 +319,32 @@ Phases (each prints one line of facts; any failure exits non-zero):
    reduction's ms, bytes and buckets a step, the backend, each rank's
    peak memory and the idle share of a profiled step. A worker that fails
    fails the phase with its output; the world has a hard time limit and
-   is killed with its process groups.
+   is killed with its process groups. In the same world,
+   ``[dist-bert-superstep]``: ``run_superstep`` of DIST_SUPER_K mesh steps
+   at ZeRO 2 over two stacked global batches equals DIST_SUPER_K single
+   mesh steps, losses and parameters bit for bit, K1 and K2's kernels 12
+   times a step; ``[dist-bert-ckpt]``: at ZeRO 2, ``save_spmd_checkpoint``
+   after step 2 (two shard files, one commit by rank 0), step 3,
+   ``load_checkpoint(spmd_step=...)`` and step 3 again, bit for bit; after
+   the world ends this process restores the commit into
+   ``SPMDTrainStep(mesh=None)`` (elastic, 2 -> 1) and its parameters equal
+   the world's at the checkpoint bit for bit; the bytes, the save's and
+   each restore's seconds printed. Then ``[dist-llama-tp]``: a new world
+   of TP_RANKS worker processes on the card (gloo) trains Llama-3-8B's
+   widths cut to 2 layers tensor-parallel (``make_mesh({"tp": 2})``,
+   ``param_sharding=tp_sharding_map()``, ``MXTPU_FLASH_BWD=fused``, Adam
+   lr 1e-4, TP_STEPS steps) on one sequence of TP_SEQ tokens, a quarter
+   of ``[llama-train]``'s (two ranks share the card's memory and each
+   activation sum crosses the host). One process's
+   ``SPMDTrainStep(mesh=None)`` on the same tokens, made before the world
+   starts, is the reference: each rank's losses within
+   DIST_ZERO_LOSS_RTOL, each parameter's update within
+   DIST_ZERO_UPDATE_RTOL (norm-wise over the ranks' blocks), the
+   replicated norms equal across ranks bit for bit, K1 and K6 twice a
+   step on 16 query and 4 kv heads and K2 never, each rank's parameter
+   bytes under 0.55 of one process's. Each rank prints its collectives a
+   step by kind and bytes, its resident parameter and Adam bytes, peak
+   memory, step time and idle share; rank 0 times K1 and K6 at its shape.
 
 Phase 3 also times K1 and K2 in bfloat16 at BERT-base's shape and K4 and
 K5 in float16 at ResNet-50's 1x1 shapes (``[kernel-time-lowp]``), the
@@ -500,9 +525,24 @@ def check(ok, what):
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+#: each phase tag's first print, in order: (tag, time.perf_counter())
+_FIRST_SAID = {}
+
+
 def say(phase, **facts):
+    _FIRST_SAID.setdefault(phase, time.perf_counter())
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in facts.items()),
           flush=True)
+
+
+def say_phase_seconds(t_start):
+    """Each tag's seconds since the previous tag's first print: a phase
+    prints when it ends, so this is about the time it took."""
+    prev, parts = t_start, []
+    for tag, t in _FIRST_SAID.items():
+        parts.append(f"{tag}={t - prev:.1f}")
+        prev = t
+    print("[phase-seconds] " + " ".join(parts), flush=True)
 
 
 def cuda_ms(fn, iters):
@@ -6560,6 +6600,14 @@ DIST_ZERO_UPDATE_RTOL = 1e-3
 DIST_ZERO_RUNS = ((0, "ready"), (2, "ready"), (3, "ready"),
                   (0, "barrier"))
 DIST_DIR = ".chip_smoke_dist"  # git-ignored; removed after the phase
+# [dist-bert-superstep]: K mesh steps of run_superstep at this ZeRO stage
+DIST_SUPER_K, DIST_SUPER_STAGE = 2, 2
+# [dist-llama-tp]: Llama-3-8B widths (LLAMA_LAYERS layers) tensor-parallel
+# over two ranks sharing the card, on one sequence of TP_SEQ tokens (a
+# quarter of [llama-train]'s: two ranks share one card's memory and each
+# activation collective crosses the host through gloo)
+TP_RANKS, TP_SEQ, TP_STEPS = 2, 2048, 3
+TP_TIMEOUT_S = 420  # the world's hard limit, its start to its end
 
 
 def _free_port():
@@ -6816,13 +6864,14 @@ def _host_rehearsal():
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
 
 
-def dist_worker(out_dir, shape_json, device="gpu"):
+def dist_worker(out_dir, shape_json, device="gpu", phase="bert"):
     """One rank of phase 13's world (``--dist-worker``): joins it through
     the environment contract, runs ``[dist-bert-trainer]`` and every
     ``[dist-bert-zero]`` run and writes its readings as JSON. ``shape``:
     the per-rank batch, sequence, vocabulary and BERT's width overrides
     (``cut``, empty on the card); ``device`` "cpu" is the host
-    rehearsal."""
+    rehearsal. ``phase`` "llama-tp" runs ``[dist-llama-tp]`` instead
+    (``shape``: Llama's width overrides)."""
     sys.path.insert(0, ROOT)
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import _kernels
@@ -6837,6 +6886,13 @@ def dist_worker(out_dir, shape_json, device="gpu"):
     ctx = mx.gpu(0) if device == "gpu" else mx.cpu()
     res = {"rank": rank, "backend": backend,
            "device": str(mx.resolve_device(ctx))}
+    if phase == "llama-tp":
+        res["tp"] = _llama_tp_run(mx, rank, ctx, _kernels.LAUNCHES, out_dir,
+                                  shape["cut"], shape["seq"])
+        with open(os.path.join(out_dir, f"tp_rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        mx.kv.shutdown_distributed()
+        return
     res["trainer"] = _dist_trainer_run(
         mx, rank, ctx, _kernels.LAUNCHES,
         os.path.join(out_dir, "ref_grads.pt"), shape)
@@ -6845,9 +6901,102 @@ def dist_worker(out_dir, shape_json, device="gpu"):
         mx, rank, ctx, _kernels.LAUNCHES, s, o, shape,
         ref_zero if (s, o) == DIST_ZERO_RUNS[0] else None)
         for s, o in DIST_ZERO_RUNS}
+    res["superstep"] = _dist_superstep_run(mx, ctx, _kernels.LAUNCHES, shape)
+    res["ckpt"] = _dist_ckpt_run(mx, ctx, shape, out_dir)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     mx.kv.shutdown_distributed()
+
+
+def _dist_two_batches(mx, ctx, shape):
+    """Two global batches of ``[dist-bert-zero]``'s step (the second its
+    rows rolled by one), stacked on a leading [2] axis for
+    ``run_superstep``, and each alone."""
+    ids, _, _, _, labels = dist_bert_batch(shape)
+    pairs = [(ids, labels), (np.roll(ids, 1, 0), np.roll(labels, 1, 0))]
+    xs = mx.nd.array(np.stack([a for a, _ in pairs]), dtype="int32", ctx=ctx)
+    ys = mx.nd.array(np.stack([b for _, b in pairs]), ctx=ctx)
+    return xs, ys, [(mx.nd.array(a, dtype="int32", ctx=ctx),
+                     mx.nd.array(b, ctx=ctx)) for a, b in pairs]
+
+
+def _dist_superstep_run(mx, ctx, launches, shape):
+    """``[dist-bert-superstep]`` in one rank: ``run_superstep`` of
+    DIST_SUPER_K mesh steps at ZeRO DIST_SUPER_STAGE over the stacked
+    global batches, then DIST_SUPER_K single mesh steps on a net from the
+    same seed; losses and parameter digests for the bit-for-bit gate."""
+    mesh = mx.parallel.make_mesh({"dp": DIST_RANKS})
+    xs, ys, singles = _dist_two_batches(mx, ctx, shape)
+    out = {}
+    for how in ("superstep", "single"):
+        net = dist_bert_net(mx, ctx, **shape["cut"])
+        step, _, _ = _dist_spmd_step(mx, net, ctx, shape, mesh,
+                                     zero_stage=DIST_SUPER_STAGE)
+        launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "superstep":
+            losses = step.run_superstep(xs, ys, lr=BERT_ADAM["learning_rate"])
+            losses = [float(v) for v in losses.tolist()]
+        else:
+            losses = [float(step(x, y, lr=BERT_ADAM["learning_rate"]))
+                      for x, y in singles]
+        torch.cuda.synchronize()
+        step.sync_to_block()
+        out[how] = {"losses": losses,
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "launches": dict(launches),
+                    "param_digest": _digest(list(
+                        _sorted_weights(net).values()))}
+        del step, net
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dist_ckpt_run(mx, ctx, shape, out_dir):
+    """``[dist-bert-ckpt]`` in one rank, at ZeRO 2: two steps, the sharded
+    checkpoint (``save_spmd_checkpoint``, one commit by rank 0), step 3,
+    the restore and step 3 again; the readings of both step 3s and the
+    digest of the parameters at the checkpoint."""
+    from mxnet_tpu_torch import resilience
+
+    root = os.path.join(out_dir, "ckpt")
+    mesh = mx.parallel.make_mesh({"dp": DIST_RANKS})
+    # the files key tensors by parameter name: the restoring process
+    # names its net from the same counter
+    mx.gluon.block.reset_names()
+    net = dist_bert_net(mx, ctx, **shape["cut"])
+    step, x, y = _dist_spmd_step(mx, net, ctx, shape, mesh, zero_stage=2)
+    lr = BERT_ADAM["learning_rate"]
+    for _ in range(2):
+        step(x, y, lr=lr)
+    step.sync_to_block()
+    out = {"saved_digest": _digest(list(_sorted_weights(net).values()))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = resilience.save_spmd_checkpoint(root, step, 2)
+    out["save_s"] = time.perf_counter() - t0
+    out["path"] = path
+    out["loss3"] = float(step(x, y, lr=lr))
+    step.sync_to_block()
+    out["digest3"] = _digest(list(_sorted_weights(net).values()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = resilience.load_checkpoint(root, spmd_step=step)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    out["elastic"] = bool(rep.elastic)
+    out["loss3_again"] = float(step(x, y, lr=lr))
+    step.sync_to_block()
+    out["digest3_again"] = _digest(list(_sorted_weights(net).values()))
+    if path:
+        out["files"] = {f: os.path.getsize(os.path.join(path, f))
+                        for f in sorted(os.listdir(path))}
+    del step, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _dist_reference_grads(ctx, path, shape):
@@ -6957,12 +7106,550 @@ def dist_bert_phases(smi, device="gpu", cut=None, timeout=DIST_TIMEOUT_S):
         for r in range(DIST_RANKS):
             with open(os.path.join(out_dir, f"rank{r}.json")) as f:
                 res.append(json.load(f))
+        one = _dist_ckpt_one_process(
+            mx, mx.gpu(0) if device == "gpu" else mx.cpu(), shape,
+            os.path.join(out_dir, "ckpt"))
     finally:
         for p in locals().get("procs", []):
             if p.poll() is None:
                 os.killpg(p.pid, signal.SIGKILL)
         shutil.rmtree(out_dir, ignore_errors=True)
     _dist_gates(res, smi, ref_s, world_s, shape)
+    _dist_superstep_gates(res, shape)
+    _dist_ckpt_gates(res, one)
+
+
+class _Collectives:
+    """Counts the collectives of ``torch.distributed``'s functional API
+    (what DTensor's redistributions call) and of its ``all_reduce`` /
+    ``all_gather`` / reduce-scatter, by kind and bytes, from any thread
+    (the backward runs on the autograd engine's), while installed."""
+
+    FUNCOL = ("all_reduce", "all_gather_single", "reduce_scatter_single",
+              "all_gather_tensor", "reduce_scatter_tensor")
+    C10D = ("all_reduce", "all_gather", "all_gather_into_tensor",
+            "reduce_scatter_tensor", "broadcast")
+
+    def __init__(self):
+        self.counts, self.bytes = {}, {}
+        self._saved = []
+
+    def _wrap(self, mod, name, kind):
+        fn = getattr(mod, name)
+
+        def counted(*args, **kwargs):
+            t = args[0] if args and isinstance(args[0], torch.Tensor) \
+                else (args[1] if len(args) > 1 else None)
+            if isinstance(t, (list, tuple)):
+                t = t[0] if t else None
+            n = t.numel() * t.element_size() if isinstance(
+                t, torch.Tensor) else 0
+            self.counts[kind] = self.counts.get(kind, 0) + 1
+            self.bytes[kind] = self.bytes.get(kind, 0) + n
+            return fn(*args, **kwargs)
+
+        self._saved.append((mod, name, fn))
+        setattr(mod, name, counted)
+
+    def __enter__(self):
+        import torch.distributed as dist
+        import torch.distributed._functional_collectives as funcol
+
+        for name in self.FUNCOL:
+            if hasattr(funcol, name):
+                self._wrap(funcol, name, f"dtensor.{name}")
+        for name in self.C10D:
+            self._wrap(dist, name, f"c10d.{name}")
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved.clear()
+        return False
+
+
+def _tp_heads():
+    """Record the (query heads, kv heads) of every K1 and K6 launch."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    seen = {"flash_fwd": set(), "flash_bwd_fused": set()}
+    for kernel, attr in (("flash_fwd", "_cuda_flash_fwd"),
+                         ("flash_bwd_fused", "_cuda_flash_bwd_fused")):
+        fn = getattr(fa, attr)
+
+        def spy(q, k, *args, _fn=fn, _kernel=kernel):
+            seen[_kernel].add((int(q.shape[1]), int(k.shape[1])))
+            return _fn(q, k, *args)
+
+        setattr(fa, attr, spy)
+    return seen
+
+
+def _tp_blocks(mesh, specs, names, tensors):
+    """This rank's block of each whole tensor, as ``specs`` lay it out on
+    ``mesh`` (copies on the host, in ``names``' order: the sorted
+    parameter names, whose numbered prefix differs between processes)."""
+    out = []
+    for n, t in zip(names, tensors):
+        spec = tuple(specs.get(n, ()))
+        idx = []
+        for d in range(t.dim()):
+            a = spec[d] if d < len(spec) else None
+            if a is None:
+                idx.append(slice(None))
+                continue
+            k, i = mesh[a], mesh["index"][a]
+            m = t.shape[d] // k
+            idx.append(slice(i * m, (i + 1) * m))
+        out.append(t[tuple(idx)].detach().cpu().clone())
+    return out
+
+
+def _llama_tp_reference(mx, ctx, out_dir, cut):
+    """``[dist-llama-tp]``'s reference: one process's
+    ``SPMDTrainStep(mesh=None)`` on the world's tokens, TP_STEPS Adam
+    steps under ``MXTPU_FLASH_BWD=fused``; its losses and each rank's
+    block of every parameter's update saved in ``out_dir``, then freed."""
+    os.environ["MXTPU_FLASH_BWD"] = "fused"
+    net, x, y = llama_setup(ctx, layers=LLAMA_LAYERS, seq=TP_SEQ, **cut)
+    specs = net.tp_sharding_map()
+    step = mx.parallel.SPMDTrainStep(net, llama_lm_loss(mx), "adam", {},
+                                     mesh=None)
+    step.init_state()
+    w0 = [p.detach().clone() for p in step._state[0]]
+    losses = [float(step(x, y, lr=LLAMA_ADAM_LR)) for _ in range(TP_STEPS)]
+    delta = [p.detach() - w for p, w in zip(step._state[0], w0)]
+    del w0
+    for r in range(TP_RANKS):
+        mesh = {"tp": TP_RANKS, "index": {"tp": r}}
+        torch.save({"losses": losses,
+                    "delta": _tp_blocks(mesh, specs, step._names, delta)},
+                   os.path.join(out_dir, f"tp_ref{r}.pt"))
+    del net, x, y, step, delta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _mode_host_ms(cls, run):
+    """Host milliseconds that the torch-function mode ``cls`` spends on
+    its own work over ``run()`` (the calls it passes on excluded), and
+    the number of calls it handled."""
+    orig = cls.__torch_function__
+    own = [0.0, 0]
+
+    def timed(self, func, types, args=(), kwargs=None):
+        inner = [0.0]
+
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return func(*a, **k)
+            finally:
+                inner[0] += time.perf_counter() - t
+
+        t0 = time.perf_counter()
+        try:
+            return orig(self, call, types, args, kwargs)
+        finally:
+            own[0] += time.perf_counter() - t0 - inner[0]
+            own[1] += 1
+
+    cls.__torch_function__ = timed
+    try:
+        run()
+    finally:
+        cls.__torch_function__ = orig
+    return own[0] * 1e3, own[1]
+
+
+def _llama_tp_run(mx, rank, ctx, launches, out_dir, cut, seq=TP_SEQ):
+    """``[dist-llama-tp]`` in one rank: Llama-3-8B widths tensor-parallel
+    over ``make_mesh({"tp": 2})`` with ``tp_sharding_map()``, TP_STEPS Adam
+    steps; its losses, the update's distance from the reference's (summed
+    over the ranks' blocks), the norms' digest, launches and head counts,
+    collectives, bytes, memory, time and K1/K6 at its shape."""
+    import torch.distributed as dist
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    os.environ["MXTPU_FLASH_BWD"] = "fused"
+    net, x, y = llama_setup(ctx, layers=LLAMA_LAYERS, seq=seq, **cut)
+    mesh = mx.parallel.make_mesh({"tp": TP_RANKS})
+    step = mx.parallel.SPMDTrainStep(
+        net, llama_lm_loss(mx), "adam", {}, mesh,
+        param_sharding=net.tp_sharding_map())
+    step.init_state()  # the block's whole tensors go back to the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    names = step._names
+    w0 = [p.detach().to("cpu", copy=True) for p in step._state[0]]
+    heads = _tp_heads()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    out = {"losses": [], "step_ms": []}
+
+    def one():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(x, y, lr=LLAMA_ADAM_LR, sync=False)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(loss))
+
+    with _Collectives() as comm:
+        for _ in range(TP_STEPS - 1):
+            one()
+        out["busy_ms"], out["window_ms"] = _busy_share(one)
+    out["collectives"] = {k: v / TP_STEPS for k, v in comm.counts.items()}
+    out["collective_bytes"] = {k: v / TP_STEPS
+                               for k, v in comm.bytes.items()}
+    out["launches"] = {k: v / TP_STEPS for k, v in launches.items()}
+    out["heads"] = {k: sorted(v) for k, v in heads.items()}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["report"] = step.zero_memory_report()
+    ref = torch.load(os.path.join(out_dir, f"tp_ref{rank}.pt"),
+                     map_location="cpu")
+    out["ref_losses"] = ref["losses"]
+    sums = torch.zeros((len(names), 2), dtype=torch.float64,
+                       device=x.data.device)
+    for i, (n, p, w) in enumerate(zip(names, step._state[0], w0)):
+        want = ref["delta"][i].to(p.device)
+        d = ((p.detach() - w.to(p.device)) - want).double()
+        sums[i, 0] = (d * d).sum()
+        sums[i, 1] = (want.double() ** 2).sum()
+    del ref, w0
+    replicated = [i for i, n in enumerate(names)
+                  if not any(step._specs[i])]
+    # a replicated tensor's terms are the same on every rank: count once
+    if rank != 0:
+        sums[replicated] = 0
+    dist.all_reduce(sums)
+    rel = (sums[:, 0].sqrt() / sums[:, 1].sqrt().clamp_min(1e-30)).tolist()
+    worst = max(range(len(names)), key=lambda i: rel[i])
+    out["update_worst_rel"], out["update_worst"] = rel[worst], names[worst]
+    out["norm_digest"] = _digest([step._state[0][i] for i in replicated])
+    out["replicated"] = len(replicated)
+    # one more step, timing the host work of the forward's plain-tensor
+    # wrapper (spmd._ReplicatePlain) beside the step's
+    from mxnet_tpu_torch.parallel import spmd as _spmd
+
+    out["replicate_plain_ms"], out["replicate_plain_calls"] = \
+        _mode_host_ms(_spmd._ReplicatePlain, one)
+    out["replicate_plain_step_ms"] = out["step_ms"].pop()
+    out["losses"].pop()
+    dist.barrier()
+    if rank == 0 and x.data.is_cuda:
+        # the kernels at this rank's shape against their plain versions,
+        # while the other rank waits
+        gen = torch.Generator(device=x.data.device).manual_seed(SEED)
+        H, KVH = (net._cfg["num_heads"] // TP_RANKS,
+                  net._cfg["num_kv_heads"] // TP_RANKS)
+        D = net._cfg["units"] // net._cfg["num_heads"]
+        q = torch.randn((1, H, seq, D), generator=gen, device=x.data.device)
+        k, v = (torch.randn((1, KVH, seq, D), generator=gen,
+                            device=x.data.device) for _ in range(2))
+        g = torch.randn_like(q)
+        scale = 1.0 / D ** 0.5
+        o, lse = fa._cuda_flash_fwd(q, k, v, scale, True, 0)
+        want_o, want_lse = fa._torch_flash_fwd(q, k, v, scale, True, 0)
+        k6 = fa._cuda_flash_bwd_fused(q, k, v, want_o, want_lse, g, scale,
+                                      True, 0)
+        want = fa._torch_flash_bwd(q, k, v, want_o, want_lse, g, scale,
+                                   True, 0)
+        torch.cuda.synchronize()
+        out["kernel_rel_err"] = {
+            what: float((got.float() - ref.float()).abs().max()
+                        / ref.float().abs().max().clamp_min(1e-30))
+            for what, got, ref in (("k1_out", o, want_o),
+                                   ("k1_lse", lse, want_lse),
+                                   ("k6_dq", k6[0], want[0]),
+                                   ("k6_dk", k6[1], want[1]),
+                                   ("k6_dv", k6[2], want[2]))}
+        del k6, want
+        out["k1_ms"] = cuda_ms(
+            lambda: fa._cuda_flash_fwd(q, k, v, scale, True, 0), 10)
+        out["k1_plain_ms"] = cuda_ms(
+            lambda: fa._torch_flash_fwd(q, k, v, scale, True, 0), 10)
+        out["k6_ms"] = cuda_ms(
+            lambda: fa._cuda_flash_bwd_fused(q, k, v, o, lse, g, scale,
+                                             True, 0), 10)
+        out["k6_plain_ms"] = cuda_ms(
+            lambda: fa._torch_flash_bwd(q, k, v, o, lse, g, scale,
+                                        True, 0), 10)
+        qs, ks, vs = (t.clone().requires_grad_() for t in (
+            q, k.repeat_interleave(H // KVH, 1),
+            v.repeat_interleave(H // KVH, 1)))
+        with torch.no_grad():
+            out["k1_library_ms"] = cuda_ms(
+                lambda: sdpa(qs, ks, vs, is_causal=True), 10)
+        out["k6_library_ms"] = sdpa_bwd_ms(qs, ks, vs, g, True, 10)
+        work = flash_work(1, H, KVH, seq, seq, D, True, 0, 4)
+        for name, kernel in (("k1", "flash_fwd"), ("k6", "flash_bwd_fused")):
+            ops, nbytes = work[kernel]
+            t_ops, t_bytes = tf32x3_ms(ops), nbytes / HBM_BYTES_PER_S * 1e3
+            out[f"{name}_bound_ms"] = max(t_ops, t_bytes)
+            out[f"{name}_bound_by"] = "operations" if t_ops >= t_bytes \
+                else "bytes"
+            out[f"{name}_bound_cuda_cores_ms"] = \
+                ops / PEAK_OPS[torch.float32] * 1e3
+        out["kernel_shape"] = f"q(1,{H},{seq},{D}) kv(1,{KVH},{seq},{D})"
+        del q, k, v, o, lse, g, want_o, want_lse, qs, ks, vs
+    dist.barrier()
+    del step, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_llama_tp_phase(smi, device="gpu", cut=None, timeout=TP_TIMEOUT_S):
+    """``[dist-llama-tp]`` (module docstring, phase 13): the one-process
+    reference here, then a world of TP_RANKS worker processes of this
+    script; their readings printed and gated."""
+    import shutil
+    import signal
+
+    import mxnet_tpu_torch as mx
+
+    cut = cut or {}
+    out_dir = os.path.join(ROOT, DIST_DIR)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        t0 = time.perf_counter()
+        _llama_tp_reference(mx, mx.gpu(0) if device == "gpu" else mx.cpu(),
+                            out_dir, cut)
+        ref_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        if device == "gpu":  # what this process leaves the two ranks
+            free, total = torch.cuda.mem_get_info()
+            say("dist-llama-tp-parent", free_gb=f"{free / 1e9:.2f}",
+                total_gb=f"{total / 1e9:.2f}",
+                allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}",
+                reserved_gb=f"{torch.cuda.memory_reserved() / 1e9:.2f}")
+        port = _free_port()
+        procs = []
+        for r in range(TP_RANKS):
+            env = dict(os.environ, MXTPU_COORDINATOR=f"127.0.0.1:{port}",
+                       MXTPU_NUM_PROCESSES=str(TP_RANKS),
+                       MXTPU_PROCESS_ID=str(r))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                 out_dir, json.dumps({"cut": cut, "seq": TP_SEQ}), device,
+                 "llama-tp"],
+                env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+                start_new_session=True))
+        deadline = time.monotonic() + timeout
+        logs = []
+        for p in procs:
+            try:
+                text, _ = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    try:
+                        os.killpg(q.pid, signal.SIGKILL)
+                    except ProcessLookupError:
+                        pass
+                text, _ = p.communicate()
+                text = (text or "") + f"\n[killed after {timeout} s]"
+            logs.append((p.returncode, text))
+        world_s = time.perf_counter() - t0 - ref_s
+        for r, (rc, text) in enumerate(logs):
+            if rc != 0 or not os.path.exists(
+                    os.path.join(out_dir, f"tp_rank{r}.json")):
+                print(text[-6000:], flush=True)
+            check(rc == 0, f"[dist-llama-tp] rank {r} exited {rc}")
+        res = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(out_dir, f"tp_rank{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        os.environ.pop("MXTPU_FLASH_BWD", None)
+        for p in locals().get("procs", []):
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    _llama_tp_gates(res, smi, ref_s, world_s, cut)
+
+
+def _llama_tp_gates(res, smi, ref_s, world_s, cut):
+    layers = LLAMA_LAYERS
+    heads = (cut.get("num_heads", 32) // TP_RANKS,
+             cut.get("num_kv_heads", 8) // TP_RANKS)
+    for r in res:
+        t = r["tp"]
+        rep = t["report"]
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(t["losses"], t["ref_losses"]))
+        per = {k: t["launches"].get(k, 0)
+               for k in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+                         "flash_bwd_dkv")}
+        say("dist-llama-tp", rank=r["rank"], backend=r["backend"],
+            device=r["device"], nvidia_smi=f'"{smi}"',
+            config=f"Llama-3-8B widths, {layers} of 32 layers, tp "
+                   f"{TP_RANKS}", tokens=TP_SEQ,
+            losses="/".join(f"{v:.6f}" for v in t["losses"]),
+            one_process_losses="/".join(f"{v:.6f}" for v in
+                                        t["ref_losses"]),
+            loss_rel=f"{loss_rel:.3e}",
+            update_worst_rel=f"{t['update_worst_rel']:.3e}",
+            update_worst=t["update_worst"],
+            step_ms="/".join(f"{v:.1f}" for v in t["step_ms"]),
+            busy_ms=f"{t['busy_ms']:.1f}",
+            idle_share=f"{1 - t['busy_ms'] / t['window_ms']:.4f}",
+            peak_gb=f"{t['peak_gb']:.2f}",
+            launches_per_step=per, heads=t["heads"],
+            param_bytes=f"{rep['param_bytes_per_device']}/"
+                        f"{rep['param_bytes_replicated']}",
+            block_bytes=rep["block_bytes_per_device"],
+            adam_bytes=f"{rep['opt_bytes_per_device']}/"
+                       f"{rep['opt_bytes_replicated']}",
+            replicated_params=t["replicated"])
+        say("dist-llama-tp-collectives", rank=r["rank"],
+            per_step={k: f"{v:g}" for k, v in
+                      sorted(t["collectives"].items())},
+            bytes_per_step={k: f"{v:.0f}" for k, v in
+                            sorted(t["collective_bytes"].items())})
+        share = t["replicate_plain_ms"] / t["replicate_plain_step_ms"]
+        say("dist-llama-tp-host", rank=r["rank"],
+            replicate_plain_ms=f"{t['replicate_plain_ms']:.1f}",
+            replicate_plain_calls=t["replicate_plain_calls"],
+            step_ms=f"{t['replicate_plain_step_ms']:.1f}",
+            share=f"{share:.4f}")
+        if "k1_ms" in t:
+            errs = t["kernel_rel_err"]
+            say("dist-llama-tp-kernels", rank=r["rank"],
+                shape=t["kernel_shape"], k1_ms=f"{t['k1_ms']:.4f}",
+                k1_plain_ms=f"{t['k1_plain_ms']:.4f}",
+                k1_library_ms=f"{t['k1_library_ms']:.4f}",
+                k1_bound_ms=f"{t['k1_bound_ms']:.5f}",
+                k1_bound_by=t["k1_bound_by"],
+                k1_bound_cuda_cores_ms=f"{t['k1_bound_cuda_cores_ms']:.5f}",
+                k6_ms=f"{t['k6_ms']:.4f}",
+                k6_plain_ms=f"{t['k6_plain_ms']:.4f}",
+                k6_library_ms=f"{t['k6_library_ms']:.4f}",
+                k6_bound_ms=f"{t['k6_bound_ms']:.5f}",
+                k6_bound_by=t["k6_bound_by"],
+                k6_bound_cuda_cores_ms=f"{t['k6_bound_cuda_cores_ms']:.5f}",
+                rel_err=",".join(f"{k}:{v:.2e}" for k, v in errs.items()),
+                tol_rel=FLASH_TOL[torch.float32], nvidia_smi=f'"{smi}"')
+            for what, rel in errs.items():
+                check(rel <= FLASH_TOL[torch.float32],
+                      f"[dist-llama-tp] {what} at {t['kernel_shape']} "
+                      f"disagrees with plain: {rel:.3e}")
+        check(loss_rel <= DIST_ZERO_LOSS_RTOL,
+              f"[dist-llama-tp] rank {r['rank']}: losses {t['losses']} off "
+              f"the one-process step's {t['ref_losses']}")
+        check(t["update_worst_rel"] <= DIST_ZERO_UPDATE_RTOL,
+              f"[dist-llama-tp] rank {r['rank']}: update of "
+              f"{t['update_worst']} off by {t['update_worst_rel']}")
+        check(per["flash_fwd"] == layers and per["flash_bwd_fused"] == layers
+              and per["flash_bwd_dq"] == 0 and per["flash_bwd_dkv"] == 0,
+              f"[dist-llama-tp] rank {r['rank']}: launches a step {per}")
+        check(t["heads"]["flash_fwd"] == [list(heads)] and
+              t["heads"]["flash_bwd_fused"] == [list(heads)],
+              f"[dist-llama-tp] rank {r['rank']}: K1/K6 heads "
+              f"{t['heads']}, want {heads}")
+        # what the rank holds of the weights: the step's blocks and
+        # whatever the block itself still holds (its whole tensors and
+        # gradient buffers, released by the step)
+        held = rep["param_bytes_per_device"] + rep["block_bytes_per_device"]
+        check(held < 0.55 * rep["param_bytes_replicated"],
+              f"[dist-llama-tp] rank {r['rank']}: parameter bytes "
+              f"{rep['param_bytes_per_device']} + the block's "
+              f"{rep['block_bytes_per_device']} of "
+              f"{rep['param_bytes_replicated']}")
+        check(all(np.isfinite(t["losses"])) and
+              t["losses"][-1] < t["losses"][0],
+              f"[dist-llama-tp] losses {t['losses']}")
+    check(len({r["tp"]["norm_digest"] for r in res}) == 1,
+          "[dist-llama-tp] the replicated norms differ across ranks")
+    say("dist-llama-tp-world", ranks=TP_RANKS, backend=DIST_BACKEND,
+        reference_s=f"{ref_s:.1f}", world_s=f"{world_s:.1f}",
+        norms_equal=True)
+
+
+def _dist_ckpt_one_process(mx, ctx, shape, root):
+    """The committed ``[dist-bert-ckpt]`` checkpoint of the world of two
+    restored into one process's ``SPMDTrainStep(mesh=None)`` (elastic,
+    2 -> 1): the restore's time and report, and the parameters' digest."""
+    from mxnet_tpu_torch import resilience
+
+    mx.gluon.block.reset_names()
+    net = dist_bert_net(mx, ctx, **shape["cut"])
+    step, _, _ = _dist_spmd_step(mx, net, ctx, shape, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = resilience.load_checkpoint(root, spmd_step=step)
+    torch.cuda.synchronize()
+    out = {"restore_s": time.perf_counter() - t0, "elastic": rep.elastic,
+           "digest": _digest(list(_sorted_weights(net).values()))}
+    del step, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_superstep_gates(res, shape):
+    layers = shape["cut"].get("num_layers", BERT_LAYERS)
+    for r in res:
+        sup, one = r["superstep"]["superstep"], r["superstep"]["single"]
+        per = {k: sup["launches"].get(k, 0)
+               for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        say("dist-bert-superstep", rank=r["rank"], k=DIST_SUPER_K,
+            zero_stage=DIST_SUPER_STAGE,
+            losses="/".join(f"{v:.6f}" for v in sup["losses"]),
+            single_losses="/".join(f"{v:.6f}" for v in one["losses"]),
+            superstep_ms=f"{sup['ms']:.1f}", single_ms=f"{one['ms']:.1f}",
+            k1_k2_launches="/".join(str(v) for v in per.values()),
+            params_equal=sup["param_digest"] == one["param_digest"])
+        check(sup["losses"] == one["losses"] and
+              sup["param_digest"] == one["param_digest"],
+              f"[dist-bert-superstep] rank {r['rank']}: run_superstep "
+              f"{sup['losses']} differs from {DIST_SUPER_K} mesh steps "
+              f"{one['losses']}")
+        check(all(v == layers * DIST_SUPER_K for v in per.values()),
+              f"[dist-bert-superstep] rank {r['rank']}: K1/K2 launches "
+              f"{per}, want {layers * DIST_SUPER_K} each")
+        check(all(np.isfinite(sup["losses"])),
+              f"[dist-bert-superstep] losses {sup['losses']}")
+
+
+def _dist_ckpt_gates(res, one):
+    paths = [r["ckpt"]["path"] for r in res]
+    files = res[0]["ckpt"].get("files", {})
+    shards = sorted(f for f in files if f.endswith(".npz"))
+    for r in res:
+        c = r["ckpt"]
+        say("dist-bert-ckpt", rank=r["rank"], committed=c["path"] or "-",
+            shard_files=len(shards),
+            shard_bytes=sum(files[f] for f in shards),
+            save_s=f"{c['save_s']:.3f}", restore_s=f"{c['restore_s']:.3f}",
+            loss3=f"{c['loss3']:.7f}", loss3_again=f"{c['loss3_again']:.7f}",
+            elastic=c["elastic"])
+        check(c["loss3"] == c["loss3_again"] and
+              c["digest3"] == c["digest3_again"],
+              f"[dist-bert-ckpt] rank {r['rank']}: step 3 after the restore "
+              f"{c['loss3_again']} differs from the first {c['loss3']}")
+        check(not c["elastic"], "[dist-bert-ckpt] same-mesh restore is "
+              "reported elastic")
+    check(bool(paths[0]) and not any(paths[1:]),
+          f"[dist-bert-ckpt] committed paths {paths}: want rank 0's only")
+    check(shards == [f"spmd.shard{r}.npz" for r in range(DIST_RANKS)],
+          f"[dist-bert-ckpt] the commit holds {sorted(files)}")
+    say("dist-bert-ckpt-one-process", restore_s=f"{one['restore_s']:.3f}",
+        elastic=one["elastic"],
+        params_equal=one["digest"] == res[0]["ckpt"]["saved_digest"])
+    check(one["elastic"], "[dist-bert-ckpt] 2 -> 1 not reported elastic")
+    check(one["digest"] == res[0]["ckpt"]["saved_digest"],
+          "[dist-bert-ckpt] one process restored other parameters than the "
+          "world's at the checkpoint")
 
 
 def _dist_gates(res, smi, ref_s, world_s, shape):
@@ -7243,6 +7930,8 @@ def main():
 
     dist_nccl_phase()
     dist_bert_phases(smi)
+    dist_llama_tp_phase(smi)
+    say_phase_seconds(t_start)
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [row] + flash_rows + fused_rows
                       + mnv2_rows + [k6_row]}))
@@ -7254,6 +7943,6 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
-        dist_worker(*sys.argv[2:5])
+        dist_worker(*sys.argv[2:6])
     else:
         main()

@@ -24,9 +24,11 @@ On a CUDA device the copy runs on a side stream:
   on the delivered tensors, so the caching allocator does not reuse their
   memory while the consumer's stream may still read them.
 
-``device=None`` keeps batches on the host, as the reference does. A
-``mesh`` (sharded staging) is ROADMAP A11's and raises ``MXNetError``
-naming it. ``resilience.chaos``'s ``nan`` fault at site ``prefetch``
+``device=None`` keeps batches on the host, as the reference does. With
+a ``mesh`` (a world of several ranks) each rank stages its rows of every
+global batch (``parallel.shard_batch`` along ``batch_axis``) onto its own
+device, the current context's (``mx.gpu(0)``, the rank's card), by the
+same side stream. ``resilience.chaos``'s ``nan`` fault at site ``prefetch``
 poisons the float leaves of a staged batch. :class:`SuperstepRing` groups
 the staged batches K at a time for ``gluon.Superstep``.
 
@@ -86,12 +88,8 @@ class DevicePrefetcher:
                  batch_axis="dp"):
         if device is not None and mesh is not None:
             raise ValueError("pass device OR mesh, not both")
-        if mesh is not None:
-            raise MXNetError("DevicePrefetcher(mesh=...): sharded staging "
-                             "over a device mesh is ROADMAP A11's; in a "
-                             "world of several ranks stage each rank's rows "
-                             "(parallel.shard_batch) with device=")
         self._lifecycle_lock = threading.Lock()
+        self._mesh = mesh
         self._source = source
         self._batch_axis = batch_axis
         self._depth = max(1, depth if depth is not None
@@ -107,6 +105,10 @@ class DevicePrefetcher:
 
     def _set_device(self, device):
         self._device = device
+        if device is None and self._mesh is not None:
+            from ...context import current_context
+
+            device = current_context()
         self._dev = resolve_device(device) if device is not None else None
         self._stream = None
         if self._dev is not None and self._dev.type == "cuda":
@@ -138,6 +140,10 @@ class DevicePrefetcher:
             t = obj.detach()
         else:
             return obj  # scalars / strings ride through untouched
+        if self._mesh is not None:
+            from ...parallel.spmd import shard_batch
+
+            t = shard_batch(t, self._mesh, self._batch_axis)
         if self._dev is None or t.device == self._dev:
             return NDArray(t)
         box[0] += t.numel() * t.element_size()
@@ -194,7 +200,10 @@ class DevicePrefetcher:
                 if stop.is_set():
                     return
                 gen = self._placement_gen
-                if not put(("ok", (gen,) + self._stage(batch))):
+                # a mesh stages only this rank's rows: a repartition()
+                # stages again from the global batch, kept for it
+                source = batch if self._mesh is not None else None
+                if not put(("ok", (gen,) + self._stage(batch) + (source,))):
                     return
             put(("end", None))
         except BaseException as e:  # noqa: BLE001 - reaches next()
@@ -250,12 +259,14 @@ class DevicePrefetcher:
             _obs.DATA_PREFETCH_WAIT_SECONDS.inc(time.perf_counter() - t0)
             _obs.DATA_PREFETCH_QUEUE_DEPTH.set(self._queue.qsize())
         if kind == "ok":
-            gen, batch, event = payload
+            gen, batch, event, source = payload
             batch = self._deliver(batch, event)
             if gen != self._placement_gen:
-                # staged before a repartition(): staged again, on the
-                # consumer's thread, onto the current device
-                batch, event = self._stage(batch)
+                # staged before a repartition(): staged again (from the
+                # global batch where a mesh took rows of it), on the
+                # consumer's thread, onto the current device (and mesh)
+                batch, event = self._stage(
+                    batch if source is None else source)
                 batch = self._deliver(batch, event)
             self._delivered += 1
             return batch
@@ -272,20 +283,19 @@ class DevicePrefetcher:
                     world=None, rank=None):
         """Move the pipeline to another device without losing position:
         batches already staged are staged again onto ``device`` at
-        delivery, and everything after lands there directly. A ``mesh``
-        is ROADMAP A11's; re-sharding a streaming source (``world``/
-        ``rank``) waits for its reader, ROADMAP A13."""
+        delivery, and everything after lands there directly; a ``mesh``
+        stages this rank's rows on the current context's device.
+        Re-sharding a streaming source (``world``/``rank``) waits for its
+        reader, ROADMAP A13."""
         if mesh is not None and device is not None:
             raise ValueError("pass device OR mesh, not both")
-        if mesh is not None:
-            raise MXNetError("DevicePrefetcher.repartition(mesh=...): "
-                             "device meshes are ROADMAP A11's")
         if world is not None or rank is not None:
             raise MXNetError("DevicePrefetcher.repartition(world=, rank=): "
                              "streaming sources are ROADMAP A13's")
         if batch_axis is not None:
             self._batch_axis = batch_axis
-        if device is not None:
+        if mesh is not None or device is not None:
+            self._mesh = mesh
             self._set_device(device)
         self._placement_gen += 1
         return self

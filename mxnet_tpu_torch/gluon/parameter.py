@@ -16,7 +16,7 @@ import torch
 from .. import initializer
 from ..base import MXNetError
 from ..context import Context, current_context
-from ..ndarray.ndarray import NDArray, _device, array, torch_dtype
+from ..ndarray.ndarray import NDArray, _check_held, _device, array, torch_dtype
 
 
 class DeferredInitializationError(MXNetError):
@@ -247,6 +247,7 @@ class Parameter:
             src = torch.from_numpy(_np.array(src))
         with torch.no_grad():
             for arr in self._data.values():
+                _check_held(arr.data)
                 arr.data.copy_(src)
 
     def zero_grad(self):

@@ -5,15 +5,15 @@ PyTorch counterpart of ``mxnet_tpu/models/llama.py``, reproduced as it is
 optional sliding window). Attention goes through ``F.flash_attention``
 with the kv heads unrepeated: on the card the Hopper kernels K1 (forward)
 and K2 or, under ``MXTPU_FLASH_BWD=fused``, K6 (backward).
-``tp_sharding_map`` (tensor-parallel ``PartitionSpec``s) raises: tensor
-parallelism is ROADMAP A11's.
+``tp_sharding_map`` gives the tensor-parallel ``PartitionSpec``s that
+``SPMDTrainStep(param_sharding=...)`` trains with; there each rank runs
+the kernels on its own heads.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..base import MXNetError
 from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..ndarray.ndarray import apply
@@ -159,10 +159,30 @@ class LlamaModel(HybridBlock):
         return self.lm_head(x)
 
     def tp_sharding_map(self, tp_axis="tp"):
-        """Megatron-style tensor-parallel shardings: not ported yet (ROADMAP
-        A11's tensor parallelism); the data-parallel mesh needs none."""
-        raise MXNetError("Llama.tp_sharding_map: tensor parallelism is not "
-                         "ported yet (ROADMAP A11)")
+        """PartitionSpecs for Megatron-style TP over ``tp_axis``
+        (``SPMDTrainStep(param_sharding=...)``).
+
+        Dense weights are (out, in): column-parallel layers shard dim 0
+        (q/k/v/gate/up and the LM head), row-parallel shard dim 1 (o/down).
+        Embeddings shard the hidden dim; the norms stay replicated.
+        """
+        from ..parallel.mesh import PartitionSpec as P
+
+        mapping = {}
+        for name, p in self.collect_params().items():
+            if p.shape is None:
+                continue
+            if any(t in name for t in ("q_weight", "k_weight", "v_weight",
+                                       "gate_weight", "up_weight",
+                                       "lm_head_weight")):
+                mapping[name] = P(tp_axis, None)
+            elif any(t in name for t in ("o_weight", "down_weight")):
+                mapping[name] = P(None, tp_axis)
+            elif "embed_weight" in name:
+                mapping[name] = P(None, tp_axis)
+            else:  # norms replicated
+                mapping[name] = P()
+        return mapping
 
 
 _LLAMA_CONFIGS = {

@@ -143,7 +143,9 @@ def _join(src, out):
 
 
 def _storage(t):
-    return t.untyped_storage().data_ptr()
+    # a sharded tensor (DTensor) has no storage of its own: its shard's
+    local = getattr(t, "_local_tensor", None)
+    return (local if local is not None else t).untyped_storage().data_ptr()
 
 
 def _held(t) -> bool:
@@ -271,6 +273,16 @@ def _index_tensor(idx, device):
     return idx
 
 
+def _check_held(t):
+    """A tensor that a tensor-parallel ``SPMDTrainStep`` released holds no
+    values to read or write in place."""
+    if t.is_meta:
+        raise MXNetError(
+            "this parameter's values are held by a tensor-parallel "
+            "SPMDTrainStep as each rank's block; call the step's "
+            "sync_to_block() first")
+
+
 class NDArray:
     """An n-dimensional array on one device (reference: ``NDArray``)."""
 
@@ -363,6 +375,7 @@ class NDArray:
 
     # -- host transfer and synchronisation -----------------------------
     def asnumpy(self) -> _np.ndarray:
+        _check_held(self._t)
         t = self._t.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -494,6 +507,7 @@ class NDArray:
         operator writes back state (BatchNorm's running statistics,
         ``out=``, an optimizer's update). The other arrays sharing the
         storage get their own copy first."""
+        _check_held(self._t)
         self._root()._cow()
         v = _as_value(value, self._t)
         with torch.no_grad():

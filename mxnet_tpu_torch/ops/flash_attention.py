@@ -583,5 +583,57 @@ def flash_attention(query, key, value, scale=None, causal=False,
         if query.shape[2] != key.shape[2]:
             raise ValueError("window attention expects self-attention "
                              "(T == S)")
-    return _FlashAttention.apply(query, key, value, float(scale),
-                                 bool(causal), int(window or 0))
+    args = (float(scale), bool(causal), int(window or 0))
+    sharded = _sharded_operands(query, key, value)
+    if sharded is not None:
+        # a tensor-parallel step: each rank runs the kernels on its own
+        # batch rows and heads (``to_local``), never on gathered ones
+        mesh, placements = sharded
+        from torch.distributed.tensor import DTensor
+
+        out = _FlashAttention.apply(query.to_local(), key.to_local(),
+                                    value.to_local(), *args)
+        return DTensor.from_local(out, mesh, placements, run_check=False)
+    return _FlashAttention.apply(query, key, value, *args)
+
+
+def _sharded_operands(q, k, v):
+    """``(mesh, placements)`` when q, k, v are sharded tensors (DTensor)
+    that split into independent local attentions: one mesh, one
+    placement for all three, each ``Replicate`` or a ``Shard`` of the
+    batch (dim 0) or of the heads (dim 1, dividing both the query and
+    the kv heads, so that each rank keeps whole GQA groups). None for
+    plain tensors. Anything else raises: the kernels never run on a
+    silently gathered operand."""
+    if all(type(t) is torch.Tensor for t in (q, k, v)):
+        return None
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dts = [isinstance(t, DTensor) for t in (q, k, v)]
+    if not any(dts):
+        return None
+    if not all(dts):
+        raise ValueError("flash_attention: q, k and v must all be sharded "
+                         "tensors (DTensor) or all plain tensors")
+    mesh, placements = q.device_mesh, tuple(q.placements)
+    for name, t in (("key", k), ("value", v)):
+        if t.device_mesh != mesh or tuple(t.placements) != placements:
+            raise ValueError(
+                f"flash_attention: {name} placement {tuple(t.placements)} "
+                f"differs from the query's {placements}")
+    for size, pl in zip(mesh.shape, placements):
+        if isinstance(pl, Replicate):
+            continue
+        if isinstance(pl, Shard) and pl.dim == 0 \
+                and q.shape[0] % size == 0:
+            continue
+        if isinstance(pl, Shard) and pl.dim == 1 and \
+                q.shape[1] % size == 0 and k.shape[1] % size == 0:
+            continue
+        raise ValueError(
+            f"flash_attention: cannot split placement {placements} of q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)} on mesh "
+            f"{tuple(mesh.shape)}: the kernels take a Shard of the batch "
+            "(dim 0) or of the heads (dim 1, dividing the query and the kv "
+            "heads), or Replicate")
+    return mesh, placements

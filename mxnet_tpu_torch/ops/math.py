@@ -374,6 +374,20 @@ def norm(data, ord=2, axis=None, keepdims=False):  # noqa: A002
 @register("logsumexp")
 def logsumexp(data, axis=None, keepdims=False):
     ax = _axes(axis, False, data.dim())
+    if type(data) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor, Replicate
+
+        if isinstance(data, DTensor):
+            # sharded along the reduced axis (a vocabulary-parallel head):
+            # each rank reduces its part, and only the (B, T, 1) max and
+            # sum cross the ranks, never the whole rows
+            m = torch.amax(data.detach(), dim=ax, keepdim=True)
+            m = m.redistribute(m.device_mesh,
+                               [Replicate()] * m.device_mesh.ndim)
+            m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+            out = torch.log(torch.sum(torch.exp(data - m), dim=ax,
+                                      keepdim=True)) + m
+            return out if keepdims else out.squeeze(ax)
     return torch.logsumexp(data, dim=ax, keepdim=keepdims)
 
 

@@ -22,6 +22,7 @@ from .. import random as _random
 from ..autograd import recompute_grads
 from ..base import MXNetError
 from .math import clip
+from ._sharded import replicate
 from .registry import register
 
 
@@ -32,7 +33,62 @@ def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
     ``flatten`` folds all but the first axis into the input features."""
     del num_hidden
     x = data.reshape(data.shape[0], -1) if flatten else data
-    return tF.linear(x, weight, None if no_bias else bias)
+    b = None if no_bias else bias
+    y = _sharded_linear(x, weight, b)
+    return y if y is not None else _reduced(tF.linear(x, weight, b))
+
+
+def _sharded_linear(x, weight, bias):
+    """``FullyConnected`` of a weight split over one mesh axis (DTensor),
+    computed on the local blocks with Megatron's collectives: a weight
+    split along its output features (column-parallel) takes the whole
+    input and gives its block of the output features, whose input
+    gradient is a partial sum; one split along its input features
+    (row-parallel) takes its block of the input features and sums the
+    partial products over the axis. None for any other layout, which
+    DTensor's own rules compute."""
+    if type(weight) is torch.Tensor:  # the plain path, at no import
+        return None
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(weight, DTensor) or weight.device_mesh.ndim != 1:
+        return None
+    mesh, pw = weight.device_mesh, weight.placements[0]
+    if not isinstance(pw, Shard):
+        return None
+    if bias is not None and not isinstance(bias, DTensor):
+        bias = DTensor.from_local(bias, mesh, [Replicate()], run_check=False)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()], run_check=False)
+    last = x.ndim - 1
+    if pw.dim == 0:
+        if bias is not None and bias.placements[0] != Shard(0):
+            return None
+        xl = replicate(x).to_local(grad_placements=[Partial()])
+        yl = tF.linear(xl, weight.to_local(),
+                       None if bias is None else bias.to_local())
+        return DTensor.from_local(yl, mesh, [Shard(last)], run_check=False)
+    xl = x.redistribute(mesh, [Shard(last)]).to_local()
+    y = DTensor.from_local(tF.linear(xl, weight.to_local()), mesh,
+                           [Partial()], run_check=False)
+    y = y.redistribute(mesh, [Replicate()])
+    return y if bias is None else y + bias
+
+
+def _reduced(t):
+    """A sharded product's partial sums (a row-parallel layer's, whose
+    weight is split along its input features) summed over the ranks at
+    once, as Megatron's row-parallel layer does: what follows takes a
+    whole tensor. Sharded and plain results pass through."""
+    if type(t) is torch.Tensor:
+        return t
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(t, DTensor) or \
+            not any(isinstance(p, Partial) for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if isinstance(p, Partial) else p for p in t.placements])
 
 
 @register("relu")
@@ -118,9 +174,40 @@ def embedding(data, weight, input_dim=None, output_dim=None,
     for bit (``_Embedding``)."""
     del input_dim, output_dim, dtype, sparse_grad
     idx = torch.clamp(data.long(), 0, weight.shape[0] - 1)
+    local = _sharded_lookup(idx, weight)
+    if local is not None:
+        return local
     if weight.requires_grad:
-        return _Embedding.apply(idx, weight)
-    return tF.embedding(idx, weight)
+        out = _Embedding.apply(idx, weight)
+    else:
+        out = tF.embedding(idx, weight)
+    # a sharded table's lookup is made whole: the tensor-parallel layers
+    # after it (norms, column-parallel products) take a replicated input
+    return replicate(out)
+
+
+def _sharded_lookup(idx, weight):
+    """The lookup of a table split along its features (or replicated)
+    over one mesh axis, on the local block (``_Embedding``'s repeatable
+    gradient), made whole (``_sharded.replicate``). None for any other
+    layout."""
+    if type(weight) is torch.Tensor:
+        return None
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(weight, DTensor) or weight.device_mesh.ndim != 1:
+        return None
+    mesh, pw = weight.device_mesh, weight.placements[0]
+    if not (isinstance(pw, Replicate) or pw == Shard(1)):
+        return None
+    if isinstance(idx, DTensor):
+        idx = idx.redistribute(mesh, [Replicate()]).to_local()
+    wl = weight.to_local()
+    out = _Embedding.apply(idx, wl) if wl.requires_grad \
+        else tF.embedding(idx, wl)
+    return replicate(DTensor.from_local(out, mesh, [
+        Shard(out.ndim - 1) if pw == Shard(1) else Replicate()],
+        run_check=False))
 
 
 class _Embedding(torch.autograd.Function):

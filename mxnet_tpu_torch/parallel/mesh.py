@@ -40,6 +40,23 @@ def world():
     return 0, 1
 
 
+class PartitionSpec(tuple):
+    """How a tensor is laid out over a mesh: one entry per dimension, the
+    name of the mesh axis that splits it or None (whole); missing trailing
+    entries are None. The counterpart of ``jax.sharding.PartitionSpec``:
+    a tuple of its entries, compared by them, so ``P("tp", None)`` means
+    here what it means in the JAX package."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return "PartitionSpec(" + ", ".join(repr(p) for p in self) + ")"
+
+
+P = PartitionSpec
+
+
 class Mesh:
     """A grid of ranks with named axes (the reference's
     ``jax.sharding.Mesh``: ``axis_names``, ``shape`` as name -> size,
@@ -50,6 +67,8 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, self.devices.shape))
         self._groups = {}
+        self._singletons = {}  # an axis of one rank: this rank's group
+        self._device_meshes = {}
         rank, size = world()
         if size > 1:
             if self.devices.size != size or \
@@ -80,6 +99,48 @@ class Mesh:
                     else None
                 if rank in ranks:
                     self._groups[name] = g
+
+    def device_mesh(self, axes=None, device_type="cpu"):
+        """A ``torch.distributed.device_mesh.DeviceMesh`` over ``axes``
+        (default: every axis) of the ranks that share this rank's
+        coordinates on the others, built from the axes' process groups
+        (``DeviceMesh.from_group``) on ``device_type``; what DTensors of
+        a tensor-parallel step are placed on. Every rank calls it, in
+        one order: an axis of one rank makes its groups here."""
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        axes = tuple(self.axis_names if axes is None else axes)
+        key = (axes, device_type)
+        if key in self._device_meshes:
+            return self._device_meshes[key]
+        rank, _ = world()
+        where = tuple(int(i) for i in _np.argwhere(self.devices == rank)[0])
+        sub = self.devices[tuple(
+            slice(None) if n in axes else where[ax]
+            for ax, n in enumerate(self.axis_names))]
+        order = [n for n in self.axis_names if n in axes]
+        sub = _np.moveaxis(sub, [order.index(a) for a in axes],
+                           list(range(len(axes))))
+        groups = []
+        for a in axes:
+            if self.shape[a] > 1:
+                g = self._groups.get(a)
+                groups.append(g if g is not None else dist.group.WORLD)
+                continue
+            if a not in self._singletons:
+                for r in range(self.size):  # collective: every rank
+                    g = dist.new_group([r])
+                    if r == rank:
+                        self._singletons[a] = g
+            groups.append(self._singletons[a])
+        dm = DeviceMesh.from_group(
+            groups if len(axes) > 1 else groups[0], device_type,
+            mesh=torch.as_tensor(sub.astype(_np.int64)),
+            mesh_dim_names=axes)
+        self._device_meshes[key] = dm
+        return dm
 
     def group(self, name):
         """The process group of this rank along axis ``name`` (None: the

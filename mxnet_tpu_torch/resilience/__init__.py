@@ -1,4 +1,4 @@
-"""``mx.resilience``: fault-tolerant training in one process.
+"""``mx.resilience``: fault-tolerant training.
 
 PyTorch counterpart of ``mxnet_tpu/resilience/``:
 
@@ -6,18 +6,20 @@ PyTorch counterpart of ``mxnet_tpu/resilience/``:
   (``MXTPU_CHECKPOINT``): parameters, optimizer state, fp32 masters, the
   loss scaler, update counts, random state and data cursor, copied on
   the device at a step boundary and written by a thread with an atomic
-  rename commit, manifest, checksums, retention and a SIGTERM final save;
-- :mod:`.resume`: restore one, bit for bit on one device;
+  rename commit, manifest, checksums, retention and a SIGTERM final save
+  (in a world of several ranks, rank 0 writes the replicated state);
+- :mod:`.resume`: restore one, bit for bit, on every rank; write and
+  restore a sharded ``SPMDTrainStep`` checkpoint (``save_spmd_checkpoint``,
+  one commit for every rank) onto any mesh;
 - :mod:`.chaos`: deterministic fault injection (``MXTPU_CHAOS``).
 
-Live elasticity (``ElasticTrainer``, ``MembershipMonitor``,
-``snapshot_descriptor``) and sharded checkpoints are ROADMAP A11's and
-raise.
+Live elasticity (:mod:`.elastic`: ``ElasticTrainer``,
+``MembershipMonitor``, ``snapshot_descriptor``) is ROADMAP A11's and
+raises.
 """
 
 from __future__ import annotations
 
-from ..base import MXNetError
 from . import chaos  # noqa: F401
 from . import checkpoint  # noqa: F401
 from . import resume  # noqa: F401
@@ -38,20 +40,8 @@ from .resume import (  # noqa: F401
     save_spmd_checkpoint,
     skip_batches,
 )
-
-
-def _elastic(name):
-    def stub(*args, **kwargs):
-        raise MXNetError(f"resilience.{name}: live elasticity over a "
-                         "device mesh is not ported yet (ROADMAP A11)")
-
-    stub.__name__ = name
-    return stub
-
-
-ElasticTrainer = _elastic("ElasticTrainer")
-MembershipMonitor = _elastic("MembershipMonitor")
-snapshot_descriptor = _elastic("snapshot_descriptor")
+from .elastic import (ElasticTrainer, MembershipMonitor,  # noqa: F401
+                      snapshot_descriptor)
 
 # MXTPU_CHAOS arms faults at import (one getenv when unset)
 chaos.maybe_configure()

@@ -397,24 +397,41 @@ def step_critical_section():
     return _StepCritical()
 
 
-def require_one_process(what):
-    """Raise where ``what`` would do the wrong thing in a world of several
-    ranks (every rank writing one directory, each restoring alone): the
-    multi-process checkpoint is ROADMAP A11's."""
+def _world():
+    """``(rank, world size)`` of this process: ``(0, 1)`` with no group."""
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise MXNetError(
-            f"{what} in a world of {dist.get_world_size()} ranks: the "
-            "multi-process checkpoint (one commit for every rank) is not "
-            "ported yet (ROADMAP A11); checkpoint in a world of one")
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+_COMMIT_BARRIER_SEQ = [0]
 
 
 def default_commit_barrier():
-    """The commit barrier of a sharded checkpoint: in one process, a
-    no-op (the multi-process barrier is ROADMAP A11's)."""
-    return lambda: None
+    """The barrier every rank calls around the rank-0 manifest and commit
+    of a sharded checkpoint (``resume.save_spmd_checkpoint`` uses it when
+    the caller passes none). In one process a no-op; in a world of
+    several ranks one ``torch.distributed`` barrier per call under the
+    watchdog of ``kvstore.barrier`` (``MXTPU_BARRIER_TIMEOUT_S``, no retry
+    after a timeout): a peer that is gone raises
+    ``CollectiveTimeoutError`` at the commit point, never a hang with a
+    half-staged checkpoint."""
+    if _world()[1] == 1:
+        return lambda: None
+
+    def barrier():
+        import torch.distributed as dist
+
+        from ..kvstore.dist import _barrier_timeout_s, _call_with_timeout
+
+        _COMMIT_BARRIER_SEQ[0] += 1
+        tag = f"mxtpu_ckpt_commit_{_COMMIT_BARRIER_SEQ[0]}"
+        _call_with_timeout(dist.barrier, _barrier_timeout_s(),
+                           f"checkpoint commit barrier {tag!r}")
+
+    return barrier
 
 
 def write_checkpoint(directory, tensors, extras, step, reason="manual",
@@ -438,7 +455,8 @@ def write_checkpoint(directory, tensors, extras, step, reason="manual",
                 "files": {},
                 "world": {"backend": "cuda" if torch.cuda.is_available()
                           else "cpu",
-                          "process_count": 1, "process_index": 0,
+                          "process_count": _world()[1],
+                          "process_index": _world()[0],
                           "device_count": max(1, torch.cuda.device_count())}}
     with open(os.path.join(tmp, PAYLOAD), "wb") as f:
         offset = 0
@@ -702,8 +720,11 @@ class CheckpointManager:
 
     def __init__(self, directory, every_n_steps=100, keep=_KEEP_DEFAULT,
                  net=None, trainer=None, ring=None, install_sigterm=True):
-        require_one_process("CheckpointManager")
         self.directory = str(directory)
+        # in a world of several ranks the trainer's state is the same on
+        # every rank: rank 0 alone writes and commits (the manifest's
+        # world record says how many ranks ran)
+        self._writes = _world()[0] == 0
         self.every_n_steps = max(1, int(every_n_steps))
         self.keep = max(1, int(keep))
         self._net = net
@@ -800,7 +821,7 @@ class CheckpointManager:
 
     def save_async(self, reason="manual", cursor=None):
         """Snapshot now (device copies), write on the writer thread."""
-        if self._closed:
+        if self._closed or not self._writes:
             return
         try:
             snap = (self._snapshot(cursor), self._step, reason)
@@ -832,7 +853,10 @@ class CheckpointManager:
 
     def save_sync(self, reason="manual", cursor=None):
         """Snapshot and write now on the calling thread (after the queued
-        writes). Returns the committed path."""
+        writes). Returns the committed path (None on a rank other than
+        0 of a world, which writes nothing)."""
+        if not self._writes:
+            return None
         self.flush()
         (tensors, extras), step = self._snapshot(cursor), self._step
         t0 = time.perf_counter()

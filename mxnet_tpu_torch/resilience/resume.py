@@ -1,19 +1,22 @@
-"""Resume a training loop from a checkpoint, in one process.
+"""Resume a training loop from a checkpoint, onto the current topology.
 
-PyTorch counterpart of the trainer half of
-``mxnet_tpu/resilience/resume.py``: a :mod:`.checkpoint` directory's
-parameters, optimizer state (fused or eager, fp32 masters included), loss
-scaler, update counts and random state land back in a net and its
-Trainer, bit for bit on one device. A tensor that already exists with the
-checkpoint's shape and type is written in place, so a hybridized block's
-captured graphs, a Trainer's plan and a ``Superstep``'s captured graph
-over it stay valid. The learning-rate schedule continues from the
-restored update counts.
+PyTorch counterpart of ``mxnet_tpu/resilience/resume.py``:
 
-A sharded checkpoint (``SPMDTrainStep``, ``save_spmd_checkpoint``), a
-checkpoint written by more than one process, and a restore in a world of
-several ranks need the multi-process checkpoint (ROADMAP A11) and
-raise.
+- **Trainer checkpoints** (the Gluon loop): a :mod:`.checkpoint`
+  directory's parameters, optimizer state (fused or eager, fp32 masters
+  included), loss scaler, update counts and random state land back in a
+  net and its Trainer, bit for bit on one device, and on every rank of a
+  world (the trainer's state is replicated; rank 0 wrote it). A tensor
+  that already exists with the checkpoint's shape and type is written in
+  place, so a hybridized block's captured graphs, a Trainer's plan and a
+  ``Superstep``'s captured graph over it stay valid. The learning-rate
+  schedule continues from the restored update counts.
+- **SPMD checkpoints** (``save_spmd_checkpoint``): every rank's shard
+  file of an ``SPMDTrainStep`` (``parallel.spmd_save_states``), committed
+  once by rank 0; a restore reads the chunks each rank's blocks need and
+  re-shards them onto the step's current mesh, whatever its dp, tp or
+  world size was at save time (``ResumeReport.elastic`` compares the
+  mesh sizes).
 """
 
 from __future__ import annotations
@@ -29,15 +32,11 @@ from . import checkpoint as _ckpt
 _logger = logging.getLogger("mxnet_tpu_torch.resume")
 
 
-def _no_spmd(what):
-    return MXNetError(f"{what} needs the mesh path of SPMDTrainStep, which "
-                      "is not ported yet (ROADMAP A11); this port resumes "
-                      "a Gluon Trainer in one process")
-
-
 def _current_world():
+    from .checkpoint import _world
+
     return {"backend": "cuda" if torch.cuda.is_available() else "cpu",
-            "process_count": 1,
+            "process_count": _world()[1],
             "device_count": max(1, torch.cuda.device_count())}
 
 
@@ -213,21 +212,45 @@ def _restore_rng(tensors):
 def load_checkpoint(path, net=None, trainer=None, spmd_step=None,
                     verify_checksums=True, restore_rng=True):
     """Restore ``path`` (a checkpoint root or one ``step_*`` dir) into
-    ``net`` and ``trainer``. Returns a :class:`ResumeReport`."""
-    if spmd_step is not None:
-        raise _no_spmd("load_checkpoint(spmd_step=...)")
-    _ckpt.require_one_process("load_checkpoint")
+    ``net`` and ``trainer`` (a Gluon loop, on every rank of a world), or
+    into ``spmd_step`` (a sharded ``SPMDTrainStep`` checkpoint, re-sharded
+    onto the step's current mesh). Returns a :class:`ResumeReport`."""
     manifest, tensors = _ckpt.read_checkpoint(
         path, verify_checksums=verify_checksums)
     extras = manifest.get("extras", {})
     kind = extras.get("kind", "trainer")
+    if spmd_step is not None:
+        if kind != "spmd":
+            raise MXNetError(
+                f"{manifest['_path']}: checkpoint kind is {kind!r}, not a "
+                "sharded SPMD checkpoint; pass net/trainer instead")
+        from ..parallel.spmd import spmd_load_states
+
+        prefix = os.path.join(manifest["_path"],
+                              extras.get("spmd_prefix", "spmd"))
+        spmd_load_states(spmd_step, prefix)
+        # elastic detection for the SPMD kind compares MESH sizes
+        saved_mesh = extras.get("mesh_devices")
+        cur_mesh = (spmd_step.mesh.devices.size
+                    if spmd_step.mesh is not None else 1)
+        world = dict(manifest.get("world") or {})
+        if saved_mesh is not None:
+            world["device_count"] = saved_mesh
+        report = ResumeReport(manifest["_path"], extras.get("step"),
+                              extras.get("cursor"), world, kind)
+        report.current_world["device_count"] = cur_mesh
+        report.elastic = saved_mesh is not None and saved_mesh != cur_mesh
+        if report.elastic:
+            _logger.warning(
+                "resume: ELASTIC restore: checkpoint sharded over %s "
+                "devices, restored onto %s (%s)", saved_mesh, cur_mesh,
+                report.path)
+        _logger.info("resume: restored %s", report)
+        return report
     if kind != "trainer":
-        raise _no_spmd(f"{manifest['_path']}: a checkpoint of kind "
-                       f"{kind!r}")
+        raise MXNetError(f"{manifest['_path']}: checkpoint kind is "
+                         f"{kind!r}; pass spmd_step= to restore it")
     world = manifest.get("world") or {}
-    if int(world.get("process_count") or 1) != 1:
-        raise _no_spmd(f"{manifest['_path']}: a checkpoint written by "
-                       f"{world.get('process_count')} processes")
     _restore_params(tensors, net, trainer)
     if trainer is not None:
         _restore_trainer(manifest, tensors, trainer, net=net)
@@ -241,9 +264,62 @@ def load_checkpoint(path, net=None, trainer=None, spmd_step=None,
 
 def save_spmd_checkpoint(directory, spmd_step, step, reason="manual",
                          barrier=None):
-    """A sharded ``SPMDTrainStep`` checkpoint: ROADMAP A11's."""
-    del directory, spmd_step, step, reason, barrier
-    raise _no_spmd("save_spmd_checkpoint")
+    """Write an ``SPMDTrainStep``'s sharded state as one committed
+    checkpoint. Every rank calls it with ``directory`` on a filesystem
+    they share: each stages its shard file (``spmd.shard<rank>.npz``) in
+    one staging directory, then, after a barrier, rank 0 alone writes the
+    manifest of exactly this run's shard set (a stale shard of an earlier
+    or differently sized run is not swept in) and commits once; a second
+    barrier keeps every rank until the commit landed. ``barrier=None``
+    takes :func:`checkpoint.default_commit_barrier`. Returns the
+    committed path on rank 0 (and in one process), None elsewhere."""
+    import shutil
+
+    from ..parallel.spmd import spmd_save_states
+
+    if spmd_step._state is None:
+        raise MXNetError("save_spmd_checkpoint: run a step (or "
+                         "init_state()) first")
+    rank, nproc = _ckpt._world()
+    extras = {"kind": "spmd", "spmd_prefix": "spmd", "step": int(step),
+              "mesh_devices": (int(spmd_step.mesh.devices.size)
+                               if spmd_step.mesh is not None else 1),
+              "process_count": nproc,
+              "tensor_names": list(spmd_step._names or [])}
+    if nproc == 1:
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="spmd-ckpt-",
+                                         dir=str(directory)
+                                         if os.path.isdir(str(directory))
+                                         else None) as scratch:
+            fname = spmd_save_states(spmd_step,
+                                     os.path.join(scratch, "spmd"))
+            return _ckpt.write_checkpoint(
+                directory, {}, extras, step, reason=reason,
+                extra_files={os.path.basename(fname): fname})
+    if barrier is None:
+        barrier = _ckpt.default_commit_barrier()
+    staging = os.path.join(str(directory),
+                           f".shards-{_ckpt._step_dirname(step)}")
+    os.makedirs(staging, exist_ok=True)
+    spmd_save_states(spmd_step, os.path.join(staging, "spmd"))
+    barrier()  # every rank's shard is staged past this point
+    out = None
+    if rank == 0:
+        shards = {}
+        for r in range(nproc):
+            p = os.path.join(staging, f"spmd.shard{r}.npz")
+            if not os.path.exists(p):
+                raise MXNetError(
+                    f"save_spmd_checkpoint: rank {r}'s shard file is "
+                    f"missing from {staging} after the barrier")
+            shards[os.path.basename(p)] = p
+        out = _ckpt.write_checkpoint(directory, {}, extras, step,
+                                     reason=reason, extra_files=shards)
+        shutil.rmtree(staging, ignore_errors=True)
+    barrier()  # nobody proceeds (or exits) before the commit landed
+    return out
 
 
 def skip_batches(source, n):

@@ -2,7 +2,8 @@
 ``chip_smoke.py`` imports JAX or any module of the JAX package
 ``mxnet_tpu`` (matched by exact top-level name, so ``mxnet_tpu_torch``
 itself is allowed); importing the port's serving and training surfaces
-loads no JAX, nor does the worker entry of ``tests/test_torch_dist.py``;
+loads no JAX, nor do the worker entries of ``tests/test_torch_dist.py``
+and ``tests/test_torch_tp.py``;
 and without a CUDA card the entry points refuse to run
 unless the CPU was asked for.
 """
@@ -258,3 +259,45 @@ def test_data_path_stages_to_the_card_only_when_asked(monkeypatch):
         mx.gluon.data.DataLoader(ds, batch_size=2, device=mx.gpu(0))
     with pytest.raises(mx.MXNetError, match="no CUDA device"):
         mx.gluon.data.DevicePrefetcher([], device=mx.gpu(0))
+
+
+# the modules of the twentieth slice (tensor parallelism, sharded state,
+# the A11 parts still to come)
+TP_MODULES = ("parallel/mesh.py", "parallel/spmd.py",
+              "parallel/ring_attention.py", "resilience/elastic.py",
+              "resilience/resume.py", "resilience/checkpoint.py",
+              "ops/nn.py", "ops/math.py", "ops/flash_attention.py",
+              "ops/_sharded.py")
+
+
+@pytest.mark.parametrize("rel", TP_MODULES)
+def test_tp_modules_are_scanned(rel):
+    path = os.path.join(PKG, rel)
+    assert path in _port_files()
+    assert not [n for n, _ in _imported_roots(path) if n in FORBIDDEN]
+
+
+def test_tp_worker_entry_loads_no_jax(tmp_path):
+    """``tests/test_torch_tp.py`` is the worker of its worlds too: run as
+    ``--worker imports`` it loads the port and no JAX or ``mxnet_tpu``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tests", "test_torch_tp.py"),
+         "--worker", "imports", str(tmp_path)], env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+def test_mesh_prefetcher_stages_to_the_card_unless_asked(monkeypatch):
+    """``DevicePrefetcher(mesh=)`` stages each rank's rows on the current
+    context's device: the card, which without one raises; under ``with
+    mx.cpu()`` the host."""
+    import mxnet_tpu_torch as mx
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = mx.parallel.make_mesh({"dp": 1})
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        mx.gluon.data.DevicePrefetcher([], mesh=mesh)
+    with mx.cpu():
+        mx.gluon.data.DevicePrefetcher([], mesh=mesh)

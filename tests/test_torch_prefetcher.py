@@ -209,10 +209,20 @@ def test_stack_batches_matches_jax():
 
 
 def test_unported_prefetcher_options_raise(monkeypatch):
-    with pytest.raises(mx.MXNetError, match="A11"):
-        DevicePrefetcher([], mesh=object())
-    with pytest.raises(mx.MXNetError, match="A11"):
-        DevicePrefetcher([]).repartition(mesh=object())
+    # a mesh is ported (each rank's rows, on the current context's
+    # device): without a card and without ``with mx.cpu()`` it refuses
+    # the host, as every entry point does
+    import torch
+
+    mesh = mx.parallel.make_mesh({"dp": 1})
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(mx.MXNetError, match="no CUDA device"):
+            DevicePrefetcher([], mesh=mesh)
+        with pytest.raises(mx.MXNetError, match="no CUDA device"):
+            DevicePrefetcher([]).repartition(mesh=mesh)
+    with mx.cpu():
+        assert list(DevicePrefetcher([], mesh=mesh)) == []
     with pytest.raises(mx.MXNetError, match="A13"):
         DevicePrefetcher([]).repartition(world=2, rank=0)
     # the chaos hook is ported (``resilience.chaos``, site ``prefetch``):

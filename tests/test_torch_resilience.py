@@ -339,15 +339,21 @@ def test_env_configures_a_manager(tmp_path, monkeypatch):
         mgr.close()
 
 
-def test_a11_surface_raises():
+def test_a11_surface_raises(tmp_path):
+    """Live elasticity is what A11 leaves here; the sharded checkpoint is
+    ported (``tests/test_torch_tp.py`` holds it in worlds of ranks) and
+    refuses what it cannot write or find, as the JAX package's does."""
     for fn in (resilience.ElasticTrainer, resilience.MembershipMonitor,
                resilience.snapshot_descriptor):
         with pytest.raises(mx.MXNetError, match="A11"):
             fn()
-    with pytest.raises(mx.MXNetError, match="A11"):
-        resilience.save_spmd_checkpoint("/x", None, 1)
-    with pytest.raises(mx.MXNetError, match="A11"):
-        resilience.load_checkpoint("/x", spmd_step=object())
+    net = mx.gluon.nn.Dense(2, in_units=3)
+    net.initialize(ctx=mx.cpu())
+    step = mx.parallel.SPMDTrainStep(net, mx.gluon.loss.L2Loss(), "sgd")
+    with pytest.raises(mx.MXNetError, match="run a step"):
+        resilience.save_spmd_checkpoint(str(tmp_path), step, 1)
+    with pytest.raises(mx.MXNetError, match="no committed checkpoint"):
+        resilience.load_checkpoint(str(tmp_path / "x"), spmd_step=step)
     assert resilience.verify_descriptor({"format": "mxtpu-snapshot-v1"}) \
         == jmx.resilience.verify_descriptor({"format": "mxtpu-snapshot-v1"})
 

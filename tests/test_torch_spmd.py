@@ -282,14 +282,10 @@ def test_dropout_draws_from_the_default_generator():
 def test_what_one_device_cannot_honour_raises(kwargs):
     """On one device the data-parallel options have nothing to act on and
     the step equals the plain one bit for bit (the JAX package's
-    single-device path ignores them too); a mesh must come from
-    ``parallel.make_mesh``, and tensor parallelism still raises (A11)."""
+    single-device path ignores them too, tensor-parallel specs included:
+    its ``_sharding_for`` has no mesh); a mesh must come from
+    ``parallel.make_mesh``."""
     net = mx.models.llama_tiny()
-    if "param_sharding" in kwargs:
-        with pytest.raises(mx.MXNetError, match="ROADMAP A11"):
-            mx.parallel.SPMDTrainStep(net, _lm_loss(mx), "adam", {},
-                                      **kwargs)
-        return
     if "mesh" in kwargs:
         with pytest.raises(mx.MXNetError, match="make_mesh"):
             mx.parallel.SPMDTrainStep(net, _lm_loss(mx), "adam", {},

@@ -410,10 +410,11 @@ def test_spmd_run_superstep_matches_jax():
     with pytest.raises(mx.MXNetError, match="lr must be"):
         step.run_superstep(xs, ys, lr=[0.1, 0.2])
     # a mesh must come from make_mesh; the superstep on a data axis of
-    # several ranks is still ROADMAP A11's
+    # several ranks runs in their world (tests/test_torch_tp.py), and a
+    # process alone refuses a mesh of two ranks, as a single step does
     with pytest.raises(mx.MXNetError, match="make_mesh"):
         mx.parallel.SPMDTrainStep(net, _loss(mx), "adam", {}, mesh=object())
     dp2 = mx.parallel.make_mesh({"dp": 2}, devices=[0, 1])
-    with pytest.raises(mx.MXNetError, match="A11"):
+    with pytest.raises(mx.MXNetError, match="join the world first"):
         mx.parallel.SPMDTrainStep(net, _loss(mx), "adam", {},
                                   mesh=dp2).run_superstep(xs, ys)
