@@ -154,9 +154,10 @@ Phases (each prints one line of facts; any failure exits non-zero):
    synchronisation in ``step`` (``set_sync_debug_mode("error")``); two
    runs from one seed equal bit for bit; ms a step on the device and the
    host clock, idle share, busy split, peak memory;
-8e. checkpoint resume (``[checkpoint-resume]``) — the same net with a
-   ``CheckpointManager`` every 4 steps over three supersteps; a fresh net
-   and trainer ``load_checkpoint`` step 8 and run superstep 3 again:
+8e. checkpoint resume (``[checkpoint-resume]``) — the same net cut to
+   CKPT_LAYERS layers with a ``CheckpointManager`` every 4 steps over
+   three supersteps; a fresh net and trainer ``load_checkpoint`` step 8
+   and run superstep 3 again:
    loss, weights, fp32 masters and Adam's m, v and t equal to the
    uninterrupted run's bit for bit; ``verify`` passes on every committed
    step; the checkpoint's bytes, the snapshot's host time in the loop,
@@ -265,13 +266,13 @@ Phases (each prints one line of facts; any failure exits non-zero):
    ``[data-gluon]``: ``ImageRecordDataset`` + ``transforms.Compose(
    [RandomResizedCrop(224), RandomFlipLeftRight(), ToTensor(),
    Normalize(mean, std)])`` + ``DataLoader(batch_size=128, num_workers=k,
-   pin_memory=True, device=mx.gpu())``: images/s over two epochs, then 8
-   ResNet-50 steps on it with their idle share; ``[data-gluon-raw]`` the
-   same over raw uint8 HWC records read through ``RecordFileDataset`` and
-   ``np.frombuffer``. ``[mnist]``: ``examples/train_mnist_gluon.py``'s
-   synthetic stand-in through ``DataLoader`` to a hybridized MLP (Dense
-   256/128/10), SGD lr 0.02, batch 128, 3 epochs on the card; validation
-   accuracy must exceed 0.9;
+   pin_memory=True, device=mx.gpu())``: images/s over two epochs, then
+   GLUON_STEPS ResNet-50 steps on it with their idle share;
+   ``[data-gluon-raw]`` the same over raw uint8 HWC records read through
+   ``RecordFileDataset`` and ``np.frombuffer``. ``[mnist]``:
+   ``examples/train_mnist_gluon.py``'s synthetic stand-in through
+   ``DataLoader`` to a hybridized MLP (Dense 256/128/10), SGD lr 0.02, batch
+   128, 3 epochs on the card; validation accuracy must exceed 0.9;
 11. llama parity — Llama-3-8B at its published widths cut to 2 decoder
    layers (meta-llama/Meta-Llama-3-8B ``config.json``: vocab 128256,
    hidden 4096, intermediate 14336, 32 heads over 8 kv heads, rope theta
@@ -294,17 +295,18 @@ Phases (each prints one line of facts; any failure exits non-zero):
    ``DIST_BACKEND`` (gloo: NCCL refuses two ranks on one card,
    ``tools/dist_probe.py``), each with its half (32 x 128) of
    ``[bert-pretrain]``'s global batch of 64 on BERT-base at full width
-   (pooler, NSP and MLM heads, 133,547,324 parameters, Normal(0.02) from
-   SEED, fp32, dropout 0). ``[dist-bert-trainer]``: ``Trainer(kvstore=
-   "dist_tpu_sync")``, Adam lr 1e-4 wd 0.01, 3 steps of the pretraining
-   loss; after the first ``allreduce_grads`` both ranks' gradients equal
-   bit for bit and each within DIST_GRAD_RTOL of its layer's largest of
-   the one-process gradient of the whole batch, and each rank's losses
-   within DIST_LOSS_RTOL of the one-process run's on its half (that run,
+   cut to DIST_BERT_LAYERS of its 12 layers (pooler, NSP and MLM heads,
+   Normal(0.02) from SEED, fp32, dropout 0). ``[dist-bert-trainer]``:
+   ``Trainer(kvstore="dist_tpu_sync")``, Adam lr 1e-4 wd 0.01, 3 steps of
+   the pretraining loss; after the first ``allreduce_grads`` both ranks'
+   gradients equal bit for bit and each within DIST_GRAD_RTOL of its layer's
+   largest of the one-process gradient of the whole batch, and each rank's
+   losses within DIST_LOSS_RTOL of the one-process run's on its half (that run,
    3 steps of the same Trainer without a store, made here before the
    world starts, then freed); after 3 steps the parameters equal bit for
    bit across ranks; the losses finite and the last below the first; K1
-   and K2's two kernels 12 times a step in each rank. ``[dist-bert-zero]``:
+   and K2's two kernels once a layer a step in each rank.
+   ``[dist-bert-zero]``:
    ``SPMDTrainStep(mesh=make_mesh({"dp": 2}))`` with Adam at ZeRO 0, 2
    and 3 (``overlap="ready"``) and at 0 with ``"barrier"``, 3 steps each:
    stages 2 and 3 equal stage 0 and ``ready`` equals ``barrier``, losses
@@ -322,11 +324,11 @@ Phases (each prints one line of facts; any failure exits non-zero):
    is killed with its process groups. In the same world,
    ``[dist-bert-superstep]``: ``run_superstep`` of DIST_SUPER_K mesh steps
    at ZeRO 2 over two stacked global batches equals DIST_SUPER_K single
-   mesh steps, losses and parameters bit for bit, K1 and K2's kernels 12
-   times a step; ``[dist-bert-ckpt]``: at ZeRO 2, ``save_spmd_checkpoint``
-   after step 2 (two shard files, one commit by rank 0), step 3,
-   ``load_checkpoint(spmd_step=...)`` and step 3 again, bit for bit; after
-   the world ends this process restores the commit into
+   mesh steps, losses and parameters bit for bit, K1 and K2's kernels
+   once a layer a step; ``[dist-bert-ckpt]``: at ZeRO 2,
+   ``save_spmd_checkpoint`` after step 2 (two shard files, one commit by
+   rank 0), step 3, ``load_checkpoint(spmd_step=...)`` and step 3 again, bit
+   for bit; after the world ends this process restores the commit into
    ``SPMDTrainStep(mesh=None)`` (elastic, 2 -> 1) and its parameters equal
    the world's at the checkpoint bit for bit; the bytes, the save's and
    each restore's seconds printed. Then ``[dist-llama-tp]``: a new world
@@ -345,6 +347,52 @@ Phases (each prints one line of facts; any failure exits non-zero):
    bytes under 0.55 of one process's. Each rank prints its collectives a
    step by kind and bytes, its resident parameter and Adam bytes, peak
    memory, step time and idle share; rank 0 times K1 and K6 at its shape.
+
+13c. A11's ring attention, pipeline and expert parallelism (run after
+   phase 3, before the models load: the pipeline's two ranks need ~30 GB
+   each, which the residue of the later phases leaves no room for) — a
+   world of A11_RANKS worker processes on the card (gloo; the transport
+   stages each point-to-point and all-to-all tensor through pinned host
+   buffers, ``parallel/transport.py``) runs three phases, each against a
+   one-process reference made here before the world starts.
+   ``[dist-ring]``: ``ring_attention`` over ``make_mesh({"sp": 2})`` on
+   q, k, v of RING_SHAPE (Llama-3-8B's 32 heads, head dim 128, its 8192
+   context) in fp32 from SEED, 4096 positions a rank, causal and full,
+   forward and backward of an upstream gradient from SEED: O, dq, dk, dv
+   within RING_TOL and the LSE within RING_LSE_TOL of their largest value
+   of one process's K1 and K2 on the whole sequence; K1 and each K2
+   kernel once a block (causal: the later rank's block skipped, so 1 on
+   rank 0 and 2 on rank 1; full: 2 each); the hops, their bytes and the
+   staged bytes, the forward's and backward's ms beside the one-process
+   call's, idle share and peak memory; rank 0 holds K1 and K2 at the
+   block shape against their plain versions and times them.
+   ``[dist-llama-pp]``: ``Composed4DStep`` on ``composed_mesh(dp=1,
+   pp=2)``, Llama-3-8B's widths cut to LLAMA_LAYERS layers, one decoder
+   layer a stage (the embedding is ``embed_fn``, the final norm and
+   ``lm_head`` ``head_fn``), PP_MICRO microbatches of one PP_SEQ-token
+   sequence, Adam lr LLAMA_ADAM_LR, PP_STEPS steps of gpipe and then of
+   1f1b from the same weights under ``MXTPU_FLASH_BWD=fused``: each rank's
+   1f1b losses within DIST_ZERO_LOSS_RTOL of one process's Gluon loop
+   on the whole net (``autograd.record``, gradients accumulated over the
+   microbatches, Adam written out in ``_plain_adam``) on the same tokens
+   and weights (``_pp_weights``, made apart from any Gluon block) and
+   each weight's update within DIST_ZERO_UPDATE_RTOL norm-wise; gpipe's
+   losses within PP_SCHED_ATOL of 1f1b's; K1 8 and K6 4 times a step in
+   each rank (4 microbatches, forward and recompute), K2 never; the realized
+   schedule, the sends and their bytes, the embed and head gradients' sum, step
+   time, idle share, memory; rank 0 holds K1 and K6 at the stage shape.
+   ``[dist-moe-ep]``: ``moe_apply_a2a`` over ``make_mesh({"ep": 2})`` at
+   MOE_CFG (Llama-3-8B's FFN widths, which are Mixtral-8x7B's expert
+   widths; 8 experts, top-2, capacity factor 1.5, 2 chunks; 8192 tokens),
+   forward and backward of ``sum(out**2) + 0.01 * aux`` in float32 (the
+   main path, timed) and again in float64: the float64 run's out and
+   gradients of gate (summed over the ranks), w1 and w2 within MOE_TOL of
+   their largest value of one process evaluating each token shard in
+   float64 with top-2 routing written out plainly (``_moe_plain``: the
+   queues filled in token order, each expert's kept tokens gathered and
+   run through it), serial within MOE_TOL of chunked; the tokens each
+   expert drops, the all-to-all bytes, ``measure_moe_overlap``'s hidden
+   fraction, time, idle share and memory.
 
 Phase 3 also times K1 and K2 in bfloat16 at BERT-base's shape and K4 and
 K5 in float16 at ResNet-50's 1x1 shapes (``[kernel-time-lowp]``), the
@@ -365,7 +413,11 @@ Then one JSON line listing every ported kernel (K1 and K2 also once per
 Transformer shape, ``flash_fwd@transformer_enc`` and so on, with the
 launches at that shape in phase 8c; K4 and K5 also per MobileNetV2 1.0
 step, ``fused_fwd@mobilenetv2_1.0`` and so on, with the launches of phase
-10f), the card's name and power limit, and as the last line
+10f; K1 and K2 at the ring's block, ``flash_fwd@ring`` and so on, with
+rank 0's launches over ``[dist-ring]``'s two runs, and K1 and K6 at the
+pipeline's stage, ``flash_fwd@llama-pp``, with rank 0's launches a step
+of ``[dist-llama-pp]``), the card's name and power limit, and as the last
+line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -4332,7 +4384,7 @@ def _dropouts(block, rate=None):
     return old
 
 
-def zoo_phase(ctx, launches, nets=ZOO_NETS, batch=ZOO_BATCH, steps=5,
+def zoo_phase(ctx, launches, nets=ZOO_NETS, batch=ZOO_BATCH, steps=3,
               classes=1000, params=ZOO_PARAMS):
     """Each family's canonical net at full width, built with ``get_model``
     on the card, Xavier weights from seed SEED, a batch of ``batch``
@@ -4895,6 +4947,10 @@ BF16_LOSS_ABS, BF16_RESIDUAL_COS = 0.2, 0.9
 # master within 1e-5 of its tensor's largest
 SS_LOSS_RTOL, SS_WEIGHT_RTOL = 2.0 ** -8, 1e-5
 CKPT_EVERY = 4
+# [checkpoint-resume]'s net cut to this many of BERT-base's 12 layers (its
+# depth, widths whole; every check there is bit for bit), so that the run
+# stays inside its time with phase 13c
+CKPT_LAYERS = 6
 RESNET_AMP_K = 2
 RESNET_AMP_SGD = {"learning_rate": 0.005, "momentum": 0.9,
                   "multi_precision": True}
@@ -5427,8 +5483,9 @@ def bert_amp_superstep_phase(ctx, launches, **cut):
 
 
 def checkpoint_resume_phase(ctx, **cut):
-    """``[bert-amp-superstep]``'s net (bf16, dropout 0.1) with a
-    ``CheckpointManager`` every CKPT_EVERY steps: three supersteps of K =
+    """``[bert-amp-superstep]``'s net (bf16, dropout 0.1) cut to
+    CKPT_LAYERS layers, with a ``CheckpointManager`` every CKPT_EVERY
+    steps: three supersteps of K =
     4 on device-resident batches (the checkpoints at steps 4, 8 and 12);
     then a fresh net and trainer in the same process ``load_checkpoint``
     step 8 and run superstep 3 again. Its loss, weights, fp32 masters and
@@ -5443,6 +5500,7 @@ def checkpoint_resume_phase(ctx, **cut):
 
     B, T = BERT_BATCH if not cut else 8, BERT_SEQ if not cut else 16
     vocab = cut.get("vocab_size", BERT_VOCAB)
+    net_cut = dict({"num_layers": CKPT_LAYERS}, **cut)
     batches = pretrain_host_batches(SS_K * SS_GROUPS, B, T, vocab,
                                     seed=SEED + 1)
     loss_fn = pretrain_xy_loss(mx)
@@ -5452,7 +5510,7 @@ def checkpoint_resume_phase(ctx, **cut):
     try:
         blocks = [_stack_dev(mx, ctx, batches[i:i + SS_K])
                   for i in range(0, len(batches), SS_K)]
-        blk, tr = bert_amp_setup(ctx, **cut)
+        blk, tr = bert_amp_setup(ctx, **net_cut)
         mgr = resilience.CheckpointManager(root, every_n_steps=CKPT_EVERY,
                                            keep=3, net=blk, trainer=tr,
                                            install_sigterm=False).attach()
@@ -5483,7 +5541,7 @@ def checkpoint_resume_phase(ctx, **cut):
         gc.collect()
         torch.cuda.empty_cache()
 
-        blk2, tr2 = bert_amp_setup(ctx, **cut)
+        blk2, tr2 = bert_amp_setup(ctx, **net_cut)
         t0 = time.perf_counter()
         rep = resilience.load_checkpoint(
             os.path.join(root, "step_%010d" % (2 * SS_K)), net=blk2,
@@ -6078,7 +6136,7 @@ IMAGENET_MEAN = (123.68, 116.28, 103.53)
 IMAGENET_STD = (58.395, 57.12, 57.375)
 DATA_TOL = 1e-5  # a decoded, cropped, normalised batch against mx.image's
 DATA_STEPS = 16
-GLUON_STEPS = 8
+GLUON_STEPS = 4
 
 
 def smooth_images(seed=SEED):
@@ -6581,6 +6639,10 @@ DIST_BACKEND = "gloo"
 DIST_RANKS = 2
 DIST_BATCH = 32  # per rank: the global batch is [bert-pretrain]'s 64
 DIST_STEPS = 3
+# the world's BERT-base cut to this many of its 12 layers (its depth,
+# widths whole), so that the run stays inside its time with phase 13c;
+# at 6 layers a rank's loss rose over the 3 steps on the H100
+DIST_BERT_LAYERS = 8
 DIST_TIMEOUT_S = 420  # the world's hard limit, its start to its end
 # the two ranks' summed gradient against one process's gradient of the
 # whole batch, each within this of its layer's largest |gradient|
@@ -6871,7 +6933,8 @@ def dist_worker(out_dir, shape_json, device="gpu", phase="bert"):
     the per-rank batch, sequence, vocabulary and BERT's width overrides
     (``cut``, empty on the card); ``device`` "cpu" is the host
     rehearsal. ``phase`` "llama-tp" runs ``[dist-llama-tp]`` instead
-    (``shape``: Llama's width overrides)."""
+    (``shape``: Llama's width overrides), "a11" the three phases of 13c
+    (``shape``: ``dist_a11_phases``' shapes)."""
     sys.path.insert(0, ROOT)
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import _kernels
@@ -6886,6 +6949,10 @@ def dist_worker(out_dir, shape_json, device="gpu", phase="bert"):
     ctx = mx.gpu(0) if device == "gpu" else mx.cpu()
     res = {"rank": rank, "backend": backend,
            "device": str(mx.resolve_device(ctx))}
+    if phase == "a11":
+        _a11_run(mx, rank, ctx, _kernels.LAUNCHES, out_dir, shape, res)
+        mx.kv.shutdown_distributed()
+        return
     if phase == "llama-tp":
         res["tp"] = _llama_tp_run(mx, rank, ctx, _kernels.LAUNCHES, out_dir,
                                   shape["cut"], shape["seq"])
@@ -7575,6 +7642,1056 @@ def _llama_tp_gates(res, smi, ref_s, world_s, cut):
         norms_equal=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13c: [dist-ring], [dist-llama-pp], [dist-moe-ep]: A11's ring
+# attention, pipeline and expert parallelism in one world of two ranks
+# sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+A11_RANKS = 2
+A11_TIMEOUT_S = 600  # the world's hard limit, its start to its end
+# [dist-ring]: Llama-3-8B's attention at its context, 32 heads for q, k and
+# v (the reference's ring takes no grouped heads), over sp 2: 4096 tokens
+# a rank; O, dq, dk, dv within 1e-5 of their largest value of one
+# process's K1/K2 on the whole sequence, the LSE within 1e-6
+RING_SHAPE = (1, 32, 8192, 128)
+RING_TOL, RING_LSE_TOL = 1e-5, 1e-6
+# [dist-llama-pp]: Llama-3-8B widths, LLAMA_LAYERS layers, one decoder
+# layer a stage over pp 2 (1f1b), 4 microbatches of one 2048-token
+# sequence (the 8192 tokens of [llama-train]), Adam LLAMA_ADAM_LR; the
+# gates of [dist-llama-tp] against one process's autodiff, gpipe's losses
+# within 2e-5 of 1f1b's (the reference's test_pipeline_schedules_agree)
+PP_MICRO, PP_SEQ, PP_STEPS = 4, 2048, 3
+PP_SCHED_ATOL = 2e-5
+# [dist-moe-ep]: Llama-3-8B's FFN widths (also Mixtral-8x7B's experts),
+# 8 experts over ep 2, top-2 routing, capacity factor 1.5, the capacity
+# cut in 2, 8192 tokens (4096 a rank); out and the gradients of gate, w1
+# and w2 of the path run in float64 within 1e-5 of their largest value of
+# one process's plain evaluation of each token shard in float64 (the
+# float32 path's own readings printed beside them), serial within 1e-5 of
+# chunked in float32
+MOE_CFG = dict(d_model=4096, d_hidden=14336, experts=8, tokens=8192,
+               router="top2", capacity_factor=1.5, chunks=2)
+MOE_TOL = 1e-5
+
+
+def _abs(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def _ring_inputs(dev, shape):
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return [torch.randn(shape, generator=gen, device=dev) for _ in range(4)]
+
+
+def _ring_fwd_bwd(dev):
+    """(forward, backward) of one process's attention: K1 and K2 on CUDA
+    tensors, their plain versions on the host."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    if dev.type == "cuda":
+        return fa._cuda_flash_fwd, fa._cuda_flash_bwd
+    return fa._torch_flash_fwd, fa._torch_flash_bwd
+
+
+def _ring_reference(dev, out_dir, shape):
+    """``[dist-ring]``'s reference: one process's K1 and K2 on the whole
+    sequence, causal and full; each rank's rows of O, LSE, dq, dk and dv
+    saved in ``out_dir``; the one-process times returned."""
+    q, k, v, g = _ring_inputs(dev, shape)
+    fwd, bwd = _ring_fwd_bwd(dev)
+    scale = shape[-1] ** -0.5
+    n, T = A11_RANKS, shape[2]
+    m = T // n
+    times = {}
+    for causal in (False, True):
+        tag = "causal" if causal else "full"
+        o, lse = fwd(q, k, v, scale, causal, 0)
+        dq, dk, dv = bwd(q, k, v, o, lse, g, scale, causal, 0)
+        for r in range(n):
+            torch.save({name: t.narrow(2, r * m, m).cpu().clone()
+                        for name, t in (("out", o), ("lse", lse),
+                                        ("dq", dq), ("dk", dk),
+                                        ("dv", dv))},
+                       os.path.join(out_dir, f"ring_ref_{tag}{r}.pt"))
+        if dev.type == "cuda":
+            times[tag] = (cuda_ms(lambda: fwd(q, k, v, scale, causal, 0), 3),
+                          cuda_ms(lambda: bwd(q, k, v, o, lse, g, scale,
+                                              causal, 0), 3))
+        del o, lse, dq, dk, dv
+    del q, k, v, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return times
+
+
+def _flash_block_rows(dev, shape, kv_heads, causals, kernels, tag):
+    """K1 and the backward ``kernels`` (``"split"``: K2's two kernels;
+    ``"fused"``: K6) at one block's shape, each case of ``causals`` held
+    against the plain versions on the same inputs (relative to the
+    largest value, FLASH_TOL in fp32), then timed beside the plain
+    versions, SDPA and the bound at the first case. Returns (the kernels
+    line's rows without launches, the relative errors)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    B, H, T, D = shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    q = torch.randn((B, H, T, D), generator=gen, device=dev)
+    k, v = (torch.randn((B, kv_heads, T, D), generator=gen, device=dev)
+            for _ in range(2))
+    g = torch.randn_like(q)
+    scale = D ** -0.5
+    errs, abs_errs, rows = {}, {}, []
+    for causal in causals:
+        c = "causal" if causal else "full"
+        o, lse = fa._cuda_flash_fwd(q, k, v, scale, causal, 0)
+        want_o, want_lse = fa._torch_flash_fwd(q, k, v, scale, causal, 0)
+        errs[f"k1_out_{c}"] = _rel(o, want_o)
+        errs[f"k1_lse_{c}"] = _rel(lse, want_lse)
+        abs_errs[f"k1_out_{c}"] = _abs(o, want_o)
+        want = fa._torch_flash_bwd(q, k, v, want_o, want_lse, g, scale,
+                                   causal)
+        got = (fa._cuda_flash_bwd if kernels == "split"
+               else fa._cuda_flash_bwd_fused)(q, k, v, want_o, want_lse, g,
+                                              scale, causal, 0)
+        for what, a, b in zip(("dq", "dk", "dv"), got, want):
+            key = f"{'k2' if kernels == 'split' else 'k6'}_{what}_{c}"
+            errs[key], abs_errs[key] = _rel(a, b), _abs(a, b)
+        del o, lse, want_o, want_lse, want, got
+    causal = causals[0]
+    o, lse = fa._cuda_flash_fwd(q, k, v, scale, causal, 0)
+    rep = H // kv_heads
+    qs, ks, vs = (t.clone().requires_grad_() for t in (
+        q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)))
+    with torch.no_grad():
+        lib_fwd = cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=causal), 5)
+    lib_bwd = sdpa_bwd_ms(qs, ks, vs, g, causal, 5)
+    plain_bwd = cuda_ms(lambda: fa._torch_flash_bwd(
+        q, k, v, o, lse, g, scale, causal), 3)
+    timed = {"flash_fwd": (
+        cuda_ms(lambda: fa._cuda_flash_fwd(q, k, v, scale, causal, 0), 10),
+        cuda_ms(lambda: fa._torch_flash_fwd(q, k, v, scale, causal, 0), 3),
+        lib_fwd, ("out",))}
+    if kernels == "split":
+        bwd_args = fa._bwd_operands(q, k, v, o, lse, g)
+        delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        timed["flash_bwd_dq"] = (cuda_ms(lambda: fa._launch_flash_bwd(
+            "dq", *bwd_args[:-1], delta, bwd_args[-1], (dq,), scale, causal,
+            0), 10), plain_bwd, lib_bwd, ("dq",))
+        timed["flash_bwd_dkv"] = (cuda_ms(lambda: fa._launch_flash_bwd(
+            "dkv", *bwd_args[:-1], delta, bwd_args[-1], (dk, dv), scale,
+            causal, 0), 10), plain_bwd, lib_bwd, ("dk", "dv"))
+    else:
+        timed["flash_bwd_fused"] = (cuda_ms(lambda: fa._cuda_flash_bwd_fused(
+            q, k, v, o, lse, g, scale, causal, 0), 10), plain_bwd, lib_bwd,
+            ("dq", "dk", "dv"))
+    work = flash_work(B, H, kv_heads, T, T, D, causal, 0, 4)
+    source = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd.cu",
+              "flash_bwd_dkv": "flash_bwd.cu",
+              "flash_bwd_fused": "flash_bwd_fused.cu"}
+    replaces = {"flash_fwd": 93, "flash_bwd_dq": 457, "flash_bwd_dkv": 505,
+                "flash_bwd_fused": 263}
+    prefix = {"flash_fwd": "k1", "flash_bwd_fused": "k6"}
+    for name, (ms, plain_ms, lib_ms, outs) in timed.items():
+        ops, nbytes = work[name]
+        t_ops, t_bytes = tf32x3_ms(ops), nbytes / HBM_BYTES_PER_S * 1e3
+        p = prefix.get(name, "k2")
+        rows.append({
+            "name": f"{name}@{tag}", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/" + source[name],
+            "replaces": "mxnet_tpu/ops/flash_attention.py:"
+                        f"{replaces[name]}",
+            "launches": None,  # the path's own count, filled by the caller
+            "max_abs_err": max(v for key, v in abs_errs.items()
+                               if key.startswith(p) and
+                               key.split("_")[1] in outs),
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms})
+    del q, k, v, g, o, lse, qs, ks, vs
+    torch.cuda.empty_cache()
+    return rows, errs
+
+
+def _ring_run(mx, rank, dev, launches, out_dir, shape):
+    """``[dist-ring]`` in one rank: ring attention over ``make_mesh({"sp":
+    2})``, causal and full, forward and backward, against the one-process
+    reference's rows; launches, hops, bytes, times, idle share and peak
+    memory; K1 and K2 at the block shape against their plain versions."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.parallel import transport
+
+    # the module (the package exports its function under the same name)
+    ra = importlib.import_module("mxnet_tpu_torch.parallel.ring_attention")
+
+    os.environ.pop("MXTPU_FLASH_BWD", None)  # K2, the default backward
+    mesh = mx.parallel.make_mesh({"sp": A11_RANKS})
+    local = [mx.parallel.shard_sequence(t, mesh).contiguous()
+             for t in _ring_inputs(dev, shape)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    scale = shape[-1] ** -0.5
+    # one ring forward and backward first: the first backward's hops pay a
+    # one-time cost (seconds; the pinned staging buffers and gloo's pairs
+    # from the autograd engine's thread), kept out of the timed runs
+    dist.barrier()
+    t0 = time.perf_counter()
+    q, k, v = (t.clone().requires_grad_() for t in local[:3])
+    mx.parallel.ring_attention(q, k, v, mesh).backward(local[3])
+    torch.cuda.synchronize()
+    out = {"warmup_ms": (time.perf_counter() - t0) * 1e3}
+    del q, k, v
+    for causal in (False, True):
+        tag = "causal" if causal else "full"
+        q, k, v = (t.clone().requires_grad_() for t in local[:3])
+        torch.cuda.reset_peak_memory_stats()
+        launches.clear()
+        transport.reset_stats()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = mx.parallel.ring_attention(q, k, v, mesh, causal=causal)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        o.backward(local[3])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        r = {"launches": dict(launches), "stats": dict(transport.STATS),
+             "fwd_ms": (t1 - t0) * 1e3, "bwd_ms": (t2 - t1) * 1e3,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        with torch.no_grad():
+            _, lse = ra._ring_forward(q, k, v, mesh, "sp", scale, causal)
+        ref = torch.load(os.path.join(out_dir, f"ring_ref_{tag}{rank}.pt"))
+        r["rel_err"] = {name: _rel(t.detach(), ref[name].to(dev))
+                        for name, t in (("out", o), ("lse", lse),
+                                        ("dq", q.grad), ("dk", k.grad),
+                                        ("dv", v.grad))}
+        del ref, o, lse
+
+        def fwd_bwd():
+            qq, kk, vv = (t.clone().requires_grad_() for t in local[:3])
+            mx.parallel.ring_attention(qq, kk, vv, mesh,
+                                       causal=causal).backward(local[3])
+
+        dist.barrier()
+        r["busy_ms"], r["window_ms"] = _busy_share(fwd_bwd)
+        out[tag] = r
+        del q, k, v
+    dist.barrier()
+    if rank == 0 and dev.type == "cuda":
+        # the kernels at the block shape against their plain versions,
+        # while the other rank waits
+        out["rows"], out["kernel_rel_err"] = _flash_block_rows(
+            dev, local[0].shape, local[0].shape[1], (True, False), "split",
+            "ring")
+    dist.barrier()
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_weights(layer, cfg, dev):
+    """``[dist-llama-pp]``'s weights, made apart from any Gluon block, by
+    structural name: ``embed_weight``, ``layers_l<i>_<suffix>`` for each
+    of ``layer``'s (a LlamaDecoderLayer's) parameters and each of the
+    LLAMA_LAYERS layers, ``norm_weight``, ``lm_head_weight``; drawn in
+    that order from one generator seeded SEED on ``dev``: Normal(0.02),
+    the RMS norms' weights ones (their own initialiser's value)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    V, D = cfg["vocab_size"], cfg["units"]
+    suffixes = sorted((n[len(layer.prefix):], tuple(p.shape))
+                      for n, p in layer.collect_params().items())
+    shapes = [("embed_weight", (V, D))]
+    shapes += [(f"layers_l{i}_{k}", sh) for i in range(LLAMA_LAYERS)
+               for k, sh in suffixes]
+    shapes += [("norm_weight", (D,)), ("lm_head_weight", (V, D))]
+    out = {}
+    for name, shape in shapes:
+        if name.endswith("ln_weight") or name == "norm_weight":
+            out[name] = torch.ones(shape, device=dev)
+        else:
+            out[name] = torch.randn(shape, generator=gen,
+                                    device=dev).mul_(0.02)
+    return out
+
+
+def _plain_adam(weights, grads, moments, t, lr, chunk=1 << 24):
+    """The reference's ``_RULES["adam"]`` (beta1 0.9, beta2 0.999, eps
+    1e-8, no weight decay) written out: at the 1-based step ``t``,
+    ``m = b1 m + (1 - b1) g``, ``v = b2 v + (1 - b2) g**2``, ``w -= lr_t
+    m / (sqrt(v) + eps)`` with ``lr_t = lr sqrt(1 - b2**t) / (1 - b1**t)``
+    in float32, as the rule computes it; in place, ``chunk`` elements of
+    each leaf at a time."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    for w, g, (m, v) in zip(weights, grads, moments):
+        tf = torch.tensor(float(t), dtype=torch.float32, device=w.device)
+        lr_t = torch.tensor(lr, dtype=torch.float32, device=w.device) * \
+            torch.sqrt(1 - b2 ** tf) / (1 - b1 ** tf)
+        wf, gf, mf, vf = (a.view(-1) for a in (w, g, m, v))
+        for i in range(0, wf.numel(), chunk):
+            cut = slice(i, i + chunk)
+            mf[cut] = b1 * mf[cut] + (1 - b1) * gf[cut]
+            vf[cut] = b2 * vf[cut] + (1 - b2) * torch.square(gf[cut])
+            wf[cut] = wf[cut] - lr_t * mf[cut] / (torch.sqrt(vf[cut]) + eps)
+
+
+def _pp_batch(mx, ctx, vocab):
+    """PP_MICRO sequences of PP_SEQ tokens from numpy seed SEED: x =
+    ids[:, :-1], y = ids[:, 1:]."""
+    ids = np.random.RandomState(SEED).randint(0, vocab,
+                                              (PP_MICRO, PP_SEQ + 1))
+    return (mx.nd.array(ids[:, :-1], dtype="int32", ctx=ctx).data,
+            mx.nd.array(ids[:, 1:].astype(np.float32), ctx=ctx).data)
+
+
+def _llama_pp_reference(mx, ctx, out_dir, cut):
+    """``[dist-llama-pp]``'s reference: one process's plain autodiff of the
+    whole net through the Gluon loop (``autograd.record``, ``backward``,
+    gradients accumulated in handles attached with ``"add"``) on the same
+    PP_MICRO sequences, one microbatch at a time with its loss scaled by
+    1/PP_MICRO, as the pipeline averages them; then Adam written out
+    (``_plain_adam``); PP_STEPS steps under ``MXTPU_FLASH_BWD=fused``, on
+    ``_pp_weights`` set into the net. Its losses and each parameter's
+    update saved by name in ``out_dir``, then freed."""
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    os.environ["MXTPU_FLASH_BWD"] = "fused"
+    net, _, _ = llama_setup(ctx, layers=LLAMA_LAYERS, seq=PP_SEQ, **cut)
+    dev = mx.resolve_device(ctx)
+    layer0 = list(net.layers._children.values())[0]
+    params = {n[len(net.prefix):]: p
+              for n, p in net.collect_params().items()}
+    w0 = _pp_weights(layer0, net._cfg, dev)
+    for name, p in params.items():
+        p.set_data(w0[name])
+    del w0
+    for p in params.values():  # the handles accumulate their gradients
+        p.data().attach_grad("add")
+    x, y = _pp_batch(mx, ctx, net._cfg["vocab_size"])
+    lm_loss = llama_lm_loss(mx)
+    names = sorted(params)
+    moments = [(torch.zeros_like(params[n].data().data),
+                torch.zeros_like(params[n].data().data)) for n in names]
+    losses = []
+    try:
+        for t in range(1, PP_STEPS + 1):
+            net.collect_params().zero_grad()
+            loss = 0.0
+            for m in range(PP_MICRO):
+                with mx.autograd.record():
+                    lm = mx.nd.mean(lm_loss(net(NDArray(x[m:m + 1])),
+                                            NDArray(y[m:m + 1])))
+                    part = lm * (1.0 / PP_MICRO)
+                part.backward()
+                loss += float(lm.asnumpy()) / PP_MICRO
+            with torch.no_grad():
+                _plain_adam([params[n].data().data for n in names],
+                            [params[n].grad().data for n in names],
+                            moments, t, LLAMA_ADAM_LR)
+            losses.append(loss)
+    finally:  # the world's ring starts on the default (split) backward
+        os.environ.pop("MXTPU_FLASH_BWD", None)
+    del moments
+    w0 = _pp_weights(layer0, net._cfg, dev)
+    delta = {n: (params[n].data().data.detach() - w0[n]).cpu()
+             for n in names}
+    del w0
+    torch.save({"losses": losses, "delta": delta},
+               os.path.join(out_dir, "pp_ref.pt"))
+    del net, params, layer0, x, y, delta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _llama_stages(mx, ctx, cut):
+    """The pipeline form of the Llama net, with no Gluon copy of its
+    weights: one LlamaDecoderLayer at the net's widths (``cut``
+    overrides) built on ``ctx``, whose parameters the stage function binds
+    to one stage's (``gluon.block._bound``, the port's counterpart of
+    ``torch.func.functional_call``: the Gluon blocks are not torch
+    modules; the block's own weights, one layer's, go unused), and the
+    embedding and the final RMS norm + ``lm_head`` as ``embed_fn`` and
+    ``head_fn`` through the ops the net's blocks call (``nd.Embedding``,
+    the RMSNorm block, ``nd.FullyConnected``). Returns ``(layer, cfg,
+    stage_fn, embed_fn, head_fn)``."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.block import _bound
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    # the structure: a one-layer net of an 8-token vocabulary, its
+    # deferred shapes resolved by one forward of four tokens
+    net = mx.models.llama3_8b(num_layers=1, **dict(cut, vocab_size=8))
+    net.initialize(ctx=ctx)
+    net(mx.nd.array(np.zeros((1, 4)), dtype="int32", ctx=ctx))
+    cfg = dict(net._cfg, vocab_size=cut.get("vocab_size", 128256),
+               num_layers=LLAMA_LAYERS)
+    layer = list(net.layers._children.values())[0]
+    keys = sorted(n[len(layer.prefix):] for n in layer.collect_params())
+    handles = [layer.collect_params()[layer.prefix + k].data() for k in keys]
+    norm = net.norm
+    norm_h = norm.weight.data()
+    V, D = cfg["vocab_size"], cfg["units"]
+
+    def recording():
+        return autograd._RecordingStateScope(torch.is_grad_enabled(), True)
+
+    def stage_fn(p, h):
+        with _bound(handles, [p[k] for k in keys]), recording():
+            return layer(NDArray(h)).data
+
+    def embed_fn(p, ids):
+        with recording():
+            return mx.nd.Embedding(NDArray(ids), NDArray(p["weight"]),
+                                   input_dim=V, output_dim=D).data
+
+    def head_fn(p, h):
+        with _bound([norm_h], [p["norm"]]), recording():
+            return mx.nd.FullyConnected(
+                norm(NDArray(h)), NDArray(p["head"]), None, no_bias=True,
+                num_hidden=V, flatten=False).data
+
+    return layer, cfg, stage_fn, embed_fn, head_fn
+
+
+def _pp_loss(mx):
+    lm = llama_lm_loss(mx)
+
+    def loss(logits, labels):
+        from mxnet_tpu_torch import autograd
+        from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+        with autograd._RecordingStateScope(torch.is_grad_enabled(), True):
+            return lm(NDArray(logits), NDArray(labels)).data.mean()
+
+    return loss
+
+
+def _update_rel(new, old, want, chunk=1 << 22):
+    """``||(new - old) - want|| / ||want||`` in float64, ``new`` and
+    ``old`` on the card and ``want`` on the host, ``chunk`` elements at a time
+    (an embedding's float64 copies would not fit beside the step)."""
+    n, o, w = (t.detach().reshape(-1) for t in (new, old, want))
+    num = den = 0.0
+    for i in range(0, n.numel(), chunk):
+        d = n[i:i + chunk].double() - o[i:i + chunk].to(n.device).double()
+        ref = w[i:i + chunk].to(n.device).double()
+        num += float(((d - ref) ** 2).sum())
+        den += float((ref ** 2).sum())
+    return (num ** 0.5) / max(den ** 0.5, 1e-30)
+
+
+def _llama_pp_run(mx, rank, ctx, launches, out_dir, cut):
+    """``[dist-llama-pp]`` in one rank: ``Composed4DStep`` on
+    ``composed_mesh(dp=1, pp=2)``, one Llama decoder layer a stage, gpipe
+    then 1f1b (the main path) from the same weights, PP_STEPS Adam steps
+    each; losses and updates against the one-process reference, launches,
+    the realized schedule, sends, the embed and head gradients' sum, time,
+    idle share, memory; K1 and K6 at the stage shape against their plain
+    versions."""
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.parallel import transport
+
+    os.environ["MXTPU_FLASH_BWD"] = "fused"
+    layer, cfg, stage_fn, embed_fn, head_fn = _llama_stages(mx, ctx, cut)
+    x, y = _pp_batch(mx, ctx, cfg["vocab_size"])
+    dev = x.device
+    mesh = mx.parallel.composed_mesh(dp=1, pp=A11_RANKS)
+    out = {}
+
+    def weights():
+        """(stacked stage params, embed params, head params)."""
+        w = _pp_weights(layer, cfg, dev)
+        keys = sorted(k[len("layers_l0_"):] for k in w
+                      if k.startswith("layers_l0_"))
+        stacked = {k: torch.stack([w.pop(f"layers_l{i}_{k}")
+                                   for i in range(LLAMA_LAYERS)])
+                   for k in keys}
+        return (stacked, {"weight": w["embed_weight"]},
+                {"norm": w["norm_weight"], "head": w["lm_head_weight"]})
+
+    def make(schedule):
+        stacked, embed_p, head_p = weights()
+        return mx.parallel.Composed4DStep(
+            stage_fn, stacked, mesh, _pp_loss(mx), optimizer="adam",
+            num_microbatches=PP_MICRO, schedule=schedule,
+            embed_fn=embed_fn, embed_params=embed_p, head_fn=head_fn,
+            head_params=head_p)
+
+    step = make("gpipe")
+    out["gpipe_losses"] = [float(step(x, y, lr=LLAMA_ADAM_LR))
+                           for _ in range(PP_STEPS)]
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = make("1f1b")
+    torch.cuda.reset_peak_memory_stats()
+    out["report"] = step.schedule_report()
+    out["memory"] = step.memory_report()
+    out["losses"], out["step_ms"] = [], []
+    launches.clear()
+    transport.reset_stats()
+
+    def one():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(x, y, lr=LLAMA_ADAM_LR)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(loss))
+
+    with _Collectives() as comm:
+        for _ in range(PP_STEPS - 1):
+            one()
+        out["busy_ms"], out["window_ms"] = _busy_share(one)
+    out["launches"] = {k: v / PP_STEPS for k, v in launches.items()}
+    out["stats"] = {k: v / PP_STEPS for k, v in transport.STATS.items()}
+    out["collectives"] = {k: v / PP_STEPS for k, v in comm.counts.items()}
+    out["collective_bytes"] = {k: v / PP_STEPS
+                               for k, v in comm.bytes.items()}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the update of every weight this rank holds against the reference's
+    ref = torch.load(os.path.join(out_dir, "pp_ref.pt"))
+    out["ref_losses"] = ref["losses"]
+    layer_pre = f"layers_l{rank}_"
+    from torch.utils import _pytree as pytree
+
+    rel = {}
+    w0_stacked, w0_embed, w0_head = weights()
+    local = pytree.tree_unflatten(step._params, step._spec)
+    for k, p in local.items():
+        rel[layer_pre + k] = _update_rel(p[0], w0_stacked[k][rank],
+                                         ref["delta"][layer_pre + k])
+    for part, w0, names in (
+            ("embed", w0_embed, {"weight": "embed_weight"}),
+            ("head", w0_head, {"norm": "norm_weight",
+                               "head": "lm_head_weight"})):
+        fl, tdef, _ = step._extra[part]
+        cur = pytree.tree_unflatten(fl, tdef)
+        for k, ref_name in names.items():
+            rel[ref_name] = _update_rel(cur[k], w0[k],
+                                        ref["delta"][ref_name])
+    del w0_stacked, w0_embed, w0_head
+    del ref
+    worst = max(rel, key=rel.get)
+    out["update_worst_rel"], out["update_worst"] = rel[worst], worst
+    out["updates_checked"] = len(rel)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0 and dev.type == "cuda":
+        D = cfg["units"] // cfg["num_heads"]
+        out["rows"], out["kernel_rel_err"] = _flash_block_rows(
+            dev, (1, cfg["num_heads"], PP_SEQ, D), cfg["num_kv_heads"],
+            (True,), "fused", "llama-pp")
+    dist.barrier()
+    del layer, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_params(mx, dev, cfg, dtype=torch.float32):
+    """The experts and the tokens from SEED, drawn in float32 and then
+    cast to ``dtype`` (a float64 copy holds the float32 values)."""
+    moe = mx.parallel.moe
+    params = moe.init_moe_params(SEED, cfg["d_model"], cfg["d_hidden"],
+                                 cfg["experts"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn((cfg["tokens"], cfg["d_model"]), generator=gen,
+                    device=dev)
+    return {k: t.to(dtype) for k, t in params.items()}, x.to(dtype)
+
+
+def _moe_loss_grads(mx, params, x, mesh, cfg, comm, aux_share):
+    """out, aux and the gradients of gate, w1, w2 of ``sum(out**2) + 0.01
+    * aux * aux_share`` through ``moe_apply_a2a``."""
+    p = {k: t.detach().requires_grad_() for k, t in params.items()}
+    out, aux = mx.parallel.moe.moe_apply_a2a(
+        p, x, mesh, router=cfg["router"],
+        capacity_factor=cfg["capacity_factor"], chunks=cfg["chunks"],
+        comm=comm)
+    loss = (out.double() ** 2).sum().float() + 0.01 * aux * aux_share
+    grads = torch.autograd.grad(loss, [p[k] for k in ("gate", "w1", "w2")])
+    return out.detach(), aux.detach(), grads
+
+
+def _moe_capacity(tokens, cfg):
+    """A token shard's capacity a expert, as the reference defines it:
+    ``int(max(1, tokens / E * capacity_factor))``, rounded up to a
+    multiple of ``chunks``."""
+    cap = int(max(1, (tokens / cfg["experts"]) * cfg["capacity_factor"]))
+    return -(-cap // cfg["chunks"]) * cfg["chunks"]
+
+
+def _moe_plain(params, x, cap, num_experts):
+    """One token shard through top-2 routing with capacity, written out
+    plainly: the softmax of ``x @ gate``; each token's first choice (the
+    largest probability, the first expert on a tie) and second (the
+    largest of the rest); each expert's queue filled in token order with
+    every first choice ahead of every second choice, a choice past
+    ``cap`` dropped; each expert's kept tokens gathered and run through
+    ``relu(x @ w1[e]) @ w2[e]``, weighted by their choice's probability
+    over the pair's sum and added into the token's output. Returns
+    ``(out, aux)``, aux the load-balance loss ``E * <first-choice
+    fraction, mean probability>``."""
+    T = x.shape[0]
+    probs = torch.softmax((x @ params["gate"]).float(), dim=-1)
+    first = probs.argmax(dim=-1)
+    rest = probs.clone()
+    rest[torch.arange(T, device=x.device), first] = -1.0
+    second = rest.argmax(dim=-1)
+    rows = torch.arange(T, device=x.device)
+    p1, p2 = probs[rows, first], probs[rows, second]
+    denom = p1 + p2 + 1e-9
+    weights = (p1 / denom, p2 / denom)
+    fill = [0] * num_experts
+    kept = [([], []) for _ in range(num_experts)]  # an expert's tokens
+    for c, choice in enumerate((first, second)):
+        for t, e in enumerate(choice.tolist()):
+            if fill[e] < cap:
+                kept[e][c].append(t)
+            fill[e] += 1
+    out = torch.zeros_like(x)
+    for e in range(num_experts):
+        idx = [torch.tensor(ts, dtype=torch.long, device=x.device)
+               for ts in kept[e]]
+        toks = torch.cat(idx)
+        if not toks.numel():
+            continue
+        wts = torch.cat([w[i] for w, i in zip(weights, idx)])
+        h = torch.relu(x[toks] @ params["w1"][e]) @ params["w2"][e]
+        out = out.index_add(0, toks, h * wts[:, None].to(h.dtype))
+    frac = torch.bincount(first, minlength=num_experts).float() / T
+    aux = num_experts * (frac * probs.mean(dim=0)).sum()
+    return out, aux
+
+
+def _moe_reference(mx, dev, out_dir, cfg):
+    """``[dist-moe-ep]``'s reference: one process evaluating each token
+    shard with ``_moe_plain`` (no dispatch tensors, no exchange) at the
+    capacity a shard has, in float64, the loss ``sum(out**2) + 0.01 *
+    aux`` with the aux averaged over the shards, differentiated by
+    autograd; each rank's out rows and experts' gradients and the gate's
+    gradient summed over the shards saved in ``out_dir`` (as float32).
+    Float64, because in float32 two matmul kernels round a few of the
+    ~10^8 ReLU inputs to opposite sides of 0, and each such flip moves
+    one token's row of w1's gradient by its whole size: no independent
+    evaluation holds w1's float32 gradient to 1e-5 (it reads about 2e-2
+    on the H100), so the gate compares the path run in float64."""
+    params, x = _moe_params(mx, dev, cfg, torch.float64)
+    p = {k: t.detach().requires_grad_() for k, t in params.items()}
+    n = cfg["tokens"] // A11_RANKS
+    e = cfg["experts"] // A11_RANKS
+    cap = _moe_capacity(n, cfg)
+    outs, loss = [], 0.0
+    for r in range(A11_RANKS):
+        out, aux = _moe_plain(p, x[r * n:(r + 1) * n], cap, cfg["experts"])
+        loss = loss + (out ** 2).sum() + 0.01 * aux / A11_RANKS
+        outs.append(out.detach().float().cpu())
+    gate, w1, w2 = torch.autograd.grad(loss, [p["gate"], p["w1"], p["w2"]])
+    for r in range(A11_RANKS):
+        torch.save({"out": outs[r], "gate": gate.float().cpu(),
+                    "w1": w1[r * e:(r + 1) * e].float().cpu(),
+                    "w2": w2[r * e:(r + 1) * e].float().cpu()},
+                   os.path.join(out_dir, f"moe_ref{r}.pt"))
+    del params, p, x, gate, w1, w2, outs, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _moe_run(mx, rank, dev, launches, out_dir, cfg):
+    """``[dist-moe-ep]`` in one rank: ``moe_apply_a2a`` over
+    ``make_mesh({"ep": 2})``, chunked (the main path) and serial, forward
+    and backward, against the reference; the tokens each expert drops,
+    the all-to-all bytes, ``measure_moe_overlap``, time, idle share and
+    memory."""
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.parallel import transport
+
+    moe = mx.parallel.moe
+    mesh = mx.parallel.make_mesh({"ep": A11_RANKS})
+    full, x = _moe_params(mx, dev, cfg)
+    params = moe.shard_moe_params(full, mesh)
+    params = {k: t.clone() for k, t in params.items()}
+    del full
+    n = cfg["tokens"] // A11_RANKS
+    xl = x[rank * n:(rank + 1) * n].clone()
+    del x
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    transport.reset_stats()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o, aux, grads = _moe_loss_grads(mx, params, xl, mesh, cfg, "chunked",
+                                    1.0)
+    torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = dict(launches)
+    out["stats"] = dict(transport.STATS)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    ref = torch.load(os.path.join(out_dir, f"moe_ref{rank}.pt"))
+
+    def against_ref(o, grads):
+        gate = grads[0].clone()
+        dist.all_reduce(gate)  # each rank's tokens' part, summed over ep
+        return {"out": _rel(o, ref["out"].to(dev)),
+                "gate": _rel(gate, ref["gate"].to(dev)),
+                "w1": _rel(grads[1], ref["w1"].to(dev)),
+                "w2": _rel(grads[2], ref["w2"].to(dev))}
+
+    # the float32 path's readings, then the same path in float64 (gated)
+    out["fp32_rel"] = against_ref(o, grads)
+    p64 = {k: t.double() for k, t in params.items()}
+    o64, _, g64 = _moe_loss_grads(mx, p64, xl.double(), mesh, cfg,
+                                  "chunked", 1.0)
+    out["rel_err"] = against_ref(o64, g64)
+    del p64, o64, g64, ref
+    gate0 = grads[0]
+    so, _, sg = _moe_loss_grads(mx, params, xl, mesh, cfg, "serial", 1.0)
+    out["serial_rel"] = {"out": _rel(so, o), "gate": _rel(sg[0], gate0),
+                         "w1": _rel(sg[1], grads[1]),
+                         "w2": _rel(sg[2], grads[2])}
+    del so, sg, grads, gate0
+    # the tokens each expert drops on this rank (top-2: both choices)
+    with torch.no_grad():
+        E = cfg["experts"]
+        cap = _moe_capacity(n, cfg)
+        logits = xl @ params["gate"]
+        dispatch, _, _ = moe.top2_routing(logits, E, cap)
+        probs = torch.softmax(logits, dim=-1)
+        e1 = probs.argmax(-1)
+        e2 = (probs * (1 - moe._one_hot(e1, E))).argmax(-1)
+        assigned = torch.bincount(e1, minlength=E) + \
+            torch.bincount(e2, minlength=E)
+        kept = dispatch.sum(dim=(0, 2)).round().long()
+        out["dropped"] = (assigned - kept).tolist()
+        out["capacity"] = cap
+
+    def fwd_bwd():
+        _moe_loss_grads(mx, params, xl, mesh, cfg, "chunked", 1.0)
+
+    dist.barrier()
+    out["busy_ms"], out["window_ms"] = _busy_share(fwd_bwd)
+    del o, aux
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["overlap"] = moe.measure_moe_overlap(
+        mesh, d_model=cfg["d_model"], d_hidden=cfg["d_hidden"],
+        num_experts=cfg["experts"], tokens=cfg["tokens"], steps=2,
+        warmup=1, chunks=cfg["chunks"], seed=SEED, device=dev)
+    del params, xl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _a11_run(mx, rank, ctx, launches, out_dir, shape, res):
+    """The three phases of the world, one after the other, in one rank;
+    ``res`` written to ``a11_rank<r>.json`` after each, so that the
+    readings of a phase stand when a later one fails."""
+    dev = mx.resolve_device(ctx)
+    for name, run in (
+            ("ring", lambda: _ring_run(mx, rank, dev, launches, out_dir,
+                                       tuple(shape["ring"]))),
+            ("pp", lambda: _llama_pp_run(mx, rank, ctx, launches, out_dir,
+                                         shape["llama"])),
+            ("moe", lambda: _moe_run(mx, rank, dev, launches, out_dir,
+                                     shape["moe"]))):
+        t0 = time.perf_counter()
+        res[name] = run()
+        res[name]["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"a11_rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+
+
+def dist_a11_phases(smi, device="gpu", cut=None, timeout=A11_TIMEOUT_S):
+    """``[dist-ring]``, ``[dist-llama-pp]`` and ``[dist-moe-ep]`` (module
+    docstring, phase 13c): the one-process references here, then one
+    world of A11_RANKS worker processes of this script that runs all
+    three; their readings printed and gated. ``cut`` (a host rehearsal):
+    ``{"ring": (B, H, T, D), "llama": {width overrides}, "moe": {MOE_CFG
+    overrides}}``. Returns the kernels line's rows of the new shapes."""
+    import shutil
+    import signal
+
+    import mxnet_tpu_torch as mx
+
+    cut = cut or {}
+    shape = {"ring": list(cut.get("ring", RING_SHAPE)),
+             "llama": cut.get("llama", {}),
+             "moe": dict(MOE_CFG, **cut.get("moe", {}))}
+    ctx = mx.gpu(0) if device == "gpu" else mx.cpu()
+    dev = mx.resolve_device(ctx)
+    out_dir = os.path.join(ROOT, DIST_DIR)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        t0 = time.perf_counter()
+        ring_times = _ring_reference(dev, out_dir, tuple(shape["ring"]))
+        ring_s = time.perf_counter() - t0
+        pp_losses = _llama_pp_reference(mx, ctx, out_dir, shape["llama"])
+        pp_s = time.perf_counter() - t0 - ring_s
+        _moe_reference(mx, dev, out_dir, shape["moe"])
+        ref_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        if device == "gpu":
+            free, total = torch.cuda.mem_get_info()
+            say("dist-a11-parent", free_gb=f"{free / 1e9:.2f}",
+                total_gb=f"{total / 1e9:.2f}",
+                allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}",
+                reserved_gb=f"{torch.cuda.memory_reserved() / 1e9:.2f}")
+        port = _free_port()
+        procs = []
+        for r in range(A11_RANKS):
+            env = dict(os.environ, MXTPU_COORDINATOR=f"127.0.0.1:{port}",
+                       MXTPU_NUM_PROCESSES=str(A11_RANKS),
+                       MXTPU_PROCESS_ID=str(r))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                 out_dir, json.dumps(shape), device, "a11"],
+                env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+                start_new_session=True))
+        deadline = time.monotonic() + timeout
+        logs = []
+        for p in procs:
+            try:
+                text, _ = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    try:
+                        os.killpg(q.pid, signal.SIGKILL)
+                    except ProcessLookupError:
+                        pass
+                text, _ = p.communicate()
+                text = (text or "") + f"\n[killed after {timeout} s]"
+            logs.append((p.returncode, text))
+        world_s = time.perf_counter() - t0 - ref_s
+        res = []
+        for r, (rc, text) in enumerate(logs):
+            path = os.path.join(out_dir, f"a11_rank{r}.json")
+            if rc != 0 or not os.path.exists(path):
+                print(text[-6000:], flush=True)
+            if os.path.exists(path):
+                with open(path) as f:
+                    res.append(json.load(f))
+    finally:
+        os.environ.pop("MXTPU_FLASH_BWD", None)
+        for p in locals().get("procs", []):
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    say("dist-a11-world", ranks=A11_RANKS, backend=DIST_BACKEND,
+        reference_s=f"{ref_s:.1f}", ring_reference_s=f"{ring_s:.1f}",
+        pp_reference_s=f"{pp_s:.1f}", world_s=f"{world_s:.1f}",
+        **{f"{k}_s": "/".join(f"{r[k]['seconds']:.1f}" for r in res
+                              if k in r) for k in ("ring", "pp", "moe")})
+    # the phases every rank finished are printed and gated before a failed
+    # rank fails the phase
+    done = [k for k in ("ring", "pp", "moe")
+            if len(res) == A11_RANKS and all(k in r for r in res)]
+    rows = _ring_gates(res, smi, ring_times, shape) if "ring" in done \
+        else []
+    if "pp" in done:
+        rows += _llama_pp_gates(res, smi, pp_losses, shape)
+    if "moe" in done:
+        _moe_gates(res, smi, shape)
+    for r, (rc, _) in enumerate(logs):
+        check(rc == 0, f"[dist-a11] rank {r} exited {rc}")
+    return rows
+
+
+def _kernel_gate(tag, t, smi):
+    errs = t["kernel_rel_err"]
+    for row in t["rows"]:
+        say(f"{tag}-kernels", kernel=row["name"], ms=f"{row['ms']:.4f}",
+            plain_ms=f"{row['plain_ms']:.4f}",
+            library_ms=f"{row['library_ms']:.4f}",
+            bound_ms=f"{row['bound_ms']:.5f}", bound_by=row["bound_by"],
+            bound_share=f"{row['bound_ms'] / row['ms']:.4f}",
+            max_abs_err=f"{row['max_abs_err']:.2e}", nvidia_smi=f'"{smi}"')
+    say(f"{tag}-kernel-errors",
+        rel_err=",".join(f"{k}:{v:.2e}" for k, v in errs.items()),
+        tol_rel=FLASH_TOL[torch.float32])
+    for what, rel in errs.items():
+        check(rel <= FLASH_TOL[torch.float32],
+              f"[{tag}] {what} disagrees with plain: {rel:.3e}")
+
+
+def _ring_gates(res, smi, times, shape):
+    B, H, T, D = shape["ring"]
+    rows = []
+    for r in res:
+        for tag in ("full", "causal"):
+            t = r["ring"][tag]
+            per = {k: t["launches"].get(k, 0) for k in
+                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                    "flash_bwd_fused")}
+            st = t["stats"]
+            one = times.get(tag, (float("nan"),) * 2)
+            say("dist-ring", rank=r["rank"], mode=tag, backend=r["backend"],
+                warmup_ms=f"{r['ring']['warmup_ms']:.1f}",
+                device=r["device"], nvidia_smi=f'"{smi}"',
+                shape=f"q,k,v ({B},{H},{T},{D}) fp32 over sp "
+                      f"{A11_RANKS}", launches=per,
+                hops=st["p2p_calls"], hop_bytes=st["p2p_bytes"],
+                staged_bytes=st["staged_bytes"],
+                fwd_ms=f"{t['fwd_ms']:.1f}", bwd_ms=f"{t['bwd_ms']:.1f}",
+                one_process_fwd_ms=f"{one[0]:.2f}",
+                one_process_bwd_ms=f"{one[1]:.2f}",
+                busy_ms=f"{t['busy_ms']:.1f}",
+                idle_share=f"{1 - t['busy_ms'] / t['window_ms']:.4f}",
+                peak_gb=f"{t['peak_gb']:.2f}",
+                rel_err=",".join(f"{k}:{v:.2e}"
+                                 for k, v in t["rel_err"].items()))
+            for what, rel in t["rel_err"].items():
+                lim = RING_LSE_TOL if what == "lse" else RING_TOL
+                check(rel <= lim, f"[dist-ring] rank {r['rank']} {tag} "
+                      f"{what} off the one-process call by {rel:.3e}")
+            blocks = 2 if tag == "full" else r["rank"] + 1
+            if r["device"].startswith("cuda"):
+                check(per["flash_fwd"] == blocks and
+                      per["flash_bwd_dq"] == blocks and
+                      per["flash_bwd_dkv"] == blocks and
+                      per["flash_bwd_fused"] == 0,
+                      f"[dist-ring] rank {r['rank']} {tag}: launches {per}, "
+                      f"want {blocks} of K1 and of each K2 kernel")
+        if "rows" in r["ring"]:
+            _kernel_gate("dist-ring", r["ring"], smi)
+            for row in r["ring"]["rows"]:
+                kernel = row["name"].partition("@")[0]
+                row["launches"] = sum(
+                    r["ring"][tag]["launches"].get(kernel, 0)
+                    for tag in ("full", "causal"))
+            rows += r["ring"]["rows"]
+    return rows
+
+
+def _llama_pp_gates(res, smi, ref_losses, shape):
+    rows = []
+    cut = shape["llama"]
+    heads = (cut.get("num_heads", 32), cut.get("num_kv_heads", 8))
+    for r in res:
+        t = r["pp"]
+        rep, mem = t["report"], t["memory"]
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(t["losses"], ref_losses))
+        per = {k: t["launches"].get(k, 0)
+               for k in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+                         "flash_bwd_dkv")}
+        say("dist-llama-pp", rank=r["rank"], backend=r["backend"],
+            device=r["device"], nvidia_smi=f'"{smi}"',
+            config=f"Llama-3-8B widths, {LLAMA_LAYERS} of 32 layers, one a "
+                   f"stage over pp {A11_RANKS}, heads {heads}",
+            microbatches=f"{PP_MICRO}x{PP_SEQ}",
+            schedule=rep["schedule"], ticks=rep["ticks"],
+            bubble_fraction=rep["bubble_fraction"],
+            stash_slots=rep["stash_slots"],
+            losses="/".join(f"{v:.6f}" for v in t["losses"]),
+            one_process_losses="/".join(f"{v:.6f}" for v in ref_losses),
+            gpipe_losses="/".join(f"{v:.6f}" for v in t["gpipe_losses"]),
+            loss_rel=f"{loss_rel:.3e}",
+            update_worst_rel=f"{t['update_worst_rel']:.3e}",
+            update_worst=t["update_worst"],
+            updates_checked=t["updates_checked"],
+            step_ms="/".join(f"{v:.1f}" for v in t["step_ms"]),
+            busy_ms=f"{t['busy_ms']:.1f}",
+            idle_share=f"{1 - t['busy_ms'] / t['window_ms']:.4f}",
+            peak_gb=f"{t['peak_gb']:.2f}", launches_per_step=per,
+            param_bytes=mem["param_bytes_per_device"],
+            opt_bytes=mem["opt_bytes_per_device"],
+            extra_bytes=mem["extra_bytes_per_device"])
+        say("dist-llama-pp-comm", rank=r["rank"],
+            sends_per_step=f"{t['stats']['p2p_calls']:g}",
+            send_bytes_per_step=f"{t['stats']['p2p_bytes']:.0f}",
+            staged_bytes_per_step=f"{t['stats']['staged_bytes']:.0f}",
+            collectives_per_step={k: f"{v:g}" for k, v in
+                                  sorted(t["collectives"].items())},
+            collective_bytes_per_step={k: f"{v:.0f}" for k, v in
+                                       sorted(t["collective_bytes"]
+                                              .items())})
+        check(loss_rel <= DIST_ZERO_LOSS_RTOL,
+              f"[dist-llama-pp] rank {r['rank']}: losses {t['losses']} off "
+              f"the one-process step's {ref_losses}")
+        check(t["update_worst_rel"] <= DIST_ZERO_UPDATE_RTOL,
+              f"[dist-llama-pp] rank {r['rank']}: update of "
+              f"{t['update_worst']} off by {t['update_worst_rel']}")
+        check(max(abs(a - b) for a, b in zip(t["gpipe_losses"],
+                                             t["losses"])) <= PP_SCHED_ATOL,
+              f"[dist-llama-pp] gpipe {t['gpipe_losses']} and 1f1b "
+              f"{t['losses']} disagree")
+        check(all(np.isfinite(t["losses"])),
+              f"[dist-llama-pp] losses {t['losses']}")
+        if r["device"].startswith("cuda"):
+            check(per["flash_fwd"] == 2 * PP_MICRO and
+                  per["flash_bwd_fused"] == PP_MICRO and
+                  per["flash_bwd_dq"] == 0 and per["flash_bwd_dkv"] == 0,
+                  f"[dist-llama-pp] rank {r['rank']}: launches a step {per}")
+        if "rows" in t:
+            _kernel_gate("dist-llama-pp", t, smi)
+            for row in t["rows"]:
+                row["launches"] = per[row["name"].partition("@")[0]]
+            rows += t["rows"]
+    return rows
+
+
+def _moe_gates(res, smi, shape):
+    cfg = shape["moe"]
+    for r in res:
+        t = r["moe"]
+        ov = t["overlap"]
+        say("dist-moe-ep", rank=r["rank"], backend=r["backend"],
+            device=r["device"], nvidia_smi=f'"{smi}"',
+            config=f"d_model {cfg['d_model']}, d_hidden {cfg['d_hidden']}, "
+                   f"{cfg['experts']} experts over ep {A11_RANKS}, "
+                   f"{cfg['router']}, capacity factor "
+                   f"{cfg['capacity_factor']}, chunks {cfg['chunks']}",
+            tokens=f"{cfg['tokens']}/{cfg['tokens'] // A11_RANKS} a rank",
+            capacity=t["capacity"], dropped_per_expert=t["dropped"],
+            a2a_calls=t["stats"]["a2a_calls"],
+            a2a_bytes=t["stats"]["a2a_bytes"],
+            staged_bytes=t["stats"]["staged_bytes"],
+            ms=f"{t['ms']:.1f}", busy_ms=f"{t['busy_ms']:.1f}",
+            idle_share=f"{1 - t['busy_ms'] / t['window_ms']:.4f}",
+            peak_gb=f"{t['peak_gb']:.2f}",
+            hidden_fraction=f"{ov['hidden_fraction']:.4f}",
+            step_s={k: f"{v:.4f}" for k, v in ov["step_seconds"].items()},
+            rel_err=",".join(f"{k}:{v:.2e}" for k, v in
+                             t["rel_err"].items()),
+            fp32_rel=",".join(f"{k}:{v:.2e}" for k, v in
+                              t["fp32_rel"].items()),
+            serial_rel=",".join(f"{k}:{v:.2e}" for k, v in
+                                t["serial_rel"].items()),
+            launches=t["launches"])
+        for what, rel in t["rel_err"].items():
+            check(rel <= MOE_TOL, f"[dist-moe-ep] rank {r['rank']} {what} "
+                  f"(float64) off the one-process evaluation by {rel:.3e}")
+        for what, rel in t["serial_rel"].items():
+            check(rel <= MOE_TOL, f"[dist-moe-ep] rank {r['rank']} serial "
+                  f"{what} off chunked by {rel:.3e}")
+        check(-1.0 <= ov["hidden_fraction"] <= 1.0,
+              f"[dist-moe-ep] hidden fraction {ov}")
+
+
 def _dist_ckpt_one_process(mx, ctx, shape, root):
     """The committed ``[dist-bert-ckpt]`` checkpoint of the world of two
     restored into one process's ``SPMDTrainStep(mesh=None)`` (elastic,
@@ -7809,6 +8926,11 @@ def main():
     fused_determinism(dev, gen)
     lowp_kernel_time_phase(dev, gen)
     torch.cuda.empty_cache()
+    # phase 13c's world runs here, while this process holds little of the
+    # card: after the later phases it keeps ~23 GB (allocations and
+    # graph pools it cannot return), which two ranks of the pipeline's
+    # ~30 GB do not fit beside
+    a11_rows = dist_a11_phases(smi)
 
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -7929,12 +9051,12 @@ def main():
     torch.cuda.empty_cache()
 
     dist_nccl_phase()
-    dist_bert_phases(smi)
+    dist_bert_phases(smi, cut={"num_layers": DIST_BERT_LAYERS})
     dist_llama_tp_phase(smi)
     say_phase_seconds(t_start)
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [row] + flash_rows + fused_rows
-                      + mnv2_rows + [k6_row]}))
+                      + mnv2_rows + [k6_row] + a11_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

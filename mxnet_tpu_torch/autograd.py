@@ -170,8 +170,19 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
             targets.append(t)
     if not targets:
         return
-    grads = torch.autograd.grad(outs, targets, seeds,
-                                retain_graph=retain_graph, allow_unused=True)
+    try:
+        grads = torch.autograd.grad(outs, targets, seeds,
+                                    retain_graph=retain_graph,
+                                    allow_unused=True)
+    except RuntimeError as e:
+        if "backward through the graph a second time" not in str(e):
+            raise
+        # the reference's words: a head whose tape a first backward
+        # without retain_graph has freed is no longer on the tape
+        raise MXNetError(
+            "cannot differentiate a head that is not on the tape; its "
+            "graph was freed by an earlier backward (pass "
+            "retain_graph=True to the first)") from None
     total = {}
     for arr, g in zip(owners, grads):
         if g is not None:

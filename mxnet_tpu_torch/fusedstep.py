@@ -20,11 +20,17 @@ single-device Trainer and ``SPMDTrainStep`` read:
   wire type of float32 buckets), ``overlap_mode()`` (``MXTPU_OVERLAP``),
   ``overlap_bucket_bytes()`` (``MXTPU_OVERLAP_BUCKET_BYTES``) and
   ``zero_stage()`` (``MXTPU_ZERO_STAGE``), read by ``kvstore`` and
-  ``parallel.SPMDTrainStep``.
+  ``parallel.SPMDTrainStep``;
+- the pipeline and MoE knobs, with the reference's names and defaults:
+  ``pipeline_schedule()`` (``MXTPU_PIPELINE_SCHEDULE``) and
+  ``pipeline_microbatches()`` (``MXTPU_PIPELINE_MICROBATCHES``), read by
+  ``parallel.PipelineTrainStep`` and ``Composed4DStep``; ``moe_router()``
+  (``MXTPU_MOE_ROUTER``), ``moe_capacity_factor()``
+  (``MXTPU_MOE_CAPACITY_FACTOR``) and ``moe_a2a_chunks()``
+  (``MXTPU_MOE_A2A_CHUNKS``), read by ``parallel.moe``.
 
 The reference's ``DONATE`` has no counterpart (torch updates in place);
-its pipeline, MoE and elastic knobs come with the paths that read them
-(ROADMAP A11).
+its elastic knob comes with elastic training (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -166,3 +172,61 @@ def zero_stage() -> int:
                    "MXTPU_ZERO_STAGE=%s is not 0-3; using 0", s)
         return 0
     return s
+
+
+_PIPELINE_SCHEDULES = ("gpipe", "1f1b", "interleaved")
+
+
+def pipeline_schedule() -> str:
+    """Default pipeline schedule of ``PipelineTrainStep``
+    (``MXTPU_PIPELINE_SCHEDULE``): ``gpipe`` (default: fill-drain, bubble
+    (S-1)/(M+S-1), activation stash growing with M), ``1f1b`` (the same
+    bubble, the stash capped at the stage depth) or ``interleaved`` (1F1B
+    over v virtual chunks per rank, the bubble divided by v). Another
+    value gives ``gpipe`` with one warning."""
+    v = str(getenv("MXTPU_PIPELINE_SCHEDULE", "gpipe", dtype=str)
+            or "gpipe").lower()
+    if v not in _PIPELINE_SCHEDULES:
+        _warn_once(("fusedstep", f"MXTPU_PIPELINE_SCHEDULE={v!r}"),
+                   "MXTPU_PIPELINE_SCHEDULE=%r is not one of %s; using "
+                   "'gpipe'", v, _PIPELINE_SCHEDULES)
+        return "gpipe"
+    return v
+
+
+def pipeline_microbatches() -> int:
+    """Default microbatch count of the pipeline schedules
+    (``MXTPU_PIPELINE_MICROBATCHES``, default 0: one per pipeline
+    stage)."""
+    return max(0, int(getenv("MXTPU_PIPELINE_MICROBATCHES", 0, dtype=int)))
+
+
+_MOE_ROUTERS = ("top1", "top2")
+
+
+def moe_router() -> str:
+    """Default MoE router (``MXTPU_MOE_ROUTER``): ``top1`` (default, one
+    expert a token) or ``top2`` (two experts with renormalized combine
+    weights). Another value gives ``top1`` with one warning."""
+    v = str(getenv("MXTPU_MOE_ROUTER", "top1", dtype=str) or "top1").lower()
+    if v not in _MOE_ROUTERS:
+        _warn_once(("fusedstep", f"MXTPU_MOE_ROUTER={v!r}"),
+                   "MXTPU_MOE_ROUTER=%r is not one of %s; using 'top1'", v,
+                   _MOE_ROUTERS)
+        return "top1"
+    return v
+
+
+def moe_capacity_factor() -> float:
+    """Default expert capacity factor (``MXTPU_MOE_CAPACITY_FACTOR``,
+    default 1.5): an expert's slots are ``tokens / experts * factor``;
+    tokens past them drop (zero output from that expert)."""
+    v = getenv("MXTPU_MOE_CAPACITY_FACTOR", None, dtype=float)
+    return float(v) if v else 1.5
+
+
+def moe_a2a_chunks() -> int:
+    """Segments of the capacity axis in ``moe_apply_a2a``'s expert
+    exchange (``MXTPU_MOE_A2A_CHUNKS``, default 2): one all-to-all, expert
+    product and return all-to-all per segment; 1 is one exchange."""
+    return max(1, int(getenv("MXTPU_MOE_A2A_CHUNKS", 2, dtype=int)))

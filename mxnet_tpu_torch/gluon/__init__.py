@@ -1,7 +1,7 @@
 """Gluon of the port: blocks, layers, losses, Trainer, Superstep, model
-zoo."""
+zoo, and ``contrib.nn.MoEDense``."""
 
-from . import data, loss, model_zoo, nn, utils  # noqa: F401
+from . import contrib, data, loss, model_zoo, nn, utils  # noqa: F401
 from .block import Block, HybridBlock  # noqa: F401
 from .parameter import (  # noqa: F401
     Constant,

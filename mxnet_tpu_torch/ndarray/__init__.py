@@ -33,6 +33,7 @@ from .op import *  # noqa: F401,F403
 from .op import (  # noqa: F401
     _contrib_fused_matmul_stats,
     _contrib_fused_scaled_matmul_stats,
+    _contrib_moe,
 )
 from . import random  # noqa: F401
 from . import image  # noqa: F401

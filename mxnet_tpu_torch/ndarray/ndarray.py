@@ -273,6 +273,21 @@ def _index_tensor(idx, device):
     return idx
 
 
+def _take_index(key, t):
+    """An NDArray key reads as the JAX package's ``jnp.take`` along axis
+    0: whatever its type (a bool key too), its values are row indices,
+    negative ones counted from the end. A key outside ``[-n, n)`` raises
+    (``jnp.take`` fills NaN there)."""
+    idx = key._t.to(t.device).long()
+    n = t.shape[0] if t.dim() else 0
+    if t.is_cuda and torch.cuda.is_current_stream_capturing():
+        return idx  # no host read inside a capture
+    if idx.numel() and (bool((idx >= n).any()) or bool((idx < -n).any())):
+        raise MXNetError(f"index {key._t.tolist()} out of range for axis 0 "
+                         f"of size {n}")
+    return idx
+
+
 def _check_held(t):
     """A tensor that a tensor-parallel ``SPMDTrainStep`` released holds no
     values to read or write in place."""
@@ -586,7 +601,9 @@ class NDArray:
         if _is_basic_index(idx) and not (autograd.is_recording()
                                          and self._t.requires_grad):
             return _View(self, idx)
-        if not _is_basic_index(idx):
+        if isinstance(idx, NDArray):
+            idx = _take_index(idx, self._t)
+        elif not _is_basic_index(idx):
             idx = _index_tensor(idx, self._t.device)
         return apply(lambda t: _read(t, idx), self)
 

@@ -154,8 +154,30 @@ def _sign(x):
     return torch.where(keep, x.detach(), torch.sign(x))
 
 
+class _Abs(torch.autograd.Function):
+    """``|x|`` whose gradient is +1 at 0 and -1 at NaN, the JAX package's
+    rule (``jnp.abs`` differentiates as ``x >= 0 ? 1 : -1``); torch's
+    ``sign`` gives 0 at 0. The sign is a constant of the backward, so a
+    second-order gradient through it is 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x.detach() >= 0, g, -g)
+
+
+def _abs(x):
+    return _Abs.apply(x) if x.requires_grad and x.is_floating_point() \
+        else torch.abs(x)
+
+
 _UNARY = {
-    "abs": torch.abs,
+    "abs": _abs,
     "sign": _sign,
     "rint": torch.round,  # half to even, as jnp.rint
     "round": torch.round,  # half to even, as the JAX package's jnp.round
@@ -256,9 +278,28 @@ def clip(data, a_min=None, a_max=None):
     return torch.clamp(data, a_min, a_max)
 
 
+#: the largest float64 below 2**63: int64's bound as a clamp that converts
+_INT64_CLAMP = float(2 ** 63 - 1024)
+
+
 @register("cast", aliases=("Cast", "astype"))
 def cast(data, dtype="float32"):
-    return data.to(torch_dtype(dtype))
+    """``data`` in ``dtype``. A float cast to an integer type saturates at
+    the type's bounds and sends NaN to 0, as XLA's conversion does in the
+    JAX package (torch's and numpy's wrap, on the CPU and on CUDA
+    alike)."""
+    dt = torch_dtype(dtype)
+    if not data.is_floating_point() or dt == torch.bool or \
+            dt.is_floating_point or dt.is_complex:
+        return data.to(dt)
+    info = torch.iinfo(dt)
+    x = data.double()
+    x = torch.where(torch.isnan(x), 0.0, x)
+    hi = _INT64_CLAMP if dt == torch.int64 else float(info.max)
+    out = x.clamp(float(info.min), hi).to(dt)
+    if dt == torch.int64:
+        out = torch.where(x >= 2.0 ** 63, info.max, out)
+    return out
 
 
 @register("smooth_l1")
@@ -440,12 +481,19 @@ def topk(data, axis=-1, k=1, ret_typ="indices", is_ascend=False,
 
 @register("sort")
 def sort(data, axis=-1, is_ascend=True):
+    """Sorted along ``axis``; ``axis=None`` sorts the flattened array."""
+    if axis is None:
+        data, axis = data.reshape(-1), 0
     r = torch.sort(data, dim=axis, stable=True).values
     return r if is_ascend else torch.flip(r, dims=(axis,))
 
 
 @register("argsort")
 def argsort(data, axis=-1, is_ascend=True, dtype="float32"):
+    """The sorting indices along ``axis``; ``axis=None`` gives the flat
+    indices of the flattened array."""
+    if axis is None:
+        data, axis = data.reshape(-1), 0
     r = torch.argsort(data, dim=axis, stable=True)
     if not is_ascend:
         r = torch.flip(r, dims=(axis,))

@@ -1,11 +1,13 @@
-"""The AMP operators of the reference's ``ops/misc_ops.py``.
+"""The AMP operators of the reference's ``ops/misc_ops.py``, and its MoE
+operator.
 
-PyTorch counterpart of six registry names of ``mxnet_tpu/ops/misc_ops.py``
+PyTorch counterpart of seven registry names of ``mxnet_tpu/ops/misc_ops.py``
 (reference MXNet: ``amp_cast.cc``, ``contrib/all_finite.cc``,
 ``contrib/adamw.cc``): ``amp_cast``, ``amp_multicast``, ``all_finite``,
-``multi_all_finite``, ``mp_adamw_update`` and ``multi_mp_adamw_update``.
-Each returns new tensors, as the reference's do. The rest of that module
-is ROADMAP A13's.
+``multi_all_finite``, ``mp_adamw_update``, ``multi_mp_adamw_update`` and
+``_contrib_moe`` (alias ``moe``, lowered by ``parallel.moe``). Each returns
+new tensors, as the reference's do. The rest of that module is ROADMAP
+A13's.
 """
 
 from __future__ import annotations
@@ -106,3 +108,17 @@ def multi_mp_adamw_update(*arrays, lrs=None, wds=None, etas=None,
             eta=(etas[i] if etas else 1.0), beta1=beta1, beta2=beta2,
             epsilon=epsilon, clip_gradient=clip_gradient))
     return tuple(outs)
+
+
+@register("_contrib_moe", aliases=("moe",))
+def moe(tokens, gate, w1, w2, mesh=None, axis_name="ep",
+        capacity_factor=1.5):
+    """Mixture-of-experts FFN: top-1 GShard routing over ``(T, d)`` tokens;
+    returns ``(out (T, d), aux_loss)``. Lowered by ``parallel.moe``;
+    registered so the ``nd`` namespace and the tape see it like any other
+    operator."""
+    from ..parallel.moe import moe_apply
+
+    return moe_apply({"gate": gate, "w1": w1, "w2": w2}, tokens,
+                     mesh=mesh, axis_name=axis_name,
+                     capacity_factor=capacity_factor)

@@ -147,6 +147,19 @@ class Mesh:
         default group, when the axis spans the world)."""
         return self._groups.get(name)
 
+    def axis_ranks(self, name):
+        """The ranks along axis ``name`` through this rank (the others'
+        coordinates fixed), in axis order: ``[rank]`` for an absent
+        axis."""
+        if name not in self.shape:
+            return [world()[0]]
+        rank, _ = world()
+        where = _np.argwhere(self.devices == rank)
+        coord = list(where[0]) if len(where) else [0] * self.devices.ndim
+        ax = self.axis_names.index(name)
+        coord[ax] = slice(None)
+        return [int(r) for r in self.devices[tuple(coord)]]
+
     def axis_index(self, name):
         """This rank's coordinate along axis ``name``."""
         if name not in self.shape:

@@ -47,7 +47,9 @@ optimizer state as the reference's ``_opt_state_spec`` lays it out: the
 tensor-parallel spec extended along the first free dimension that divides
 by dp. :func:`spmd_save_states` writes the reference's shard files, in
 logical coordinates, which either package reads onto any mesh. A ``pp``
-axis raises (ROADMAP A11).
+axis is the pipeline executor's (``parallel.PipelineTrainStep``,
+``parallel.Composed4DStep``): the step declines it, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -249,10 +251,41 @@ def _raw(x):
     return x if isinstance(x, torch.Tensor) else array(x).data
 
 
-def _not_ported(what):
-    return MXNetError(f"SPMDTrainStep: {what} is not ported yet (ROADMAP "
-                      "A11: ring attention, pipelines, MoE and elastic "
-                      "training come next)")
+def bucketed_psum(grads, axis_name, bucket_bytes=None, mesh=None):
+    """Bucketed gradient sum over ``mesh``'s axis ``axis_name`` (default:
+    the mesh ``make_mesh`` made last): one ``all_reduce`` per
+    ~``bucket_bytes`` (default ``MXTPU_BUCKET_BYTES``) dtype-homogeneous
+    flat bucket instead of one per tensor, greedy in the gradients' order
+    within a dtype, as the reference's in-graph ``lax.psum`` buckets.
+    Returns new tensors in the original order, shapes and dtypes; an axis
+    of one rank returns copies."""
+    from . import transport
+    from .mesh import current_mesh
+
+    mesh = mesh if mesh is not None else current_mesh()
+    target = int(bucket_bytes if bucket_bytes is not None
+                 else _fusedstep.bucket_bytes())
+    flat = [g.reshape(-1) for g in grads]
+    buckets, open_by_dtype = [], {}
+    for i, f in enumerate(flat):
+        nbytes = f.numel() * f.element_size()
+        cur = open_by_dtype.get(f.dtype)
+        if cur is None or (cur[1] + nbytes > target and cur[0]):
+            cur = [[], 0]
+            open_by_dtype[f.dtype] = cur
+            buckets.append(cur)
+        cur[0].append(i)
+        cur[1] += nbytes
+    out = [None] * len(grads)
+    for idxs, _ in buckets:
+        red = transport.all_reduce(torch.cat([flat[i] for i in idxs]),
+                                   mesh, axis_name)
+        off = 0
+        for i in idxs:
+            n = flat[i].numel()
+            out[i] = red[off:off + n].reshape(grads[i].shape)
+            off += n
+    return out
 
 
 def shard_batch(arr, mesh, axis_name="dp", device=None):
@@ -362,8 +395,11 @@ class SPMDTrainStep:
                                  "parallel.make_mesh")
             validate_mesh_axes(mesh, "SPMDTrainStep")
             if axis_size(mesh, "pp") > 1:
-                raise _not_ported(f"a pp={axis_size(mesh, 'pp')} axis "
-                                  "(the pipeline executor)")
+                raise MXNetError(
+                    "SPMDTrainStep shards data/tensor axes only; a "
+                    f"pp={axis_size(mesh, 'pp')} mesh needs the "
+                    "pipeline executor — use Composed4DStep (or "
+                    "PipelineTrainStep for pp alone)")
         from .mesh import PartitionSpec
 
         self._param_sharding = {n: PartitionSpec(*tuple(spec))

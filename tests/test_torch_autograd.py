@@ -202,6 +202,16 @@ def test_multi_output_and_retain_graph():
         return out
 
     _same(run)
+    # C25: a second backward through a freed graph raises MXNetError in
+    # both packages (the port let torch's RuntimeError through)
+    for mod in (jmx, mx):
+        x = _arr(mod, [1.0, 2.0])
+        x.attach_grad()
+        with mod.autograd.record():
+            y = x * 2
+        y.backward()
+        with pytest.raises(mod.MXNetError):
+            y.backward()
 
 
 def test_custom_function():
@@ -553,3 +563,18 @@ def test_create_graph_through_the_flash_kernels_on_cuda():
         got.append((q.grad.asnumpy(), k.grad.asnumpy()))
     for a, b in zip(*got):
         assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+
+
+def test_abs_gradient_at_zero():
+    """C24: ``abs``'s gradient is +1 at 0, the reference's (JAX's) rule;
+    torch's ``sign`` gives 0 there. Exact."""
+    def run(mod):
+        x = _arr(mod, [1.0, 2.0, 3.0])
+        x.attach_grad()
+        with mod.autograd.record():
+            y = mod.nd.abs(x - 2).sum()
+        y.backward()
+        return [x.grad.asnumpy()]
+
+    got = _same(run, rtol=0, atol=0)
+    np.testing.assert_array_equal(got[0], [-1.0, 1.0, 1.0])

@@ -183,6 +183,28 @@ def test_parameter_grad_req_and_head_gradient():
     np.testing.assert_allclose(got[1][1], hg.sum(0), rtol=TOL, atol=TOL)
 
 
+def test_grad_req_set_after_initialize_pinned():
+    """``grad_req`` set after ``initialize`` changes no handle in either
+    package: the gradient keeps the mode it was attached with, so two
+    backwards leave one backward's gradient ("write"). MXNet 1.x
+    re-attaches; both packages' behaviour is pinned here."""
+    x = np.random.RandomState(4).randn(3, 4).astype(np.float32)
+    got = []
+    for mxmod, kw in ((jmx, {}), (mx, {"ctx": mx.cpu()})):
+        net = mxmod.gluon.nn.Dense(2, in_units=4, use_bias=False)
+        net.initialize(**kw)
+        net.collect_params().setattr("grad_req", "add")
+        assert net.weight.grad_req == "add"
+        for _ in range(2):
+            with mxmod.autograd.record():
+                y = net(mxmod.nd.array(x, **kw))
+            y.backward()
+        got.append(net.weight.grad().asnumpy())
+    one = np.repeat(x.sum(0)[None], 2, 0)  # one backward of a head of ones
+    np.testing.assert_allclose(got[0], one, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got[1], one, rtol=TOL, atol=TOL)
+
+
 def test_record_pause_and_modes_match_jax():
     def flags(mxmod):
         ag = mxmod.autograd

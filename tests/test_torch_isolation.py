@@ -301,3 +301,65 @@ def test_mesh_prefetcher_stages_to_the_card_unless_asked(monkeypatch):
         mx.gluon.data.DevicePrefetcher([], mesh=mesh)
     with mx.cpu():
         mx.gluon.data.DevicePrefetcher([], mesh=mesh)
+
+
+# the modules of the twenty-first slice (ring attention, pipelines, MoE,
+# the composed step, their transport, gluon.contrib.nn)
+A11_REST_MODULES = ("parallel/transport.py", "parallel/ring_attention.py",
+                    "parallel/pipeline.py", "parallel/moe.py",
+                    "parallel/composed.py", "parallel/__init__.py",
+                    "gluon/contrib/__init__.py", "gluon/contrib/nn.py",
+                    "ops/misc_ops.py", "fusedstep.py")
+
+
+@pytest.mark.parametrize("rel", A11_REST_MODULES)
+def test_a11_rest_modules_are_scanned(rel):
+    path = os.path.join(PKG, rel)
+    assert path in _port_files()
+    assert not [n for n, _ in _imported_roots(path) if n in FORBIDDEN]
+
+
+@pytest.mark.parametrize("name", ["ring", "pipeline", "moe", "composed"])
+def test_parallel_worker_entries_load_no_jax(tmp_path, name):
+    """The new parallel test files are the workers of their worlds: run as
+    ``--worker imports`` each loads the port and no JAX or
+    ``mxnet_tpu``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tests", f"test_torch_{name}.py"),
+         "--worker", "imports", str(tmp_path)], env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+def test_parallel_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
+    """Host data given to the pipeline, MoE and composed entry points goes
+    to the current context's device: the card, which without one raises;
+    under ``with mx.cpu()`` (or ``device="cpu"``) the host."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    par = mx.parallel
+    stages = {"w": np.zeros((1, 2, 2), np.float32)}
+    mesh = par.make_mesh({"pp": 1})
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        par.PipelineTrainStep(lambda p, h: h @ p["w"], stages, mesh,
+                              lambda o, y: o.sum())
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        par.moe.init_moe_params(0, 4, 8, 2)
+    with pytest.raises(mx.MXNetError, match="no CUDA device"):
+        par.Composed4DStep(lambda p, h: h @ p["w"], stages,
+                           par.composed_mesh(), lambda o, y: o.sum())
+    with mx.cpu():
+        step = par.PipelineTrainStep(lambda p, h: h @ p["w"], stages, mesh,
+                                     lambda o, y: o.sum())
+        assert step.params()["w"].device.type == "cpu"
+        assert par.moe.init_moe_params(0, 4, 8, 2)["w1"].device.type == \
+            "cpu"
+    step = par.Composed4DStep(lambda p, h: h @ p["w"], stages,
+                              par.composed_mesh(), lambda o, y: o.sum(),
+                              device="cpu")
+    assert step.memory_report()["param_bytes_per_device"] == 16

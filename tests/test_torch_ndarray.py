@@ -493,3 +493,56 @@ def test_negative_step_gradients_match_jax_c15():
         t[0], np.arange(12, dtype=np.float32).reshape(3, 4)[::-1] + 1)
     for a, b in zip(t, j):
         np.testing.assert_array_equal(a, b)
+
+
+# -- C26: an NDArray key gathers along axis 0, whatever its type ----------
+
+@pytest.mark.parametrize("case", ["vector", "matrix"])
+def test_bool_ndarray_key_gathers(case):
+    """The reference casts any NDArray key to int32 and ``take``s along
+    axis 0, so a bool key reads rows 0 and 1; the port masked with it.
+    Exact."""
+    if case == "vector":
+        x, key = np.arange(8, dtype=np.float32), [1, 0, 1, 0, 0, 0, 0, 1]
+    else:
+        x, key = np.arange(12, dtype=np.float32).reshape(3, 4), [1, 0, 1]
+
+    def run(mod):
+        kw = KW if mod is mx else {}
+        a = mod.nd.array(x, **kw)
+        return a[mod.nd.array(np.array(key, bool), dtype="bool",
+                              **kw)].asnumpy()
+
+    want, got = run(jmx), run(mx)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, x[np.array(key)])
+
+
+def test_out_of_range_ndarray_key_raises():
+    """Past the axis the reference's ``jnp.take`` fills NaN; the port
+    raises ``MXNetError`` (ROADMAP's traps); a negative key in range
+    counts from the end in both."""
+    a = mx.nd.array(np.arange(8, dtype=np.float32), **KW)
+    with pytest.raises(mx.MXNetError, match="out of range"):
+        a[mx.nd.array([9], dtype="int32", **KW)]
+    assert np.isnan(jmx.nd.array(np.arange(8, dtype=np.float32))[
+        jmx.nd.array([9], dtype="int32")].asnumpy()).all()
+    np.testing.assert_array_equal(
+        a[mx.nd.array([-1], dtype="int32", **KW)].asnumpy(),
+        jmx.nd.array(np.arange(8, dtype=np.float32))[
+            jmx.nd.array([-1], dtype="int32")].asnumpy())
+
+
+# -- C27 (the reference's fault, pinned): unary minus of an integer array --
+
+@pytest.mark.parametrize("dtype", ["int32", "uint8"])
+def test_neg_of_int_array_pinned(dtype):
+    """The reference's ``__neg__`` multiplies by -1.0 and gives float32;
+    the port keeps the type, as MXNet 1.x does (uint8 wraps)."""
+    x = np.array([1, 2], dtype)
+    j = (-jmx.nd.array(x, dtype=dtype)).asnumpy()
+    t = (-mx.nd.array(x, dtype=dtype, **KW)).asnumpy()
+    assert j.dtype == np.float32
+    np.testing.assert_array_equal(j, [-1.0, -2.0])
+    assert t.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(t, np.array([-1, -2]).astype(dtype))

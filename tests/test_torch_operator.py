@@ -631,3 +631,59 @@ def test_nd_op_matches_host_float64_on_cuda(name, monkeypatch):
     chip_smoke.nd_op_check(name, _nd_cases_cut()[name],
                            torch.device("cuda", 0))
     assert not failed
+
+
+# C22: sort and argsort with axis=None sort the flattened array, as the
+# functions and as NDArray methods; exact
+@pytest.mark.parametrize("form", ["nd", "method"])
+def test_sort_argsort_axis_none(form):
+    x = np.random.RandomState(3).randn(4, 5).astype(np.float32)
+
+    def run(mod):
+        a = mod.nd.array(x, **(KW if mod is mx else {}))
+        if form == "nd":
+            s = mod.nd.sort(a, axis=None)
+            i = mod.nd.argsort(a, axis=None, dtype="int32")
+        else:
+            s, i = a.sort(axis=None), a.argsort(axis=None, dtype="int32")
+        return s.asnumpy(), i.asnumpy()
+
+    (js, ji), (ts, ti) = run(jmx), run(mx)
+    assert ts.shape == (20,) and ti.dtype == np.int32
+    np.testing.assert_array_equal(ts, js)
+    np.testing.assert_array_equal(ti, ji)
+
+
+#: C23's inputs: past each bound, halves, NaN and both infinities
+CAST_VALUES = np.array([-300.7, -186.2, -1.5, -0.5, 0.7, 254.6, 255.5,
+                        256.0, 300.2, 1000.0, np.nan, np.inf, -np.inf],
+                       np.float32)
+
+
+def _cast_forms(mod, a, dtype):
+    return [mod.nd.Cast(a, dtype=dtype).asnumpy(),
+            mod.nd.cast(a, dtype=dtype).asnumpy(),
+            a.astype(dtype).asnumpy()]
+
+
+# C23: a float cast to an integer type saturates at the type's bounds and
+# sends NaN to 0, as the reference's XLA conversion does; exact
+@pytest.mark.parametrize("dtype", ["uint8", "int8", "int32"])
+def test_float_to_int_cast_saturates(dtype):
+    want = _cast_forms(jmx, jmx.nd.array(CAST_VALUES), dtype)
+    got = _cast_forms(mx, mx.nd.array(CAST_VALUES, **KW), dtype)
+    for w, g in zip(want, got):
+        assert g.dtype == w.dtype == np.dtype(dtype)
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int8", "int32"])
+def test_float_to_int_cast_saturates_on_cuda(dtype):
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    want = _cast_forms(jmx, jmx.nd.array(CAST_VALUES), dtype)
+    got = _cast_forms(mx, mx.nd.array(CAST_VALUES, ctx=mx.gpu(0)), dtype)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)

@@ -17,8 +17,12 @@ JAX package's (``parallel/mesh.py``, ``parallel/overlap.py``).
   written to.
 - ``shard_batch`` gives rank r rows ``[r*B/dp, (r+1)*B/dp)``; a world of
   one is rank 0 of 1, and its data-parallel mesh has ``dp=1``.
-- the ``fusedstep`` knobs read by these paths, as the JAX package reads
-  them.
+- the ``fusedstep`` knobs read by these paths and by the pipeline and
+  MoE paths, as the JAX package reads them.
+- ``test_a11_remainders_raise``: what ROADMAP A11 still leaves raises
+  naming it; each part a slice has ported keeps its case and works in one
+  process (a ``pp`` mesh is declined by ``SPMDTrainStep`` with the
+  reference's words, a ring of one rank is the plain attention).
 """
 
 import numpy as np
@@ -270,7 +274,15 @@ def test_fusedstep_knobs_match_jax(monkeypatch):
              "overlap_bucket_bytes"),
             ("MXTPU_ZERO_STAGE", [None, "2", "3", "7"], "zero_stage"),
             ("MXTPU_AMP_ALLREDUCE_DTYPE", [None, "bfloat16", "float16",
-                                           "int8"], "amp_allreduce_dtype")):
+                                           "int8"], "amp_allreduce_dtype"),
+            ("MXTPU_PIPELINE_SCHEDULE", [None, "1f1b", "INTERLEAVED",
+                                         "zigzag"], "pipeline_schedule"),
+            ("MXTPU_PIPELINE_MICROBATCHES", [None, "8", "-2"],
+             "pipeline_microbatches"),
+            ("MXTPU_MOE_ROUTER", [None, "top2", "top3"], "moe_router"),
+            ("MXTPU_MOE_CAPACITY_FACTOR", [None, "2.5"],
+             "moe_capacity_factor"),
+            ("MXTPU_MOE_A2A_CHUNKS", [None, "4", "0"], "moe_a2a_chunks")):
         for v in vals:
             if v is None:
                 monkeypatch.delenv(var, raising=False)
@@ -289,7 +301,7 @@ def _fake_world(monkeypatch, n):
 
 
 #: ROADMAP A11's parts that the port still leaves
-A11_LEFT = ("pp_axis", "ring_attention", "elastic")
+A11_LEFT = ("elastic",)
 
 
 @pytest.mark.parametrize("what", [
@@ -312,17 +324,28 @@ def test_a11_remainders_raise(what, tmp_path, monkeypatch):
     y = mx.nd.ones((4, 2), ctx=mx.cpu())
     if what in A11_LEFT:
         with pytest.raises(mx.MXNetError, match="A11"):
-            if what == "pp_axis":
-                mx.parallel.SPMDTrainStep(
-                    net, loss, "sgd", {},
-                    mx.parallel.make_mesh({"dp": 2, "pp": 2},
-                                          devices=range(4)))
-            elif what == "ring_attention":
-                mx.parallel.ring_attention(None, None, None, None)
-            else:
-                resilience.ElasticTrainer()
+            resilience.ElasticTrainer()
         return
-    if what == "param_sharding":
+    if what == "pp_axis":
+        # the pipeline executor's: SPMDTrainStep declines with the
+        # reference's words (test_composed4d.py)
+        with pytest.raises(mx.MXNetError, match="use Composed4DStep"):
+            mx.parallel.SPMDTrainStep(
+                net, loss, "sgd", {},
+                mx.parallel.make_mesh({"dp": 2, "pp": 2}, devices=range(4)))
+    elif what == "ring_attention":
+        # a ring of one rank: the plain attention of the whole sequence
+        rs = np.random.RandomState(0)
+        q, k, v = (torch.from_numpy(rs.randn(1, 2, 8, 4).astype(np.float32))
+                   for _ in range(3))
+        from mxnet_tpu_torch.ops import flash_attention as fa
+
+        got = mx.parallel.ring_attention(
+            q, k, v, mx.parallel.make_mesh({"sp": 1}), causal=True)
+        torch.testing.assert_close(
+            got, fa._torch_flash_fwd(q, k, v, 0.5, True)[0], rtol=1e-6,
+            atol=1e-6)
+    elif what == "param_sharding":
         # one process: the specs have no mesh to act on (the reference's
         # _sharding_for gives None), the step is the plain one
         step = mx.parallel.SPMDTrainStep(net, loss, "sgd", {}, param_sharding={

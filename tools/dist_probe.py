@@ -7,14 +7,20 @@ Answers, for the data-parallel paths of ``mxnet_tpu_torch``:
   (``nccl2``), and its error text when it does not;
 - which gloo collectives take CUDA tensors, with their results checked
   (``gloo2``);
+- whether gloo's point-to-point and all-to-all calls (``send``/``recv``,
+  ``batch_isend_irecv``, ``all_to_all_single``) take CUDA tensors, with
+  their results checked (``p2p``; a CUDA case that fails or crashes ends
+  that world only: ``parallel/transport.py`` stages CUDA tensors through
+  pinned host buffers for a gloo group whatever it says);
 - the time of one ``all_reduce`` of a 64 MiB float32 bucket in a one-rank
   NCCL world (``nccl1``), and, in the two-rank gloo world, of a whole
   BERT-base gradient set (133,547,324 float32, 534 MB) reduced as one
   tensor and as 4 MiB buckets, from CUDA and from host tensors.
 
-Run with no arguments: ``python tools/dist_probe.py``. Each world is two
-(or one) worker processes of this file (``--worker SCENARIO RANK WORLD
-HOST:PORT``), each with a hard time limit; a world that hangs is killed
+Run with no arguments: ``python tools/dist_probe.py``; ``python
+tools/dist_probe.py p2p`` runs the point-to-point world alone. Each world
+is two (or one) worker processes of this file (``--worker SCENARIO RANK
+WORLD HOST:PORT``), each with a hard time limit; a world that hangs is killed
 with its process group. Prints one JSON line per rank and the card's
 name and power limit. Needs a CUDA card; imports only torch.
 """
@@ -113,6 +119,53 @@ def _gloo_cases(dist, torch, rank, world, dev):
     return out
 
 
+def _p2p_cases(dist, torch, rank, world, dev):
+    """gloo's point-to-point and all-to-all on tensors on ``dev``: 'ok',
+    'wrong' or the error's first line, host tensors first."""
+    out = {}
+    nxt, prv = (rank + 1) % world, (rank - 1) % world
+
+    def run(name, fn):
+        try:
+            out[name] = "ok" if fn() else "wrong"
+        except Exception as e:  # the probe reports, it does not fail
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+    def all_to_all_single():
+        src = torch.arange(2 * world, dtype=torch.float32, device=dev) \
+            + 100 * rank
+        dst = torch.empty_like(src)
+        dist.all_to_all_single(dst, src)
+        want = torch.cat([torch.arange(2 * rank, 2 * rank + 2,
+                                       dtype=torch.float32, device=dev)
+                          + 100 * r for r in range(world)])
+        return bool(torch.equal(dst, want))
+
+    def send_recv():
+        t = torch.full((1024,), float(rank), device=dev)
+        got = torch.empty_like(t)
+        if rank % 2 == 0:
+            dist.send(t, nxt)
+            dist.recv(got, prv)
+        else:
+            dist.recv(got, prv)
+            dist.send(t, nxt)
+        return bool((got == prv).all())
+
+    def batch_isend_irecv():
+        t = torch.full((1024,), float(rank), device=dev)
+        got = torch.empty_like(t)
+        ops = [dist.P2POp(dist.isend, t, nxt),
+               dist.P2POp(dist.irecv, got, prv)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        return bool((got == prv).all())
+
+    for fn in (all_to_all_single, send_recv, batch_isend_irecv):
+        run(fn.__name__, fn)
+    return out
+
+
 def _bert_allreduce_ms(dist, torch, dev):
     """ms of reducing BERT-base's fp32 gradient set on ``dev``: as one
     tensor, and as 4 MiB buckets (one collective each)."""
@@ -169,6 +222,11 @@ def worker(scenario, rank, world, addr):
             t = torch.ones((64 << 20) // 4, device=dev)
             res["all_reduce_64MiB_ms"] = _cuda_ms(lambda: dist.all_reduce(t),
                                                   iters=10)
+        elif scenario == "p2p":
+            res["cpu"] = _p2p_cases(dist, torch, rank, world,
+                                    torch.device("cpu"))
+            print("PROBE " + json.dumps(res), flush=True)
+            res["cuda"] = _p2p_cases(dist, torch, rank, world, dev)
         else:
             res["cuda"] = _gloo_cases(dist, torch, rank, world, dev)
             res["cpu"] = _gloo_cases(dist, torch, rank, world,
@@ -208,9 +266,12 @@ def run_world(scenario, world, limit):
         outs.append((p.returncode, out))
     for rc, out in outs:
         lines = [ln[6:] for ln in out.splitlines() if ln.startswith("PROBE ")]
-        print(lines[0] if lines else json.dumps(
-            {"scenario": scenario, "rc": rc, "tail": out[-1500:]}),
-            flush=True)
+        if lines and rc == 0:
+            print(lines[-1], flush=True)
+        else:  # what it printed before it failed, and how it ended
+            print(json.dumps({"scenario": scenario, "rc": rc,
+                              "last": lines[-1] if lines else None,
+                              "tail": out[-1500:]}), flush=True)
 
 
 def main():
@@ -227,9 +288,13 @@ def main():
     print(f"card: {smi.strip()}; torch {torch.__version__}, cuda "
           f"{torch.version.cuda}, nccl {torch.cuda.nccl.version()}, "
           f"{torch.cuda.device_count()} card(s)", flush=True)
+    if sys.argv[1:2] == ["p2p"]:
+        run_world("p2p", 2, 180)
+        return
     run_world("nccl1", 1, 120)
     run_world("nccl2", 2, 120)
     run_world("gloo2", 2, 300)
+    run_world("p2p", 2, 180)
 
 
 if __name__ == "__main__":
