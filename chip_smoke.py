@@ -100,7 +100,14 @@ Phases (each prints one line of facts; any failure exits non-zero):
    64 ragged requests (17-128 ids) together, then 16 one at a time;
    every batch ``torch.equal`` to the eager forward on the same padded
    ids, compiles 3, K1 12 launches per batch; requests/s, p50/p99, batch
-   fill, replay ms per bucket;
+   fill, replay ms per bucket; then ``[telemetry-serve]``: the 16 single
+   requests again with telemetry on, each phase's p50/p99 (queue, batch
+   assembly, dispatch, slice-out) from the ``serving.request`` spans;
+7e2b. telemetry — the hybridized BERT-base train step with telemetry
+   off, on and off again (5 steps each): host ms to issue and wall ms a
+   step, K1/K2 launches equal in each half; introspection of the same
+   step run eagerly: its FLOPs, ``cost_table``, MFU against the H100's
+   peak; telemetry and introspection off again after;
 7e3. serve repo — ``ModelRepository``: BERT-base v1 serving, v2 staged
    and flipped under traffic, each answer its version's; rollback
    without a capture; a NaN version refused by the canary;
@@ -240,9 +247,10 @@ Phases (each prints one line of facts; any failure exits non-zero):
    idle share and peak memory; the loss must fall, 36 launches of each of
    K4, K5-dW and K5-dX a step;
 10g. mobilenet train hybrid — phase 10b on MobileNetV2 1.0;
-10h. data — 1,024 seeded smooth 256 x 256 RGB images with labels in
-   0..999, written as JPEG (quality 95) records through ``recordio.pack_img``
-   with ``MXIndexedRecordIO`` into a temporary directory.
+10h. data — DATA_IMAGES (512) seeded smooth 256 x 256 RGB images with
+   labels in 0..999, written as JPEG (quality 95) records through
+   ``recordio.pack_img`` with ``MXIndexedRecordIO`` into a temporary
+   directory.
    ``[data-recordio]``: ``mx.io.ImageRecordIter`` at batch 128,
    ``data_shape=(3, 224, 224)``, random crops and mirrors, ImageNet's
    mean and std, ``preprocess_threads`` the machine's core count: the
@@ -331,7 +339,20 @@ Phases (each prints one line of facts; any failure exits non-zero):
    for bit; after the world ends this process restores the commit into
    ``SPMDTrainStep(mesh=None)`` (elastic, 2 -> 1) and its parameters equal
    the world's at the checkpoint bit for bit; the bytes, the save's and
-   each restore's seconds printed. Then ``[dist-llama-tp]``: a new world
+   each restore's seconds printed; ``[dist-bert-elastic]``: with telemetry
+   on, ``ElasticTrainer`` over both ranks (Adam, ZeRO 2), chaos
+   ``resize:4:1,resize:7:2`` over 9 steps (2 -> 1 -> 2): the first 3
+   losses and the state handed over at the shrink equal ``[dist-bert-zero]``'s
+   2/ready run bit for bit, 9 committed steps on both ranks, a warm
+   regrow, the descriptor verifies, the 9 losses within
+   DIST_ZERO_LOSS_RTOL and the updates within DIST_ZERO_UPDATE_RTOL of
+   one process's 9 steps, K1/K2 8 times a step on a member and never on
+   rank 1 while it sits out; the registry's resize counter and world
+   size, the tracer's and a flight bundle's ``elastic.resize`` events,
+   ``/metrics`` read over HTTP from a local port, one federation
+   exchange's cluster of both ranks; each resize's seconds and the step
+   times and idle shares before, during and after. Then
+   ``[dist-llama-tp]``: a new world
    of TP_RANKS worker processes on the card (gloo) trains Llama-3-8B's
    widths cut to 2 layers tensor-parallel (``make_mesh({"tp": 2})``,
    ``param_sharding=tp_sharding_map()``, ``MXTPU_FLASH_BWD=fused``, Adam
@@ -2377,6 +2398,125 @@ def train_hybrid_phase(ctx, launches, steps=10, **cut):
     return counts
 
 
+TELEMETRY_STEPS = 5  # [telemetry]: hybridized steps with it off, then on
+
+
+def telemetry_phase(ctx, launches, steps=TELEMETRY_STEPS, **cut):
+    """``[telemetry]``: the hybridized BERT-base train step (``bert_setup``'s
+    net and batch, Adam, every step a replay after one warm-up), ``steps``
+    steps with telemetry off, then ``steps`` with it on (the registry, the
+    trace ring, the grad-norm gauge as a lazy device scalar), each half
+    after one untimed step of its own (the first step with telemetry on
+    loads the grad norm's kernels): each step's
+    host ms to issue it and its wall ms to finish, and the launches of
+    both halves (equal: telemetry adds no kernel to the captured graphs;
+    the grad norm is its own few launches outside them). Then
+    introspection's count of the same step, run eagerly on a net from the
+    same seed (a replay runs no aten op for the FLOP counter to see):
+    ``cost_table`` and ``mfu_estimate`` against the mean wall of the
+    telemetry-off steps. The halves run off, on, off again, so a drift
+    of the card's clock shows beside the telemetry's cost. Telemetry and
+    introspection are off again after, and ``ENABLED`` is checked
+    False."""
+    import mxnet_tpu_torch as mx
+
+    obs = mx.observability
+    net, x, y = bert_setup(ctx, **cut)
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam", dict(BERT_ADAM))
+
+    def one():
+        loss = _fwd_bwd(mx, net, x, y)
+        trainer.step(BERT_BATCH)
+        return loss
+
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    out = []
+    try:
+        for on in (False, True, False):
+            obs.set_enabled(on)
+            one()
+            torch.cuda.synchronize()
+            obs.reset()
+            host, wall = [], []
+            launches.clear()
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                host.append((t1 - t0) * 1e3)
+                wall.append((time.perf_counter() - t0) * 1e3)
+            out.append((host, wall, dict(launches)))
+            if on:
+                trace_events = len(obs.tracer())
+                steps_seen = obs.TRAINER_STEP_TOTAL.total()
+                grad_norm = obs.TRAINER_GRAD_NORM.value()
+    finally:
+        obs.set_enabled(False)
+    del net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    intro = obs.introspect
+    eager, _, _ = bert_setup(ctx, **cut)
+    tr = mx.gluon.Trainer(eager.collect_params(), "adam", dict(BERT_ADAM))
+    intro.reset()
+    intro.set_enabled(True)
+    try:
+        with intro.site("bert_train_step", x.data.device):
+            _fwd_bwd(mx, eager, x, y)
+            tr.step(BERT_BATCH)
+        mean_s = float(np.mean(out[0][1] + out[2][1])) / 1e3
+        est = intro.mfu_estimate("bert_train_step", mean_s)
+        table = intro.cost_table()
+        rec = intro.site_cost("bert_train_step")
+    finally:
+        intro.set_enabled(False)
+        intro.reset()
+        obs.reset()
+    del eager, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(table, flush=True)
+    (h0, w0, l0), (h1, w1, l1), (h2, w2, _) = out
+    say("telemetry", steps=steps, order="off/on/off",
+        host_ms_off="/".join(f"{v:.3f}" for v in h0),
+        host_ms_on="/".join(f"{v:.3f}" for v in h1),
+        host_ms_off_again="/".join(f"{v:.3f}" for v in h2),
+        wall_ms_off="/".join(f"{v:.3f}" for v in w0),
+        wall_ms_on="/".join(f"{v:.3f}" for v in w1),
+        wall_ms_off_again="/".join(f"{v:.3f}" for v in w2),
+        host_ms_median=f"{np.median(h0):.3f}/{np.median(h1):.3f}/"
+                       f"{np.median(h2):.3f}",
+        wall_ms_median=f"{np.median(w0):.3f}/{np.median(w1):.3f}/"
+                       f"{np.median(w2):.3f}",
+        trace_events=trace_events, grad_norm=f"{grad_norm:.6g}",
+        k1_k2_off=f"{l0.get('flash_fwd', 0)}/{l0.get('flash_bwd_dq', 0)}",
+        k1_k2_on=f"{l1.get('flash_fwd', 0)}/{l1.get('flash_bwd_dq', 0)}",
+        step_gflop=f"{rec['flops'] / 1e9:.3f}",
+        peak_alloc_gb=f"{(rec['bytes_accessed'] or 0) / 1e9:.3f}",
+        achieved_tflops=f"{est['achieved_tflops']:.3f}",
+        mfu=f"{est['mfu']:.5f}" if est["mfu"] is not None else "None",
+        peak_tflops=rec["peak_tflops"], bound=est["bound"],
+        mfu_reason=est["reason"])
+    check(not obs.ENABLED and not intro.ENABLED,
+          "[telemetry] telemetry left on after the phase")
+    check(steps_seen == steps and trace_events >= steps,
+          f"[telemetry] {steps_seen} trainer steps, {trace_events} events")
+    check(np.isfinite(grad_norm) and grad_norm > 0,
+          f"[telemetry] grad norm {grad_norm}")
+    check({k: l0.get(k, 0) for k in ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv")}
+          == {k: l1.get(k, 0) for k in ("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv")},
+          f"[telemetry] K1/K2 launches {l0} off, {l1} on")
+    check(rec["flops"] > 0 and est["achieved_tflops"] > 0,
+          f"[telemetry] introspection of the step: {rec} {est}")
+
+
 # ---------------------------------------------------------------------------
 # phases 7c-7e: .params save/load, warmup and aot_predict_fn on BERT-base
 # ---------------------------------------------------------------------------
@@ -2783,6 +2923,7 @@ def serve_bert_phase(ctx, launches, iters=20, **cut):
                                                      iters), 4)
             eager_ms[bucket[0]] = round(cuda_ms(
                 lambda: _predict(mx, net, x), iters), 4)
+        telemetry = _serve_telemetry(mx, eng, rows[SERVE_BATCHED:])
     finally:
         eng.close()
     say("serve-bert", buckets=[b[0] for b in SERVE_BUCKETS],
@@ -2807,7 +2948,50 @@ def serve_bert_phase(ctx, launches, iters=20, **cut):
     check(counts.get("flash_fwd", 0) == layers * batches,
           f"K1 launched {counts.get('flash_fwd', 0)} times for {batches} "
           f"batches x {layers} layers")
+    phases, spans, tele_ms = telemetry
+    say("telemetry-serve", requests=len(tele_ms),
+        single_p50_ms=f"{float(np.percentile(tele_ms, 50)):.3f}",
+        single_p99_ms=f"{float(np.percentile(tele_ms, 99)):.3f}",
+        **{f"{ph}_p50_ms": f"{float(np.percentile(v, 50)):.4f}"
+           for ph, v in spans.items()},
+        **{f"{ph}_p99_ms": f"{float(np.percentile(v, 99)):.4f}"
+           for ph, v in spans.items()},
+        histogram_p50_ms="/".join(f"{ph}:{v['p50_s'] * 1e3:.4f}"
+                                  for ph, v in phases.items()))
+    check(set(phases) == set(spans) == {"queue", "batch", "dispatch",
+                                         "slice"} and all(
+        v["count"] == len(tele_ms) == len(spans[ph])
+        for ph, v in phases.items()),
+        f"[telemetry-serve] the phase split of {len(tele_ms)} requests: "
+        f"{phases}")
     return counts.get("flash_fwd", 0)
+
+
+def _serve_telemetry(mx, eng, rows):
+    """``rows`` submitted one at a time again with telemetry on: the
+    request's phase split (queue, batch assembly, dispatch, slice-out):
+    ``observability.serve_phase_snapshot`` (quantiles interpolated in
+    the histogram's buckets) and the exact ms of each phase from the
+    ``serving.request`` spans; and each request's host ms. Telemetry is
+    off again after."""
+    obs = mx.observability
+    obs.reset()
+    obs.set_enabled(True)
+    try:
+        ms = []
+        for r in rows:
+            t0 = time.perf_counter()
+            eng.predict(r, timeout=600)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        spans = collections.defaultdict(list)
+        for e in obs.tracer().events():
+            if e["name"] == "serving.request":
+                for ph in ("queue", "batch", "dispatch", "slice"):
+                    spans[ph].append(e["args"][f"{ph}_ms"])
+        return obs.serve_phase_snapshot(eng.name), dict(spans), ms
+    finally:
+        obs.set_enabled(False)
+        obs.reset()
 
 
 def serve_repo_phase(ctx, **cut):
@@ -4949,8 +5133,9 @@ SS_LOSS_RTOL, SS_WEIGHT_RTOL = 2.0 ** -8, 1e-5
 CKPT_EVERY = 4
 # [checkpoint-resume]'s net cut to this many of BERT-base's 12 layers (its
 # depth, widths whole; every check there is bit for bit), so that the run
-# stays inside its time with phase 13c
-CKPT_LAYERS = 6
+# stays inside its time with phase 13c and the elastic phase (6 until
+# PR 22's cut)
+CKPT_LAYERS = 4
 RESNET_AMP_K = 2
 RESNET_AMP_SGD = {"learning_rate": 0.005, "momentum": 0.9,
                   "multi_precision": True}
@@ -6128,7 +6313,10 @@ def nd_ops_phase(dev, names=None, dims=None, draws_n=1_000_000):
 # phase 10h: the data path (RecordIO, the image pipelines, the prefetcher)
 # ---------------------------------------------------------------------------
 
-DATA_IMAGES = 1024
+# the data path's pack (1,024 images until PR 22's cut, which keeps the
+# script inside its time with the elastic phase; the fed steps cycle
+# through epochs)
+DATA_IMAGES = 512
 DATA_SIZE = 256
 DATA_BATCH = 128
 DATA_SHAPE = (3, 224, 224)
@@ -6643,7 +6831,7 @@ DIST_STEPS = 3
 # widths whole), so that the run stays inside its time with phase 13c;
 # at 6 layers a rank's loss rose over the 3 steps on the H100
 DIST_BERT_LAYERS = 8
-DIST_TIMEOUT_S = 420  # the world's hard limit, its start to its end
+DIST_TIMEOUT_S = 540  # the world's hard limit, its start to its end
 # the two ranks' summed gradient against one process's gradient of the
 # whole batch, each within this of its layer's largest |gradient|
 DIST_GRAD_RTOL = 1e-5
@@ -6664,6 +6852,14 @@ DIST_ZERO_RUNS = ((0, "ready"), (2, "ready"), (3, "ready"),
 DIST_DIR = ".chip_smoke_dist"  # git-ignored; removed after the phase
 # [dist-bert-superstep]: K mesh steps of run_superstep at this ZeRO stage
 DIST_SUPER_K, DIST_SUPER_STAGE = 2, 2
+# [dist-bert-elastic]: ElasticTrainer over both ranks at this ZeRO stage,
+# chaos shrinking to rank 0 after 3 committed steps and growing back after
+# 6, of DIST_ELASTIC_STEPS; its first 3 steps are [dist-bert-zero]'s
+# 2/ready run, bit for bit, and its 9 are held to the one-process step's
+DIST_ELASTIC_STAGE, DIST_ELASTIC_STEPS = 2, 9
+DIST_ELASTIC_CHAOS = "resize:4:1,resize:7:2"
+# the elastic steps whose idle share is read: before, during, after
+DIST_ELASTIC_PROFILED = (2, 4, 7)
 # [dist-llama-tp]: Llama-3-8B widths (LLAMA_LAYERS layers) tensor-parallel
 # over two ranks sharing the card, on one sequence of TP_SEQ tokens (a
 # quarter of [llama-train]'s: two ranks share one card's memory and each
@@ -6871,10 +7067,32 @@ def _update_errors(got, want):
     return worst, worst_name, key_bias
 
 
+def _state_digests(chunks, names):
+    """SHA-256 of each chunk of a state snapshot, keyed by its tensor's
+    position in ``names`` (the step's sorted parameter names: two nets
+    from one seed but another name counter compare) and its spans."""
+    import hashlib
+
+    index = {n: i for i, n in enumerate(names)}
+    out = {}
+    for key, parts in chunks.items():
+        kind, _, rest = key.partition("::")
+        name, _, leaf = rest.partition("::")
+        tag = f"{kind}::{index.get(name, name)}" + (f"::{leaf}" if leaf
+                                                    else "")
+        for spans, data in parts:
+            span = ";".join(f"{a}:{b}" for a, b in spans)
+            out[f"{tag}|{span}"] = hashlib.sha256(
+                np.ascontiguousarray(data).tobytes()).hexdigest()
+    return out
+
+
 def _dist_zero_run(mx, rank, ctx, launches, stage, overlap, shape,
-                   ref_path=None):
+                   ref_path=None, digests=False):
     """One ``[dist-bert-zero]`` run in one rank; with ``ref_path``, its
-    losses and parameter updates against the one-process run's there."""
+    losses and parameter updates against the one-process run's there;
+    with ``digests``, its state's chunk digests after the steps (what
+    ``[dist-bert-elastic]`` hands over at its shrink)."""
     net = dist_bert_net(mx, ctx, **shape["cut"])
     mesh = mx.parallel.make_mesh({"dp": DIST_RANKS})
     step, x, y = _dist_spmd_step(mx, net, ctx, shape, mesh,
@@ -6902,6 +7120,9 @@ def _dist_zero_run(mx, rank, ctx, launches, stage, overlap, shape,
     out["report"] = step.zero_memory_report()
     out["buckets"] = len(step._plan.buckets)
     out["mode"] = f"{step._mode}/{step._overlap_mode}"
+    if digests:
+        out["state_digests"] = _state_digests(
+            mx.parallel.spmd_state_snapshot(step)[0], step._names)
     step.sync_to_block()
     out["param_digest"] = _digest(list(_sorted_weights(net).values()))
     if ref_path:
@@ -6966,10 +7187,13 @@ def dist_worker(out_dir, shape_json, device="gpu", phase="bert"):
     ref_zero = os.path.join(out_dir, "ref_zero.pt")
     res["zero"] = {f"{s}/{o}": _dist_zero_run(
         mx, rank, ctx, _kernels.LAUNCHES, s, o, shape,
-        ref_zero if (s, o) == DIST_ZERO_RUNS[0] else None)
+        ref_zero if (s, o) == DIST_ZERO_RUNS[0] else None,
+        digests=(s, o) == (DIST_ELASTIC_STAGE, "ready"))
         for s, o in DIST_ZERO_RUNS}
     res["superstep"] = _dist_superstep_run(mx, ctx, _kernels.LAUNCHES, shape)
     res["ckpt"] = _dist_ckpt_run(mx, ctx, shape, out_dir)
+    res["elastic"] = _dist_elastic_run(mx, rank, ctx, _kernels.LAUNCHES,
+                                       shape, ref_zero, out_dir)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     mx.kv.shutdown_distributed()
@@ -7066,6 +7290,112 @@ def _dist_ckpt_run(mx, ctx, shape, out_dir):
     return out
 
 
+def _dist_elastic_run(mx, rank, ctx, launches, shape, ref_path, out_dir):
+    """``[dist-bert-elastic]`` in one rank, with telemetry on:
+    ``ElasticTrainer`` over both ranks (Adam, ZeRO DIST_ELASTIC_STAGE,
+    the bucket schedule ``ready``), chaos DIST_ELASTIC_CHAOS over
+    DIST_ELASTIC_STEPS steps of the global batch, so 2 -> 1 -> 2. Each
+    step's loss, ms and kernel launches on this rank; three steps'
+    device-busy share; the resize events, the handed-over state's chunk
+    digests, the descriptor's verification, the updates against the
+    one-process run's (``ref_path``); and the telemetry: the registry's
+    resize counter and world-size gauge, the tracer's ``elastic.resize``
+    events, a flight-recorder bundle's, ``/metrics`` read over HTTP from
+    ``serve_metrics`` on a free local port (rank 0), and one federation
+    exchange's cluster view."""
+    import urllib.request
+
+    from mxnet_tpu_torch import resilience
+    from mxnet_tpu_torch.resilience import chaos, elastic
+
+    obs = mx.observability
+    obs.reset()
+    obs.set_enabled(True)
+    net = dist_bert_net(mx, ctx, **shape["cut"])
+    w0 = {k: w.clone() for k, w in _sorted_weights(net).items()}
+    ids, _, _, _, labels = dist_bert_batch(shape)
+    x = mx.nd.array(ids, dtype="int32", ctx=ctx)
+    y = mx.nd.array(labels, ctx=ctx)
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    snap = {}
+    chaos.configure(DIST_ELASTIC_CHAOS)
+    et = elastic.ElasticTrainer(
+        net, lambda out, lab: sce(out[-1], lab), "adam",
+        {"wd": BERT_ADAM["wd"]}, zero_stage=DIST_ELASTIC_STAGE,
+        overlap="ready",
+        on_resize=lambda ev, ch: snap.setdefault("chunks", ch))
+    # shapes are known: no predict pass in step 1, as [dist-bert-zero]
+    et.spmd_step.init_state()
+    names = sorted(net.collect_params().keys())
+    out = {"losses": [], "step_ms": [], "launches": [], "busy": {}}
+    try:
+        for i in range(DIST_ELASTIC_STEPS):
+            launches.clear()
+            got = {}
+
+            def one():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got["loss"] = et.step(x, y, lr=BERT_ADAM["learning_rate"])
+                torch.cuda.synchronize()
+                got["ms"] = (time.perf_counter() - t0) * 1e3
+
+            if i in DIST_ELASTIC_PROFILED:
+                out["busy"][i] = _busy_share(one)
+            else:
+                one()
+            out["losses"].append(got["loss"])
+            out["step_ms"].append(got["ms"])
+            out["launches"].append(dict(launches))
+            if i == 3:
+                # the first resize's chunks: digest them, free the copy
+                out["handover"] = _state_digests(snap.pop("chunks"), names)
+    finally:
+        chaos.reset()
+    out["events"] = et.resize_events
+    out["committed"] = et.committed_steps
+    out["verify"] = resilience.verify_descriptor(et.last_descriptor)
+    out["members_at_end"] = et.devices
+    et.sync_to_block()
+    ref = torch.load(ref_path, map_location=x.data.device)
+    got = {k: w - w0[k] for k, w in _sorted_weights(net).items()}
+    (out["update_worst_rel"], out["update_worst"],
+     out["key_bias_abs"]) = _update_errors(got, ref["delta_elastic"])
+    out["ref_losses"] = ref["losses_elastic"]
+    del ref, got, w0
+    tel = out["telemetry"] = {
+        "resizes": obs.ELASTIC_RESIZES_TOTAL.total(),
+        "world_size": obs.ELASTIC_WORLD_SIZE.value(),
+        "resize_seconds_count": obs.ELASTIC_RESIZE_SECONDS.value(),
+        "trace_resizes": sum(e["name"] == "elastic.resize"
+                             for e in obs.tracer().events())}
+    bundle = obs.flight.dump(reason="dist-bert-elastic", path=os.path.join(
+        out_dir, f"flight_rank{rank}.json"))
+    with open(bundle) as f:
+        tel["flight_resizes"] = sum(e["name"] == "elastic.resize"
+                                    for e in json.load(f)["trace_events"])
+    tel["federation_n"] = obs.federation.exchange()
+    tel["cluster_ranks"] = obs.federation.cluster_ranks()
+    if rank == 0:
+        port = obs.serve_metrics(0, host="127.0.0.1")
+        try:
+            body = urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics", timeout=30).read().decode()
+        finally:
+            obs.stop_metrics_server()
+        tel["scraped"] = [ln for ln in body.splitlines()
+                          if ln.startswith(("mxtpu_elastic_resizes_total",
+                                            "mxtpu_elastic_world_size"))]
+    et.close()
+    obs.set_enabled(False)
+    obs.reset()
+    obs.federation.reset()
+    del et, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _dist_reference_grads(ctx, path, shape):
     """One process's run of ``[dist-bert-trainer]`` over the whole batch:
     the pretraining loss of each rank's half, summed in one graph (the
@@ -7105,13 +7435,20 @@ def _dist_reference_grads(ctx, path, shape):
     net = dist_bert_net(mx, ctx, **shape["cut"])
     step, x, y = _dist_spmd_step(mx, net, ctx, shape, None)
     w0 = {k: w.clone() for k, w in _sorted_weights(net).items()}
-    losses = [float(step(x, y, lr=BERT_ADAM["learning_rate"], sync=False))
-              for _ in range(DIST_STEPS)]
-    step.sync_to_block()
-    delta = {k: w - w0[k] for k, w in _sorted_weights(net).items()}
-    torch.save({"losses": losses, "delta": delta},
+    losses, deltas = [], {}
+    for i in range(DIST_ELASTIC_STEPS):
+        losses.append(float(step(x, y, lr=BERT_ADAM["learning_rate"],
+                                 sync=False)))
+        if i + 1 in (DIST_STEPS, DIST_ELASTIC_STEPS):
+            step.sync_to_block()
+            deltas[i + 1] = {k: w - w0[k]
+                             for k, w in _sorted_weights(net).items()}
+    # [dist-bert-zero]'s DIST_STEPS steps, and [dist-bert-elastic]'s
+    torch.save({"losses": losses[:DIST_STEPS], "delta": deltas[DIST_STEPS],
+                "losses_elastic": losses,
+                "delta_elastic": deltas[DIST_ELASTIC_STEPS]},
                os.path.join(os.path.dirname(path), "ref_zero.pt"))
-    del net, step, x, y, w0, delta
+    del net, step, x, y, w0, deltas
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -7184,6 +7521,7 @@ def dist_bert_phases(smi, device="gpu", cut=None, timeout=DIST_TIMEOUT_S):
     _dist_gates(res, smi, ref_s, world_s, shape)
     _dist_superstep_gates(res, shape)
     _dist_ckpt_gates(res, one)
+    _dist_elastic_gates(res, smi, shape)
 
 
 class _Collectives:
@@ -8769,6 +9107,94 @@ def _dist_ckpt_gates(res, one):
           "world's at the checkpoint")
 
 
+def _dist_elastic_gates(res, smi, shape):
+    layers = shape["cut"].get("num_layers", BERT_LAYERS)
+    zero = [r["zero"][f"{DIST_ELASTIC_STAGE}/ready"] for r in res]
+    before = {}
+    for r in zero:
+        before.update(r["state_digests"])
+    key_bias_bound = 2 * DIST_ELASTIC_STEPS * BERT_ADAM["learning_rate"]
+    for r in res:
+        e = r["elastic"]
+        ev = e["events"]
+        tel = e["telemetry"]
+        busy = {int(i): b for i, b in e["busy"].items()}
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(e["losses"], e["ref_losses"]))
+        k12 = ["/".join(str(l.get(k, 0)) for k in
+                        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+               for l in e["launches"]]
+        say("dist-bert-elastic", rank=r["rank"], nvidia_smi=f'"{smi}"',
+            chaos=DIST_ELASTIC_CHAOS, zero_stage=DIST_ELASTIC_STAGE,
+            resizes="/".join(f"{x['from']}->{x['to']}@{x['step']}"
+                             for x in ev),
+            resize_s="/".join(f"{x['seconds']:.3f}" for x in ev),
+            warm="/".join(str(x["warm"]) for x in ev),
+            committed=e["committed"],
+            losses="/".join(f"{v:.6f}" for v in e["losses"]),
+            step_ms="/".join(f"{v:.1f}" for v in e["step_ms"]),
+            idle_share="/".join(
+                f"{i + 1}:{1 - b / w:.4f}" for i, (b, w) in
+                sorted(busy.items())),
+            k1_k2_per_step=",".join(k12),
+            one_process_losses="/".join(f"{v:.6f}" for v in
+                                        e["ref_losses"]),
+            loss_rel=f"{loss_rel:.3e}",
+            update_worst_rel=f"{e['update_worst_rel']:.3e}",
+            update_worst=e["update_worst"] or "-",
+            key_bias_abs=f"{e['key_bias_abs']:.3e}",
+            descriptor_problems=len(e["verify"]))
+        say("dist-bert-elastic-telemetry", rank=r["rank"], **{
+            k: v for k, v in tel.items() if k != "scraped"})
+        check(len(ev) == 2 and [x["to"] for x in ev] == [1, 2]
+              and ev[0]["step"] == 3 and ev[1]["step"] == 6,
+              f"[dist-bert-elastic] rank {r['rank']} resizes {ev}")
+        check(ev[1]["warm"] is True, "[dist-bert-elastic] the regrow was "
+              "not warm")
+        check(e["committed"] == DIST_ELASTIC_STEPS,
+              f"[dist-bert-elastic] {e['committed']} committed steps")
+        check(e["verify"] == [], f"[dist-bert-elastic] descriptor "
+              f"{e['verify']}")
+        check(e["losses"][:DIST_STEPS] == zero[0]["losses"],
+              f"[dist-bert-elastic] rank {r['rank']}: losses before the "
+              f"shrink {e['losses'][:DIST_STEPS]} are not [dist-bert-zero]"
+              f"'s {zero[0]['losses']}")
+        check(e["handover"] == before,
+              f"[dist-bert-elastic] rank {r['rank']}: the state handed over "
+              "at the shrink differs from the uninterrupted run's after "
+              f"{DIST_STEPS} steps")
+        check(e["losses"] == res[0]["elastic"]["losses"],
+              "[dist-bert-elastic] the ranks' losses differ")
+        check(loss_rel <= DIST_ZERO_LOSS_RTOL,
+              f"[dist-bert-elastic] losses off the one-process run by "
+              f"{loss_rel}")
+        check(e["update_worst_rel"] <= DIST_ZERO_UPDATE_RTOL,
+              f"[dist-bert-elastic] update of {e['update_worst']} off by "
+              f"{e['update_worst_rel']}")
+        check(e["key_bias_abs"] <= key_bias_bound,
+              f"[dist-bert-elastic] key biases {e['key_bias_abs']} apart")
+        for i, l in enumerate(e["launches"]):
+            out = r["rank"] not in (0,) and 3 <= i < 6
+            want = 0 if out else layers
+            got = {k: l.get(k, 0) for k in ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")}
+            check(all(v == want for v in got.values()),
+                  f"[dist-bert-elastic] rank {r['rank']} step {i + 1}: "
+                  f"K1/K2 {got}, want {want} each")
+        check(tel["resizes"] == 2 and tel["world_size"] == 2
+              and tel["trace_resizes"] == 2 and tel["flight_resizes"] == 2,
+              f"[dist-bert-elastic] telemetry {tel}")
+        check(tel["federation_n"] == DIST_RANKS
+              and tel["cluster_ranks"] == list(range(DIST_RANKS)),
+              f"[dist-bert-elastic] federation {tel}")
+    scraped = res[0]["elastic"]["telemetry"]["scraped"]
+    say("dist-bert-elastic-scrape", lines=len(scraped),
+        body="|".join(scraped))
+    check('mxtpu_elastic_resizes_total{reason="chaos"} 2' in scraped
+          and "mxtpu_elastic_world_size 2" in scraped,
+          f"[dist-bert-elastic] /metrics carried {scraped}")
+
+
 def _dist_gates(res, smi, ref_s, world_s, shape):
     layers = shape["cut"].get("num_layers", BERT_LAYERS)
 
@@ -8968,6 +9394,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     serve_bert_phase(mx.gpu(0), _kernels.LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    telemetry_phase(mx.gpu(0), _kernels.LAUNCHES)
     gc.collect()
     torch.cuda.empty_cache()
     serve_repo_phase(mx.gpu(0))

@@ -188,6 +188,10 @@ class LossScaler:
                                            device=dev)
         self._overflow_total_arr = torch.tensor(total, dtype=torch.int32,
                                                 device=dev)
+        from .. import observability as _obs
+
+        if _obs.ENABLED:
+            _obs.record_amp_scale(scale, total, bool(overflow))
 
 
 class scale_loss:

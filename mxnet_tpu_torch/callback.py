@@ -1,10 +1,10 @@
 """Training callbacks (``mx.callback``; the port's copy of
 ``mxnet_tpu/callback.py``, reference ``python/mxnet/callback.py``).
 
-``Speedometer``, ``ProgressBar``, ``BatchEndParam`` and
-``log_train_metric`` work on any loop. The checkpoint callbacks need the
-Module API (ROADMAP A13) and ``TelemetryLogger`` the telemetry registry
-(ROADMAP A12): they raise until those are ported.
+``Speedometer``, ``ProgressBar``, ``BatchEndParam``, ``log_train_metric``
+and ``TelemetryLogger`` (the telemetry summary) work on any loop. The
+checkpoint callbacks need the Module API (ROADMAP A13): they raise until
+it is ported.
 """
 
 from __future__ import annotations
@@ -99,6 +99,33 @@ class BatchEndParam:
 
 
 class TelemetryLogger:
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("callback.TelemetryLogger needs the telemetry "
-                         "registry, which is not ported yet (ROADMAP A12)")
+    """Epoch-end callback logging the observability telemetry summary
+    (the classic-``callback`` counterpart of
+    ``observability.TelemetryHandler`` for ``Module.fit``-style loops).
+
+    Usable both as an ``epoch_end_callback(iter_no, sym, arg, aux)`` and
+    as a ``batch_end_callback(param)`` (it inspects its arguments).
+    """
+
+    def __init__(self, period=1, logger=None, reset_trace=False):
+        self.period = int(max(1, period))
+        self.logger = logger or logging.getLogger("telemetry")
+        self.reset_trace = reset_trace
+        self._count = 0
+
+    def __call__(self, *cb_args, **cb_kwargs):
+        from . import observability
+
+        self._count += 1
+        if self._count % self.period:
+            return
+        head = cb_args[0] if cb_args else None
+        if isinstance(head, BatchEndParam):
+            tag = f"[Epoch {head.epoch}] Batch [{head.nbatch}] "
+        elif isinstance(head, int):
+            tag = f"[Epoch {head}] "
+        else:
+            tag = ""
+        self.logger.info("%s%s", tag, observability.summary())
+        if self.reset_trace:
+            observability.tracer().clear()

@@ -43,6 +43,24 @@ _ALIASES = {"cpu": "cpu", "cpu_pinned": "cpu", "gpu": "cuda", "tpu": "cuda",
 _LOCAL_CARD = [None]
 
 
+_WIRED = False
+
+
+def _wire_env():
+    """One-shot environment hookups deferred to the first Context, as in
+    the JAX package (plain imports start nothing, and ``Context.__init__``
+    keeps one boolean check afterwards): the ``MXTPU_METRICS_PORT``
+    scrape endpoint, the ``MXTPU_FEDERATION`` publisher and the
+    ``MXTPU_WATCHDOG`` loop."""
+    global _WIRED
+    _WIRED = True
+    from .observability import federation, serve, watchdog
+
+    serve.maybe_serve()
+    federation.maybe_start()
+    watchdog.maybe_start()
+
+
 def set_local_card(index):
     """Make ``mx.gpu(0)`` name CUDA card ``index`` (None: undo)."""
     _LOCAL_CARD[0] = None if index is None else int(index)
@@ -57,6 +75,8 @@ class Context:
     _stack = threading.local()
 
     def __init__(self, device_type, device_id: int = 0):
+        if not _WIRED:
+            _wire_env()
         if isinstance(device_type, Context):
             device_type, device_id = device_type.device_type, \
                 device_type.device_id

@@ -14,9 +14,11 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
 
 import torch
 
+from . import observability as _obs
 from .base import getenv
 
 _BULK = {"size": 15}
@@ -73,9 +75,13 @@ def wait(tree):
     """Block until the work producing every array in ``tree`` (NDArrays
     and tensors, nested in lists, tuples and dicts) has finished: one
     CUDA synchronisation per device they live on (reference:
-    ``Engine::WaitForVar``). Returns ``tree``."""
+    ``Engine::WaitForVar``). Returns ``tree``. With telemetry on, the
+    wait counts as one ``native`` probe (there is no relay path)."""
+    t0 = time.perf_counter() if _obs.ENABLED else None
     for dev in _devices(tree, set()):
         torch.cuda.synchronize(dev)
+    if t0 is not None:
+        _obs.record_engine_wait("native", time.perf_counter() - t0)
     return tree
 
 

@@ -27,10 +27,11 @@ single-device Trainer and ``SPMDTrainStep`` read:
   ``parallel.PipelineTrainStep`` and ``Composed4DStep``; ``moe_router()``
   (``MXTPU_MOE_ROUTER``), ``moe_capacity_factor()``
   (``MXTPU_MOE_CAPACITY_FACTOR``) and ``moe_a2a_chunks()``
-  (``MXTPU_MOE_A2A_CHUNKS``), read by ``parallel.moe``.
+  (``MXTPU_MOE_A2A_CHUNKS``), read by ``parallel.moe``;
+- ``elastic_enabled()`` (``MXTPU_ELASTIC``), the pause points' switch
+  (``resilience/elastic.py``).
 
-The reference's ``DONATE`` has no counterpart (torch updates in place);
-its elastic knob comes with elastic training (ROADMAP A11).
+The reference's ``DONATE`` has no counterpart (torch updates in place).
 """
 
 from __future__ import annotations
@@ -90,9 +91,24 @@ def retrace_budget() -> int:
                       dtype=int))
 
 
+def elastic_enabled() -> bool:
+    """Live-elasticity master switch (``MXTPU_ELASTIC``, default off):
+    arms the membership-monitor pause points in ``Trainer.step`` /
+    ``Superstep.step`` (``resilience/elastic.py``) so preemption
+    notices and resize signals are processed at safe step boundaries.
+    Attaching a ``MembershipMonitor`` programmatically arms them too;
+    when off, each pause point costs one module-bool read."""
+    return bool(getenv("MXTPU_ELASTIC", False, dtype=bool))
+
+
 def log_fallback(site: str, reason: str):
     """Record that ``site`` declined the fast path because of ``reason``:
-    logged at WARNING once per (site, reason) per process."""
+    logged at WARNING once per (site, reason) per process, and counted
+    per label in the telemetry registry when telemetry is on."""
+    from . import observability as _obs
+
+    if _obs.ENABLED:
+        _obs.FUSED_FALLBACK_TOTAL.inc(1, site=site, reason=reason)
     key = (site, reason)
     if key not in _LOGGED:
         _LOGGED.add(key)

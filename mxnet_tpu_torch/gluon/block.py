@@ -869,6 +869,8 @@ class _CachedFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *gouts):
+        if _obs.ENABLED:
+            _obs.record_xla_dispatch("cachedop_bwd")
         if torch.is_grad_enabled():  # create_graph
             return (None, None) + tuple(_regrad(
                 ctx.call.entry_args, ctx.inputs, ctx.tensors, gouts))
@@ -1034,6 +1036,9 @@ class _Entry:
         # JAX package
         with _hooks_muted(self.graphed or self.calls > 0):
             self.calls += 1
+            if _obs.ENABLED:
+                # a replay of the captured forward, or one eager run
+                _obs.record_xla_dispatch("cachedop_fwd")
             return self._call(arrays, handles)
 
     def _call(self, arrays, handles):

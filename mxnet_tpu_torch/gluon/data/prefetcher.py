@@ -256,8 +256,13 @@ class DevicePrefetcher:
         t0 = time.perf_counter()
         kind, payload = self._queue.get()
         if _obs.ENABLED:
-            _obs.DATA_PREFETCH_WAIT_SECONDS.inc(time.perf_counter() - t0)
+            wait = time.perf_counter() - t0
+            _obs.DATA_PREFETCH_WAIT_SECONDS.inc(wait)
             _obs.DATA_PREFETCH_QUEUE_DEPTH.set(self._queue.qsize())
+            if _obs.attribution.ENABLED:
+                # the step-time plane's input_wait leg (the max of the
+                # per-step delta and this note)
+                _obs.attribution.note_input_wait(wait)
         if kind == "ok":
             gen, batch, event, source = payload
             batch = self._deliver(batch, event)

@@ -51,20 +51,29 @@ The fused update declines several contexts (logged once), and the
 per-parameter path updates the first context's copy and copies it to the
 others. ``update_on_kvstore`` is kept and, as in the JAX package, not
 read: the Trainer updates and the store only sums. ``Superstep``
-declines a store (logged), running K single steps. The grad-norm gauge
-waits for A12.
+declines a store (logged), running K single steps.
+
+Telemetry (``observability.ENABLED``): each ``Trainer.step`` records its
+span and the global L2 norm of the summed gradients as a lazy device
+scalar (``mxtpu_trainer_grad_norm``: no synchronisation until the gauge
+is read), each superstep its K, amortized time and per-iteration loss
+series; the watchdog and the federation beat run at the step boundary.
+``MXTPU_PROFILE`` windows wrap the covered steps, and the live-elasticity
+pause point (``resilience.elastic.pause_point``) runs first when armed.
 """
 
 from __future__ import annotations
 
 import pickle
 import re
+import time
 
 import numpy as _np
 import torch
 
 from .. import autograd
 from .. import fusedstep as _fusedstep
+from .. import observability as _obs
 from .. import optimizer as opt
 from ..amp.policy import is_low_precision_dtype
 from ..base import MXNetError
@@ -73,6 +82,7 @@ from ..ndarray.ndarray import NDArray
 from ..optimizer import multi_tensor
 from ..resilience import chaos as _chaos
 from ..resilience import checkpoint as _ckptmod
+from ..resilience import elastic as _elastic
 from ..resilience.checkpoint import _flatten_state, _unflatten_state
 from . import _capture
 from .parameter import Parameter, ParameterDict
@@ -344,14 +354,52 @@ class Trainer:
         waits for its end) and ticks an attached ``CheckpointManager``."""
         if _chaos.ENABLED:
             _chaos.step_point("trainer")
+        if _elastic.ENABLED:
+            # membership signals (a preemption notice: a proactive
+            # checkpoint) are taken at the boundary, never mid-step
+            _elastic.pause_point("trainer", trainer=self)
         with _ckptmod.step_critical_section():
-            self._ready()
-            self._optimizer.rescale_grad = self._scale / batch_size
-            self._allreduce_grads()
-            self._update(ignore_stale_grad)
+            if _obs.introspect.PROFILING:
+                with _obs.introspect.profile_step():
+                    self._step_instrumented(batch_size, ignore_stale_grad)
+            else:
+                self._step_instrumented(batch_size, ignore_stale_grad)
             mgr = getattr(self, "_ckpt_manager", None)
             if mgr is not None:
                 mgr.on_step(1)
+
+    def _step_instrumented(self, batch_size, ignore_stale_grad):
+        if not _obs.ENABLED:
+            self._step_impl(batch_size, ignore_stale_grad)
+            return
+        t0 = time.perf_counter()
+        self._step_impl(batch_size, ignore_stale_grad)
+        t1 = time.perf_counter()
+        _obs.record_trainer_step(t0, t1, self._grad_norm())
+        if _obs.watchdog.ENABLED:
+            _obs.watchdog.poll()
+        # the federation exchange's collectives run here, in step order
+        # on every rank (no-op unless armed in a world of several)
+        _obs.federation.poll()
+
+    def _step_impl(self, batch_size, ignore_stale_grad):
+        self._ready()
+        self._optimizer.rescale_grad = self._scale / batch_size
+        self._allreduce_grads()
+        self._update(ignore_stale_grad)
+
+    @torch.no_grad()
+    def _grad_norm(self):
+        """Global L2 norm of the summed gradients after the update's
+        inputs are final: a 0-d float32 device tensor (the gauge stores
+        it lazily), 0.0 with no gradient."""
+        grads = [p.list_grad()[0] for p in self._params
+                 if p.grad_req != "null" and p._data is not None]
+        grads = [g.data for g in grads if g is not None]
+        if not grads:
+            return 0.0
+        norms = torch._foreach_norm([g.float() for g in grads])
+        return torch.linalg.vector_norm(torch.stack(norms))
 
     def allreduce_grads(self):
         """Sum every gradient across the contexts and ranks its parameter
@@ -542,13 +590,16 @@ class Trainer:
         lr = o.learning_rate  # scheduler-aware, after the counts moved
         device = plan["weights"][0].device
         sc = _scalars(device)
-        _fused_apply(
-            plan["name"], plan["hyper"], plan["weights"],
-            plan["grad_tensors"], plan["states"],
-            [sc(lr * p.lr_mult) for p in plan["active"]],
-            [sc(o.wd * p.wd_mult) for p in plan["active"]],
-            sc(o.rescale_grad), o.clip_gradient, o.multi_precision,
-            self._amp_operands(device), plan["t_uniform"])
+        with _obs.introspect.site("trainer_fused", device):
+            _fused_apply(
+                plan["name"], plan["hyper"], plan["weights"],
+                plan["grad_tensors"], plan["states"],
+                [sc(lr * p.lr_mult) for p in plan["active"]],
+                [sc(o.wd * p.wd_mult) for p in plan["active"]],
+                sc(o.rescale_grad), o.clip_gradient, o.multi_precision,
+                self._amp_operands(device), plan["t_uniform"])
+        if _obs.ENABLED:
+            _obs.record_xla_dispatch("trainer_fused")
         return True
 
     def _restore_fused_state(self, name, p, idx, raw, rule_init):
@@ -985,6 +1036,8 @@ class Superstep:
             # the type first: nan_due consumes its one-shot fault
             poison = raw_x.is_floating_point() \
                 and _chaos.nan_due("superstep")
+        if _elastic.ENABLED:
+            _elastic.pause_point("superstep", trainer=self._trainer)
         if self._plan is None and any(
                 p._data is None
                 for _, p in self._block.collect_params().items()):
@@ -1001,12 +1054,31 @@ class Superstep:
                 batch_size)
             return NDArray(torch.stack([l.data.float() for l in losses]))
         with _ckptmod.step_critical_section():
-            out = self._step_fused(plan, raw_x, raw_y, k, batch_size,
-                                   poison)
+            t0 = time.perf_counter()
+            if _obs.introspect.PROFILING:
+                with _obs.introspect.profile_step(k, name="superstep"):
+                    out = self._step_fused(plan, raw_x, raw_y, k,
+                                           batch_size, poison)
+            else:
+                with _obs.introspect.site("superstep", raw_x.device):
+                    out = self._step_fused(plan, raw_x, raw_y, k,
+                                           batch_size, poison)
+            if _obs.ENABLED:
+                self._record(out, k, t0)
             mgr = getattr(self._trainer, "_ckpt_manager", None)
             if mgr is not None:
                 mgr.on_step(k)
         return out
+
+    def _record(self, losses, k, t0):
+        """A superstep's telemetry: one dispatch of K iterations, its
+        amortized time and the K losses as a lazy series."""
+        _obs.record_xla_dispatch("superstep")
+        _obs.record_superstep(k, t0, time.perf_counter())
+        _obs.record_superstep_series(losses.data)
+        if _obs.watchdog.ENABLED:
+            _obs.watchdog.poll()
+        _obs.federation.poll()
 
     def _host_values(self, plan, k, batch_size):
         """Advance the update counts by K and sample the schedule once per

@@ -25,9 +25,11 @@ from __future__ import annotations
 import datetime
 import logging
 import threading
+import time
 
 import torch
 
+from .. import observability as _obs
 from ..base import MXNetError, getenv
 from ..ndarray.ndarray import NDArray
 from .base import register_kvstore
@@ -93,10 +95,10 @@ def _call_with_timeout(fn, timeout, desc):
 
 
 def reset_world():
-    """The reference's hook for a world torn down and formed anew: it
-    drops its cached reduce mesh. The port caches nothing about the
-    world (every collective reads the current process group), so there is
-    nothing to drop."""
+    """The reference's hook for a world torn down and formed anew (an
+    elastic resize calls it): it drops its cached reduce mesh. The port
+    caches nothing about the world (every collective reads the current
+    process group), so there is nothing to drop."""
 
 
 def _comm_device():
@@ -126,9 +128,21 @@ def _accum_sum_(t, group=None):
 
 def _global_allreduce(raw):
     """``raw`` summed across every rank: a new tensor (``raw`` itself in
-    a world of one)."""
+    a world of one). A chaos fault point (site ``collective``: a due
+    one-shot fault raises before the collective); with telemetry on, its
+    latency and bytes are recorded."""
+    from ..resilience import chaos as _chaos
+
+    if _chaos.ENABLED:
+        _chaos.collective_point("collective")
     if _world()[1] == 1:
         return raw
+    if _obs.ENABLED:
+        t0 = time.perf_counter()
+        out = _accum_sum_(raw.detach().clone())
+        _obs.record_allreduce(time.perf_counter() - t0,
+                              raw.numel() * raw.element_size())
+        return out
     return _accum_sum_(raw.detach().clone())
 
 
@@ -239,16 +253,43 @@ class KVStoreDistTPU(KVStoreLocal):
         """Barrier of every rank, under the ``MXTPU_BARRIER_TIMEOUT_S``
         watchdog and with ``MXTPU_BARRIER_RETRIES`` tries with backoff for
         failures that return; a timeout raises
-        :class:`CollectiveTimeoutError` at once (the peers are gone)."""
+        :class:`CollectiveTimeoutError` at once (the peers are gone), after
+        telling an armed elastic monitor of a dead peer. Each completed
+        wait feeds this rank's latency to the monitor (and the
+        ``mxtpu_kvstore_barrier_seconds`` histogram); a chaos
+        ``collective`` fault fails one try (site ``barrier``)."""
         if _world()[1] == 1:
             return
         from .. import runtime
+        from ..resilience import chaos as _chaos
+        from ..resilience import elastic as _elastic
 
+        if _obs.ENABLED:
+            _obs.KV_BARRIER_TOTAL.inc()
         tag = f"mxtpu_kv_barrier_{self._barrier_count}"
         timeout = _barrier_timeout_s()
+
+        def attempt():
+            if _chaos.ENABLED:
+                _chaos.collective_point("barrier")
+            t0 = time.perf_counter()
+            try:
+                _call_with_timeout(_dist().barrier, timeout,
+                                   f"kvstore barrier {tag!r}")
+            except CollectiveTimeoutError:
+                if _elastic.ENABLED:
+                    # the monitor decides who is evicted; the error still
+                    # surfaces (a rank cannot resize the world mid-sync)
+                    _elastic.notify_dead_peer(detail=tag)
+                raise
+            dt = time.perf_counter() - t0
+            if _obs.ENABLED:
+                _obs.KV_BARRIER_SECONDS.observe(dt)
+            if _elastic.ENABLED:
+                _elastic.observe_barrier(_world()[0], dt)
+
         runtime.retry_with_backoff(
-            lambda: _call_with_timeout(_dist().barrier, timeout,
-                                       f"kvstore barrier {tag!r}"),
+            attempt,
             attempts=int(getenv("MXTPU_BARRIER_RETRIES", 3, dtype=int)),
             base_delay=0.5, desc=f"kvstore barrier {tag!r}",
             no_retry=(CollectiveTimeoutError,), logger=_logger)

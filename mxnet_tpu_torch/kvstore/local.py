@@ -14,7 +14,9 @@ dtype-homogeneous buckets (``parallel.overlap.build_bucket_plan``, target
 with its residual carried from step to step, reduces one collective per
 bucket (the identity in one process; ``dist_tpu_sync`` overrides
 ``_reduce_raw``) and unpacks; where there is nothing to reduce it takes a
-grouped path, and where it cannot group, the per-key path.
+grouped path, and where it cannot group, the per-key path. With
+telemetry on, each path records the reference's push, pull and pushpull
+counts and bytes (``observability.record_kv``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import pickle
 import torch
 
 from .. import fusedstep as _fusedstep
+from .. import observability as _obs
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
 from .base import KVStoreBase, register_kvstore
@@ -42,6 +45,25 @@ def _write(outs, raw):
     for o in _as_list(outs):
         if o.data is not raw:
             o._set_data(_place(raw, o))
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
+def _group_nbytes(value):
+    return sum(_nbytes(v.data) for v in _as_list(value))
+
+
+def _record_groups(groups, merged, outs):
+    """A multi-key pushpull's telemetry: every key's pushed and pulled
+    bytes, one pushpull per key."""
+    _obs.record_kv("push", sum(_nbytes(t) for g in groups for t in g),
+                   count=len(groups))
+    _obs.record_kv("pushpull", 0, count=len(groups))
+    _obs.record_kv("pull", sum(_nbytes(m) * len(_as_list(o))
+                               for m, o in zip(merged, outs)),
+                   count=len(groups))
 
 
 def _sum(raws):
@@ -95,6 +117,8 @@ class KVStoreLocal(KVStoreBase):
         k = self._key(key)
         if k not in self._store:
             raise MXNetError(f"key {key} has not been initialized")
+        if _obs.ENABLED:
+            _obs.record_kv("push", _group_nbytes(value))
         merged = self._reduce(k, self._compress(k, self._merge(value)))
         idx = int(key) if k.isdigit() else k
         if self._updater is not None:
@@ -114,7 +138,10 @@ class KVStoreLocal(KVStoreBase):
             for k, o in zip(key, out):
                 self.pull(k, out=o, priority=priority)
             return
-        _write(out, self._store[self._key(key)].data)
+        stored = self._store[self._key(key)].data
+        if _obs.ENABLED:
+            _obs.record_kv("pull", _nbytes(stored) * len(_as_list(out)))
+        _write(out, stored)
 
     def pushpull(self, key, value, out=None, priority=0):
         """Sum ``value`` over its contexts and write the sum into ``out``
@@ -143,7 +170,12 @@ class KVStoreLocal(KVStoreBase):
             self.push(key, value, priority)
             return
         k = self._key(key)
+        if _obs.ENABLED:
+            _obs.record_kv("push", _group_nbytes(value))
+            _obs.record_kv("pushpull", 0)
         merged = self._reduce(k, self._compress(k, self._merge(value)))
+        if _obs.ENABLED:
+            _obs.record_kv("pull", _nbytes(merged.data) * len(_as_list(out)))
         _write(out, merged.data)
 
     @staticmethod
@@ -161,8 +193,13 @@ class KVStoreLocal(KVStoreBase):
         if type(self)._reduce is not KVStoreLocal._reduce:
             return False
         groups = self._gather_groups(values)
-        for g, out in zip(groups, outs):
-            _write(out, _sum(g))
+        merged = [_sum(g) for g in groups]
+        if _obs.ENABLED:
+            if any(len(g) > 1 for g in groups):
+                _obs.record_xla_dispatch("kv_grouped")
+            _record_groups(groups, merged, outs)
+        for m, out in zip(merged, outs):
+            _write(out, m)
         return True
 
     # -- bucketed multi-key pushpull ----------------------------------
@@ -185,6 +222,10 @@ class KVStoreLocal(KVStoreBase):
         if plan is None:
             plan = self._bucket_plans[sig] = self._build_bucket_plan(
                 key_sig, comm)
+            if _obs.ENABLED:
+                _obs.KV_BUCKET_BUILD_TOTAL.inc()
+                _obs.OVERLAP_BUCKETS.set(len(plan["plan"].buckets),
+                                         site="kvstore")
         res = self._bucket_residuals.get(sig) if thr is not None else None
         if thr is not None and res is None:
             dev = groups[0][0].device
@@ -211,6 +252,12 @@ class KVStoreLocal(KVStoreBase):
             _overlap.unpack_bucket(op, bi, b, merged, False)
         if thr is not None:
             self._bucket_residuals[sig] = new_res
+        if _obs.ENABLED:
+            # a pack, an unpack, and one reduction a bucket across ranks
+            _obs.record_xla_dispatch("kv_bucket", 2 + (
+                0 if self._reduce_raw_is_identity() else len(op.buckets)))
+            _obs.KV_BUCKET_PUSHPULL_TOTAL.inc()
+            _record_groups(groups, merged, outs)
         for m, out in zip(merged, outs):
             _write(out, m)
         return True

@@ -9,13 +9,19 @@ rebinds them), and with ``MXTPU_SYNC_EXEC=1`` waits for the device after
 every op, so an error surfaces at the op that raised it (the reference's
 NaiveEngine). While the AMP policy is on, an op of its fp32 list runs
 through ``amp.policy.wrap_fp32`` (the reference's ``registry.jitted``
-picks its cast-policy executable the same way). The per-op monitor tap and timing of the JAX package wait
-for the observability layer (ROADMAP A12).
+picks its cast-policy executable the same way). With telemetry on, each
+op's dispatch wall time (not device time: the launch is asynchronous)
+and count go to the registry (``record_op_dispatch``, which also counts
+``mxtpu_xla_dispatch_total{site="op"}``); the JAX package's per-op
+monitor tap waits for ``mx.monitor`` (ROADMAP A13).
 """
 
 from __future__ import annotations
 
+import time
+
 from .. import engine
+from .. import observability as _obs
 from ..amp.policy import _STATE as _AMP_STATE
 from ..amp.policy import wrap_fp32
 from ..ndarray.ndarray import apply
@@ -40,7 +46,12 @@ def apply_op(opdef: OpDef, args, kwargs, out=None):
     if _AMP_STATE["target_dtype"] is not None \
             and opdef.name in _AMP_STATE["cast_ops"]:
         fn = wrap_fp32(fn)
-    res = apply(fn, *args, **kwargs)
+    if _obs.ENABLED:
+        t0 = time.perf_counter()
+        res = apply(fn, *args, **kwargs)
+        _obs.record_op_dispatch(opdef.name, time.perf_counter() - t0)
+    else:
+        res = apply(fn, *args, **kwargs)
     if out is not None:
         res = _write_out(res, out)
     if engine.sync_exec_enabled():

@@ -385,7 +385,21 @@ def _cuda_flash_fwd(q, k, v, scale, causal, window):
             int(window), float(scale), strides, stream)
     _kernels.check(lib, err, "flash_fwd launch")
     _kernels.count("flash_fwd")
+    if _kernels.FLOP_SINKS:
+        _kernels.note_flops(4 * _pairs(B, H, T, S, causal, window) * D)
     return out, lse
+
+
+def _pairs(B, H, T, S, causal, window):
+    """(query row, key) pairs the mask lets through over every batch and
+    head: what the flash kernels' operations scale with (introspection's
+    FLOP count of a launch)."""
+    if not causal:
+        return B * H * T * S
+    q = torch.arange(T, dtype=torch.int64) + (S - T)
+    hi = (q + 1).clamp(0, S)
+    lo = (q - window + 1).clamp(0, S) if window > 0 else torch.zeros_like(q)
+    return B * H * int((hi - lo).clamp(min=0).sum())
 
 
 def _bwd_operands(q, k, v, out, lse, g):
@@ -419,6 +433,9 @@ def _launch_flash_bwd(kernel, q, k, v, g, out, lse, delta, strides, outs,
                  int(causal), int(window), float(scale), strides, stream)
     _kernels.check(lib, err, f"flash_bwd_{kernel} launch")
     _kernels.count(f"flash_bwd_{kernel}")
+    if _kernels.FLOP_SINKS:
+        _kernels.note_flops((6 if kernel == "dq" else 8) * D
+                            * _pairs(B, H, T, S, causal, window))
 
 
 def _cuda_flash_bwd(q, k, v, out, lse, g, scale, causal, window):
@@ -468,6 +485,8 @@ def _cuda_flash_bwd_fused(q, k, v, out, lse, g, scale, causal, window):
             int(window), float(scale), strides, stream)
     _kernels.check(lib, err, "flash_bwd_fused launch")
     _kernels.count("flash_bwd_fused")
+    if _kernels.FLOP_SINKS:
+        _kernels.note_flops(10 * _pairs(B, H, T, S, causal, window) * D)
     return dq.to(q.dtype), dk, dv
 
 

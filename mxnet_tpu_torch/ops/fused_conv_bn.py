@@ -240,6 +240,8 @@ def _cuda_fused_fwd(x, w, scale, shift, relu=False):
         _launch(lib, "mxtpu_fused_fwd", _DTYPE_CODES[x.dtype], _ptr(x),
                 _ptr(w), _ptr(scale), _ptr(shift), _ptr(y), _ptr(ysum),
                 _ptr(yssq), _ptr(ws), M, K, N, int(apply), int(relu), stream)
+        if _kernels.FLOP_SINKS:  # introspection: the launch's 2 M K N
+            _kernels.note_flops(2 * M * K * N)
     return y, ysum, yssq
 
 
@@ -268,6 +270,8 @@ def _cuda_fused_dw(x, w, y, scale, shift, dy, dsum, dssq, relu=False):
                 _ptr(dy), _ptr(y), _ptr(dsum), _ptr(dssq), _ptr(scale),
                 _ptr(shift), _ptr(dw), _ptr(ws), M, K, N,
                 int(scale is not None), int(relu), stream)
+        if _kernels.FLOP_SINKS:  # introspection: the launch's 2 M K N
+            _kernels.note_flops(2 * M * K * N)
     return dw
 
 
@@ -293,6 +297,8 @@ def _cuda_fused_dx(x, w, y, scale, shift, dy, dsum, dssq, relu=False):
                 _ptr(y), _ptr(w), _ptr(dsum), _ptr(dssq), _ptr(x),
                 _ptr(scale), _ptr(shift), _ptr(dx), _ptr(dsc), _ptr(dbi),
                 _ptr(ws), M, K, N, int(apply), int(relu), stream)
+        if _kernels.FLOP_SINKS:  # introspection: the launch's 2 M K N
+            _kernels.note_flops(2 * M * K * N)
     return dx, dsc, dbi
 
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from .. import observability as _obs
 from ..base import MXNetError
 from .mesh import PartitionSpec, axis_size, current_mesh, validate_mesh_axes
 from .pipeline import (_amp_wrap, _microbatch, _run_schedule, _tensor,
@@ -168,6 +169,9 @@ class Composed4DStep:
                 f"pp={S} (use schedule='interleaved')")
         M = num_microbatches or fusedstep.pipeline_microbatches() or S
         self.schedule = build_pipeline_schedule(S, M, schedule, virtual=v)
+        _obs.record_pipeline_schedule(
+            self.schedule.name, self.schedule.bubble_fraction,
+            self.schedule.stash_slots, ticks=self.schedule.ticks)
         self._M = M
         if optimizer not in _RULES:
             raise MXNetError(

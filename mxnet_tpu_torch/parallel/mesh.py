@@ -14,8 +14,15 @@ world of one.
 A mesh is arithmetic until it is used: over a world of one it may name
 any grid of ``devices`` (rank ids), which the tests use to hold its shape
 against the reference's; its groups are made only in a world of several
-ranks, by every rank, in one order (``torch.distributed.new_group`` is
-collective).
+ranks, by every rank of the world, in one order
+(``torch.distributed.new_group`` is collective). That holds for a mesh
+over part of the world too (live elasticity's topologies): a rank
+outside it builds the mesh and joins each ``new_group`` call but holds no
+part, and its ``group``, ``axis_ranks``, ``axis_index`` and
+``shard_batch`` raise. (``new_group(..., use_local_synchronization=True)``
+would let the members make their groups alone, but torch names such a
+group by its ranks and the number of groups the calling process has
+made, so members whose counts differ wait on different names.)
 """
 
 from __future__ import annotations
@@ -70,21 +77,37 @@ class Mesh:
         self._singletons = {}  # an axis of one rank: this rank's group
         self._device_meshes = {}
         rank, size = world()
+        self._partial = False
         if size > 1:
-            if self.devices.size != size or \
-                    sorted(self.devices.flat) != list(range(size)):
+            ranks = sorted(int(r) for r in self.devices.flat)
+            if len(set(ranks)) != len(ranks) or ranks[0] < 0 \
+                    or ranks[-1] >= size:
                 raise MXNetError(
-                    f"mesh {self.shape} over ranks {self.devices.size} does "
-                    f"not cover the world of {size} ranks")
+                    f"mesh {self.shape} over ranks {ranks} is not a set of "
+                    f"ranks of the world of {size}")
+            self._partial = len(ranks) != size
             self._make_groups()
 
     @property
     def size(self):
         return int(self.devices.size)
 
+    def is_member(self):
+        """Does this rank hold a part of the mesh (always, in a world of
+        one or on a mesh over the whole world)."""
+        return not self._partial or world()[0] in self.devices
+
+    def _member(self, what):
+        if not self.is_member():
+            raise MXNetError(
+                f"mesh {self.shape} over ranks "
+                f"{sorted(int(r) for r in self.devices.flat)}: rank "
+                f"{world()[0]} holds no part of it ({what})")
+
     def _make_groups(self):
-        """Each axis's groups, made by every rank in one order; a rank
-        keeps the group it belongs to (None: the whole world)."""
+        """Each axis's groups, made by every rank of the world in one
+        order; a rank keeps the group it belongs to (None: the whole
+        world; a rank outside a partial mesh keeps none)."""
         import torch.distributed as dist
 
         rank, size = world()
@@ -95,8 +118,8 @@ class Mesh:
                 continue
             moved = _np.moveaxis(self.devices, ax, -1).reshape(-1, n)
             for ranks in moved:
-                g = dist.new_group([int(r) for r in ranks]) if n > 1 \
-                    else None
+                ranks = [int(r) for r in ranks]
+                g = dist.new_group(ranks) if n > 1 else None
                 if rank in ranks:
                     self._groups[name] = g
 
@@ -145,12 +168,14 @@ class Mesh:
     def group(self, name):
         """The process group of this rank along axis ``name`` (None: the
         default group, when the axis spans the world)."""
+        self._member(f"group {name!r}")
         return self._groups.get(name)
 
     def axis_ranks(self, name):
         """The ranks along axis ``name`` through this rank (the others'
         coordinates fixed), in axis order: ``[rank]`` for an absent
         axis."""
+        self._member(f"axis_ranks {name!r}")
         if name not in self.shape:
             return [world()[0]]
         rank, _ = world()
@@ -162,6 +187,7 @@ class Mesh:
 
     def axis_index(self, name):
         """This rank's coordinate along axis ``name``."""
+        self._member(f"axis_index {name!r}")
         if name not in self.shape:
             return 0
         rank, _ = world()

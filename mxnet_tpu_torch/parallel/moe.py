@@ -334,5 +334,8 @@ def measure_moe_overlap(mesh, axis_name="ep", d_model=64, d_hidden=128,
     hidden = 1.0 - exposed["chunked"] / exposed["serial"] \
         if exposed["serial"] > 1e-9 else 0.0
     hidden = max(-1.0, min(1.0, hidden))
+    from .. import observability as _obs
+
+    _obs.record_moe_probe(exposed, hidden)
     return {"exposed": exposed, "hidden_fraction": hidden,
             "step_seconds": step_s}

@@ -236,11 +236,26 @@ def shard_of(full, plan_or_dp, index, gi=None):
     return pad_flat(full, pad)[index * n:(index + 1) * n]
 
 
+def chaos_point(site):
+    """Chaos fault point of a bucket collective (``bucket_psum``,
+    ``bucket_psum_scatter``, ``bucket_allgather``): a due one-shot
+    ``collective`` fault (``MXTPU_CHAOS=collective@<site>:<n>``) raises
+    before the collective is issued, so it surfaces as a loud step
+    failure, never as wrong numbers; one module-bool read when chaos is
+    off."""
+    from ..resilience import chaos as _chaos
+
+    if _chaos.ENABLED:
+        _chaos.collective_point(site)
+
+
 def gather_shard(shard, group=None, dp=None):
     """Every rank's ``[pad/dp]`` shard -> the full ``[pad]`` flat tensor
-    (``all_gather_into_tensor`` on ``group``)."""
+    (``all_gather_into_tensor`` on ``group``; chaos site
+    ``bucket_allgather``)."""
     import torch.distributed as dist
 
+    chaos_point("bucket_allgather")
     dp = dp or dist.get_world_size(group)
     out = torch.empty(shard.numel() * dp, dtype=shard.dtype,
                       device=shard.device)
@@ -324,6 +339,8 @@ class BucketComm:
     def start(self, bi, grads):
         import torch.distributed as dist
 
+        # the all-reduce's and the reduce-scatter's chaos sites
+        chaos_point("bucket_psum_scatter" if self.rs else "bucket_psum")
         plan = self.plan
         b = pack_bucket(plan, bi, grads, True)
         if self.compress is not None:
@@ -469,6 +486,9 @@ def measure_overlap(block_factory, loss_fn, optimizer, optimizer_params,
     if base is not None and "ready" in exposed:
         hidden = (max(0.0, min(1.0, 1.0 - exposed["ready"] / base))
                   if base > 0.0 else 0.0)
+    from .. import observability as _obs
+
+    _obs.record_overlap_probe(exposed, hidden)
     return {"step_seconds": step_seconds,
             "exposed_comm_seconds": exposed,
             "hidden_fraction": hidden}

@@ -399,13 +399,18 @@ def measure_pipeline_bubble(num_ranks, num_microbatches, virtual=2,
                             schedules=("gpipe", "1f1b", "interleaved")):
     """Realize each schedule's tick table at this configuration: the
     measured bubble fractions and stash depths. Returns ``{schedule:
-    report dict}`` (the reference also publishes them as gauges, which
-    wait for the port's telemetry, ROADMAP A12)."""
+    report dict}``; each is also published as the bubble and stash
+    gauges (``observability.record_pipeline_schedule``)."""
+    from .. import observability as _obs
+
     out = {}
     for name in schedules:
         v = virtual if name == "interleaved" else 1
-        out[name] = build_pipeline_schedule(num_ranks, num_microbatches,
-                                            name, virtual=v).report()
+        sched = build_pipeline_schedule(num_ranks, num_microbatches,
+                                        name, virtual=v)
+        out[name] = sched.report()
+        _obs.record_pipeline_schedule(name, sched.bubble_fraction,
+                                      sched.stash_slots, ticks=sched.ticks)
     return out
 
 
@@ -715,6 +720,11 @@ class PipelineTrainStep:
                 axis_name))[0]
         self._params = [p.detach().clone() for p in self._params]
         self._opt = [tuple(rule_init(p)) for p in self._params]
+        from .. import observability as _obs
+
+        _obs.record_pipeline_schedule(
+            self.schedule.name, self.schedule.bubble_fraction,
+            self.schedule.stash_slots, ticks=self.schedule.ticks)
 
     def schedule_report(self):
         return self.schedule.report()

@@ -54,6 +54,8 @@ does.
 
 from __future__ import annotations
 
+import time
+
 import torch
 from torch.overrides import TorchFunctionMode
 
@@ -61,6 +63,7 @@ import numpy as _np
 
 from .. import autograd
 from .. import fusedstep as _fusedstep
+from .. import observability as _obs
 from ..base import MXNetError
 from ..gluon.block import _bound
 from ..ndarray.ndarray import NDArray, array, torch_dtype
@@ -641,11 +644,14 @@ class SPMDTrainStep:
         dp = self._dp_size()
         if self._mode == "tp":
             return self._init_state_tp()
-        if self.mesh.size != world()[1]:
+        if self.mesh.size > world()[1]:
             raise MXNetError(
                 f"SPMDTrainStep: a mesh of {self.mesh.size} ranks in a world "
                 f"of {world()[1]}; join the world first "
                 "(kvstore.init_distributed)")
+        # a data-parallel mesh may cover part of the world (an elastic
+        # topology); its members step, the other ranks build no state
+        self.mesh._member("SPMDTrainStep.init_state")
         self._group = self.mesh.group(self.batch_axis)
         self._rank = self.mesh.axis_index(self.batch_axis)
         self._pads = [_overlap._ceil_to(h.data.numel(), dp) for h in handles]
@@ -664,6 +670,12 @@ class SPMDTrainStep:
             [self.zero_stage >= 1 and d and leaf.dim() == 1
              and leaf.numel() * dp == self._pads[i] for leaf in st]
             for i, (st, d) in enumerate(zip(opt_states, diff))]
+        if _obs.ENABLED:
+            rep = self.zero_memory_report()
+            _obs.ZERO_STATE_BYTES.set(rep["opt_bytes_per_device"],
+                                      kind="opt")
+            _obs.ZERO_STATE_BYTES.set(rep["param_bytes_per_device"],
+                                      kind="param")
 
     def _init_state_tp(self):
         """The tensor-parallel layout: each parameter as this rank's block
@@ -906,6 +918,7 @@ class SPMDTrainStep:
         parts are the ``[pad/dp]`` flat shards."""
         import torch.distributed as dist
 
+        _overlap.chaos_point("bucket_allgather")
         plan, dp = self._plan, self._dp_size()
         out = [None] * len(shards)
         if place is None:
@@ -949,6 +962,8 @@ class SPMDTrainStep:
         dp = self._dp_size()
         self._plan = _overlap.build_bucket_plan(shapes, dtypes, order=order,
                                                 dp=dp)
+        if _obs.ENABLED:
+            _obs.OVERLAP_BUCKETS.set(len(self._plan.buckets), site="spmd_step")
         if self._compress_thr is not None and self._residuals is None:
             dev = params[didx[0]].device
             self._residuals = [
@@ -1219,8 +1234,32 @@ class SPMDTrainStep:
             with _bound(), autograd.predict_mode():
                 self.block(NDArray(raw[0:1] if raw.shape[0] > 1 else raw))
             self.init_state()
-        loss = self._step(*self._prepare(*self._local(x, y), lr))
+        args = self._prepare(*self._local(x, y), lr)
+        if not (_obs.ENABLED or _obs.introspect.ENABLED
+                or _obs.flight.INSTALLED):
+            loss = self._step(*args)
+        else:
+            loss = self._step_instrumented(args)
         return float(loss) if sync else loss
+
+    def _step_instrumented(self, args):
+        """One step with its telemetry: the introspection site
+        ``spmd_step`` on its first run, the flight recorder's in-flight
+        mark, one ``spmd_step`` dispatch and the attribution record."""
+        t0 = time.perf_counter()
+        with _obs.introspect.site("spmd_step", self._device):
+            if _obs.flight.INSTALLED:
+                with _obs.flight.dispatch("spmd_step"):
+                    loss = self._step(*args)
+            else:
+                loss = self._step(*args)
+        if _obs.ENABLED:
+            _obs.record_xla_dispatch("spmd_step")
+            if _obs.attribution.ENABLED:
+                _obs.attribution.record_step(
+                    t0, time.perf_counter(), site="spmd",
+                    comm_mode=self._mode)
+        return loss
 
     def run_steps(self, x, y, n, lr=0.01):
         """Run ``n`` steps on one batch with no host synchronisation
@@ -1543,10 +1582,9 @@ def spmd_restore_chunks(step, chunks, extents=None, allow_empty=()):
         for key, t, shape, target, _ in layouts:
             if key.startswith("residual::"):
                 continue
-            if key not in chunks and (key in allow_empty
-                                      or _target_logical(shape, target)
-                                      is None):
-                t.zero_()
+            if _target_logical(shape, target) is None or (
+                    key not in chunks and key in allow_empty):
+                t.zero_()  # this rank's block is pure pad, or allowed out
                 continue
             t.copy_(_reassemble(key, shape, target, chunks, t).to(t.device))
     res = {k: v for k, v in chunks.items() if k.startswith("residual::")}
@@ -1555,7 +1593,31 @@ def spmd_restore_chunks(step, chunks, extents=None, allow_empty=()):
     elif res and step._compress_thr is not None:
         # the carry is made with the bucket plan at the first step
         step._pending_residual_chunks = (res, extents)
-    step.sync_to_block()
+    if step._mode != "tp" and step._on_mesh() and step.zero_stage == 3 \
+            and step._plan is None:
+        _whole_into_block(step, chunks)
+    else:
+        step.sync_to_block()
+
+
+def _whole_into_block(step, chunks):
+    """A ZeRO-3 step with no bucket plan yet (its first step builds the
+    plan, from a forward over the block's own parameters): the whole
+    parameters into the Gluon block, from the chunks themselves (they
+    cover every element: a snapshot of the whole state)."""
+    from ..gluon.trainer import _from_numpy
+
+    params, _ = step._state
+    with torch.no_grad():
+        for i, (h, p) in enumerate(zip(step._handles, params)):
+            if not step._diff[i]:
+                h._set_data(p)
+                continue
+            key = f"param::{step._names[i]}"
+            shape = tuple(h.data.shape)
+            whole = _reassemble_cross(key, shape, chunks[key])
+            h._set_data(_from_numpy(whole, "cpu").to(h.data.device,
+                                                      h.data.dtype))
 
 
 def _restore_residuals(step, chunks, extents):

@@ -11,11 +11,10 @@ PyTorch counterpart of ``mxnet_tpu/resilience/``:
 - :mod:`.resume`: restore one, bit for bit, on every rank; write and
   restore a sharded ``SPMDTrainStep`` checkpoint (``save_spmd_checkpoint``,
   one commit for every rank) onto any mesh;
-- :mod:`.chaos`: deterministic fault injection (``MXTPU_CHAOS``).
-
-Live elasticity (:mod:`.elastic`: ``ElasticTrainer``,
-``MembershipMonitor``, ``snapshot_descriptor``) is ROADMAP A11's and
-raises.
+- :mod:`.chaos`: deterministic fault injection (``MXTPU_CHAOS``);
+- :mod:`.elastic`: live elasticity, a running data-parallel job resized
+  over the ranks of its world at a step boundary (``ElasticTrainer``,
+  ``MembershipMonitor``, ``snapshot_descriptor``).
 """
 
 from __future__ import annotations

@@ -18,9 +18,17 @@ Spec grammar (comma-separated faults)::
     nan:p0.1,seed=7   probabilistic: each eligible step fires w.p. 0.1
                       from a seeded stream
 
-The parser also accepts the reference's ``collective``, ``resize`` and
-``kill_replica`` faults; nothing in the port fires them yet (their sites
-are ROADMAP A11's and A13's).
+Besides, as in the reference::
+
+    collective:1      fail the next collective/barrier ONCE (one-shot)
+    resize:8:2        membership change: ask the elastic control loop
+                      to resize to 2 ranks at its step 8 (the arg is
+                      the target rank count; see resilience/elastic)
+    stall@rank1:p1:0.05  per-rank site: every heartbeat probe of rank 1
+                      stalls 50 ms (a straggling peer)
+
+The parser accepts the reference's ``kill_replica`` too; only it waits,
+for the serving fleet (ROADMAP A13 (h)).
 
 Steps are counted per (fault class, site) from 1 unless the caller passes
 its own step counter, so a spec replays identically run to run.
@@ -31,7 +39,17 @@ Sites wired:
 - ``superstep``: ``gluon.Superstep.step`` (every fault; ``nan`` poisons
   slot 0 of the stacked batch block);
 - ``prefetch``: ``gluon.data.DevicePrefetcher`` staging (``nan``
-  poisons the staged batch).
+  poisons the staged batch);
+- ``collective`` / ``barrier``: ``kvstore/dist.py``'s all-reduce and
+  barrier (``collective`` one-shot failure; the barrier's retry with
+  backoff turns it into a recovered step);
+- ``bucket_psum`` / ``bucket_psum_scatter`` / ``bucket_allgather``: the
+  data-parallel step's bucket collectives (``parallel/overlap.py``): a
+  due fault raises before the collective is issued, never wrong numbers;
+- ``elastic``: the live-elasticity control loop
+  (``resilience/elastic.py``): ``resize:<step>:<n>`` asks for ``n``
+  ranks at that step boundary; ``rank<k>`` sites stall rank ``k``'s
+  heartbeat probe (a straggler).
 """
 
 from __future__ import annotations
@@ -168,6 +186,10 @@ def _record(fault, site, step):
     _STATE["fired"].append((fault["kind"], site, step))
     _logger.error("CHAOS: injecting %s at %s step %d (spec %r)",
                   fault["kind"], site, step, _STATE["spec"])
+    from .. import observability as _obs
+
+    if _obs.ENABLED:
+        _obs.CHAOS_INJECTIONS_TOTAL.inc(1, kind=fault["kind"], site=site)
 
 
 def _advance(kind_class, site, step):
@@ -242,3 +264,34 @@ def poison_struct(batch):
         return obj
 
     return walk(batch)
+
+
+def resize_due(site="elastic", step=None):
+    """Target rank count of a due ``resize`` fault at this (site,
+    step), or None. The elastic control loop polls this once per step
+    boundary when chaos is armed — how a chaos spec drives a runtime
+    grow/shrink (``resize:8:2,resize:16:4`` = shrink to 2 at step 8,
+    grow back to 4 at step 16)."""
+    step = _advance("resize", site, step)
+    for fault in _STATE["faults"]:
+        if fault["kind"] != "resize" or not _due(fault, site, step):
+            continue
+        _record(fault, site, step)
+        return int(float(fault["arg"]))
+    return None
+
+
+def collective_point(site="collective"):
+    """Collective fault point: a due ``collective`` fault raises
+    ``ChaosInjectedError`` ONCE (one-shot) — the caller's
+    retry-with-backoff turns it into a recovered step; without retry it
+    surfaces loudly instead of hanging."""
+    step = _advance("collective", site, None)
+    for fault in _STATE["faults"]:
+        if fault["kind"] != "collective" or not _due(fault, site, step):
+            continue
+        _record(fault, site, step)
+        raise ChaosInjectedError(
+            f"chaos: injected one-shot collective failure at {site} "
+            f"call {step}")
+    return step

@@ -47,6 +47,7 @@ import zlib
 import numpy as _np
 import torch
 
+from .. import observability as _obs
 from ..base import MXNetError, getenv
 
 _logger = logging.getLogger("mxnet_tpu_torch.checkpoint")
@@ -510,8 +511,18 @@ def write_checkpoint(directory, tensors, extras, step, reason="manual",
         pass
     if int(step) >= cur:
         _atomic_write(os.path.join(directory, LATEST), _step_dirname(step))
+    dt = time.perf_counter() - t0
+    if _obs.ENABLED:
+        _obs.CHECKPOINT_TOTAL.inc(1, reason=reason)
+        _obs.CHECKPOINT_BYTES_TOTAL.inc(nbytes_total)
+        _obs.CHECKPOINT_SECONDS.observe(dt)
+        _obs.CHECKPOINT_LAST_STEP.set(float(step))
+        _obs.tracer().record("checkpoint.commit", cat="resilience",
+                             ts=t0, dur=dt,
+                             args={"step": int(step), "reason": reason,
+                                   "bytes": nbytes_total})
     _logger.info("checkpoint: committed %s (%d bytes, %.3fs, %s)",
-                 final, nbytes_total, time.perf_counter() - t0, reason)
+                 final, nbytes_total, dt, reason)
     return final
 
 
@@ -757,12 +768,18 @@ class CheckpointManager:
     # -- step hook -------------------------------------------------------
     def attach(self, trainer=None):
         """Register on the trainer, so ``Trainer.step`` and ``Superstep``
-        tick this manager. Returns self."""
+        tick this manager, and, when the anomaly watchdog is armed, on it:
+        with ``MXTPU_WATCHDOG_CHECKPOINT=1`` a detector's firing asks for
+        one proactive asynchronous save. Returns self."""
         tr = trainer or self._trainer
         if tr is None:
             raise MXNetError("CheckpointManager.attach: no trainer")
         self._trainer = tr
         tr._ckpt_manager = self
+        from ..observability import watchdog as _watchdog
+
+        if _watchdog.ENABLED:
+            _watchdog.attach_checkpoint_manager(self)
         return self
 
     def on_step(self, n=1, cursor=None):
@@ -773,7 +790,14 @@ class CheckpointManager:
         if cursor is not None:
             self._cursor = cursor
         if self._step // self.every_n_steps > before // self.every_n_steps:
-            self.save_async(reason="interval")
+            if _obs.ENABLED:
+                # the in-loop slice only (snapshot and writer handoff),
+                # which the attribution plane charges to ckpt_overhead
+                t0 = time.perf_counter()
+                self.save_async(reason="interval")
+                _obs.record_ckpt_tick(time.perf_counter() - t0)
+            else:
+                self.save_async(reason="interval")
         return self._step
 
     @property
@@ -829,6 +853,8 @@ class CheckpointManager:
             self.last_error = e
             _logger.error("checkpoint snapshot failed: %s: %s",
                           type(e).__name__, e)
+            if _obs.ENABLED:
+                _obs.CHECKPOINT_ERRORS_TOTAL.inc()
             return
         with self._cv:
             self._pending += 1
@@ -846,6 +872,8 @@ class CheckpointManager:
                     self._cv.notify_all()
                 if dropped is not None:
                     self._release(dropped[0][0])
+                    if _obs.ENABLED:
+                        _obs.CHECKPOINT_DROPPED_TOTAL.inc()
                 if dropped is None:
                     # close()'s stop sentinel: hand it back, drop ours
                     self._queue.put(dropped)
@@ -896,6 +924,8 @@ class CheckpointManager:
                 self.last_error = e
                 _logger.error("checkpoint write failed: %s: %s",
                               type(e).__name__, e)
+                if _obs.ENABLED:
+                    _obs.CHECKPOINT_ERRORS_TOTAL.inc()
             finally:
                 self._release(tensors)
                 with self._cv:
@@ -942,7 +972,13 @@ class CheckpointManager:
 
     def _install_sigterm(self):
         """Chain a SIGTERM handler (main thread only) in front of the one
-        installed before."""
+        installed before, and register the final save as the crash
+        flight recorder's pre-dump hook: checkpoint first, bundle second,
+        whichever of the two handlers was installed first (the final
+        save runs once either way)."""
+        from ..observability import flight
+
+        flight.register_pre_dump(self._final_save, signals_only=True)
         if threading.current_thread() is not threading.main_thread():
             return
         try:
@@ -970,6 +1006,9 @@ class CheckpointManager:
         os.kill(os.getpid(), signum)
 
     def _uninstall_sigterm(self):
+        from ..observability import flight
+
+        flight.unregister_pre_dump(self._final_save)
         if self._sig_state["installed"]:
             try:
                 if signal.getsignal(signal.SIGTERM) is self._sigterm_handler:

@@ -106,7 +106,7 @@ class Features(dict):
             "DIST_KVSTORE": False,
             "INT64_TENSOR_SIZE": True,
             "COMPILE_CACHE": False,
-            "INTROSPECTION": False,
+            "INTROSPECTION": True,
             "SIGNAL_HANDLER": True,
             "F16C": True,
             "BF16": True,

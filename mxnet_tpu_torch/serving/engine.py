@@ -46,7 +46,7 @@ import torch
 
 from .. import observability as _obs
 from ..base import MXNetError, getenv
-from ._histogram import Histogram as _Histogram
+from ..observability.metrics import Histogram as _Histogram
 from .batcher import ContinuousBatcher, ServeFuture, _Request
 from .errors import (
     EngineClosed,
@@ -395,7 +395,13 @@ class InferenceEngine:
             # unpad below slices it; pad rows never reach a result
         t0 = time.perf_counter()
         with self._on_device():
-            host = self._run(entry, _np.ascontiguousarray(padded))
+            if _obs.flight.INSTALLED:
+                with _obs.flight.dispatch("serving"):
+                    host = self._run(entry, _np.ascontiguousarray(padded))
+            else:
+                host = self._run(entry, _np.ascontiguousarray(padded))
+        if _obs.ENABLED:
+            _obs.record_xla_dispatch("serving")
         dt = time.perf_counter() - t0
         now = time.perf_counter()
         off = 0
@@ -412,9 +418,22 @@ class InferenceEngine:
         self._batches += 1
         self._fill_sum += n_valid / self._max_batch
         if _obs.ENABLED:
+            t_done = time.perf_counter()
+            # one batch span id parents every request's phase span (queue
+            # -> batch -> dispatch -> slice): the p99 decomposes
+            batch_span = _obs.tracer().new_span_id()
+            for r in reqs:
+                _obs.record_serve_phases(
+                    self._name, r.req_id, r.t_submit,
+                    {"queue": t_asm - r.t_submit,
+                     "batch": t0 - t_asm,
+                     "dispatch": dt,
+                     "slice": t_done - now},
+                    parent=batch_span)
             _obs.record_serve_batch(self._name, bucket, n_valid,
                                     self._max_batch, dt,
-                                    self._batcher.qsize())
+                                    self._batcher.qsize(),
+                                    span_id=batch_span)
 
     # -- introspection -----------------------------------------------------
     @property

@@ -751,7 +751,9 @@ class GenerationEngine:
         req.t_first = req.t_last = now
         self._tokens += 1
         if _obs.ENABLED:
+            _obs.record_xla_dispatch("decode_prefill")
             _obs.DECODE_PREFILL_SECONDS.observe(dt, model=self._name)
+            _obs.DECODE_TOKENS_TOTAL.inc(1, model=self._name)
         done = (req.max_new <= 1
                 or (req.eos >= 0 and first == req.eos))
         if done:
@@ -818,6 +820,9 @@ class GenerationEngine:
                 req.t_last = now
                 for _ in range(n):
                     self._itl.append(per_tok)
+                if _obs.ENABLED:
+                    _obs.DECODE_ITL_SECONDS.observe(per_tok,
+                                                    model=self._name)
                 emitted_total += n
             if not self._active[s]:
                 table = self._slot_tables[s]
@@ -825,7 +830,13 @@ class GenerationEngine:
                 self._retire(req, table)
         self._tokens += emitted_total
         if _obs.ENABLED:
+            _obs.record_xla_dispatch("decode_chunk")
             _obs.DECODE_CHUNKS_TOTAL.inc(1, model=self._name)
+            if emitted_total:
+                _obs.DECODE_TOKENS_TOTAL.inc(emitted_total,
+                                             model=self._name)
+            _obs.DECODE_ACTIVE_SLOTS.set(int(self._active.sum()),
+                                         model=self._name)
 
     def _clear_slot(self, s):
         self._slot_req[s] = None
@@ -840,6 +851,8 @@ class GenerationEngine:
         self._requests_ok += 1
         if _obs.ENABLED:
             _obs.record_serve_request(self._name, "ok")
+            _obs.SERVE_LATENCY_SECONDS.observe(
+                time.perf_counter() - req.t_submit, model=self._name)
         req.finish(result=_np.asarray(req.tokens, _np.int32),
                    version=self._version)
 

@@ -20,6 +20,7 @@ seeds. Tolerances, each stated where it is used:
   and state leaves equal bit for bit to their values before it.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ wrote it unrecorded and gave ``x.grad = [18, 60, 18, 18]`` and
 ``v.grad = [0]`` for the reference's ``[18, 0, 18, 18]`` and ``[40]``.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 

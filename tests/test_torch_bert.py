@@ -17,6 +17,7 @@ shared by all keys), so both sides update it by float32 noise scaled by
 Adam's 1/(sqrt(v) + eps), a few 1e-6 after 3 steps.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

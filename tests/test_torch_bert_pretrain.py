@@ -22,6 +22,7 @@ layer); weights after the step within 1e-5 absolute plus 1e-4 relative;
 the top-1 and top-5 hits equal.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 

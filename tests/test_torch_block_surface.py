@@ -10,6 +10,7 @@ at trace time: the counts are pinned equal to the JAX package's over the
 same sequence of calls (eager, predict, recording, a new shape).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import re
 
 import numpy as np

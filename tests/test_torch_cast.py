@@ -12,6 +12,7 @@ package's.
   deferred parameter is created in the new type.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import torch
 

@@ -26,6 +26,7 @@ into dp 2 x pp 2 (ZeRO 3) and snapshots again bit for bit, and both
 layouts' next step agree. ZeRO 2 halves the optimizer bytes at dp 2.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import os
 import sys
 import time

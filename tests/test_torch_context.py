@@ -10,6 +10,7 @@ compare values exactly (one SGD step of a ``Dense`` over two contexts,
 whose sums of two float32 terms round alike in both packages).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

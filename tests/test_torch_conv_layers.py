@@ -15,6 +15,7 @@ within 1e-4 for BatchNorm and the fused pass, whose batch moments divide
 by a variance estimated from 50 to 200 values.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import collections
 import re
 

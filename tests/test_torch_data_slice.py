@@ -21,6 +21,7 @@ rounding of zero fall differently in the two packages (as in
 ``test_torch_mobilenet.py``), and the second loss moved by up to 2.3e-4.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 

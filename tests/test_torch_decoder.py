@@ -10,6 +10,7 @@ Tolerance (float32): 1e-5 absolute and relative on logits (|logit| is
 LayerNorm's rsqrt-vs-divide rounding, ~1e-7 per value.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

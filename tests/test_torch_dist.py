@@ -53,6 +53,7 @@ process group and its tests fail with its output.
   and Adam's bias correction is double in the port).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import os
 import signal
 import socket

@@ -18,6 +18,7 @@
   which kernels a backward launches.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -25,6 +25,7 @@ why the kernel adds each tile's P V in fp32: one accumulator chained
 through the mma steps over a long walk of keys drifts past 1e-5.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

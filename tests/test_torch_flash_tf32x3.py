@@ -25,6 +25,7 @@ running sum with an ordinary fp32 add, instead of chaining one
 accumulator over the whole walk of the query (or key) axis.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -16,6 +16,7 @@ The Hopper kernels run only on a card: the ``*_on_cuda`` tests skip
 without one (run them there with ``-k on_cuda``).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

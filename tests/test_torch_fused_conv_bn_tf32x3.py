@@ -28,6 +28,7 @@ One TF32 product alone misses by about 2^-11, which the tolerance
 catches.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,6 +43,7 @@ STEP = 8                # one mma step: each step's product starts at zero
 TILE_R, TILE_C = 128, 64  # kBM, kBN: dW's tile, the larger of K, N on R
 DW_BLOCKS_PER_SM = 2    # kDwBlocksPerSm: one wave of resident blocks
 H100_SMS = 132
+STEPS_AT_ONCE = 1 << 23  # elements of the step sums formed at once (32 MiB)
 
 # name: (M, K, N): ResNet-like widths at a small M, one ragged shape
 SHAPES = {"k64_n64": (2048, 64, 64), "k64_n256": (4096, 64, 256),
@@ -78,35 +80,61 @@ def dw_chunk(M, K, N, sms=H100_SMS):
     return cdiv(cdiv(M, splits), KC) * KC
 
 
+def step_sums(a_big, a_small, b_big, b_small, products):
+    """The per-step sums of a (..., R, L) @ b (..., L, C), L a multiple of
+    STEP: (..., L // STEP, R, C), each from zero, small.big + big.small +
+    big.big (``products=1``: big.big only), in one batched product each."""
+    S = a_big.shape[-1] // STEP
+
+    def mm(x, y):
+        x = x.unflatten(-1, (S, STEP)).movedim(-2, -3)
+        return x @ y.unflatten(-2, (S, STEP))
+
+    acc = mm(a_big, b_big)
+    if products == 3:
+        acc = (mm(a_small, b_big) + mm(a_big, b_small)) + acc
+    return acc
+
+
 def ktile_mm(a, b, products=3):
-    """a (R, L) @ b (L, C) as the kernels take it: per mma step of STEP,
-    from zero, small.big + big.small + big.big (``products=1``: big.big
-    only), each step's sum added to the fp32 total in k order."""
+    """a (..., R, L) @ b (..., L, C) as the kernels take it: per mma step of
+    STEP, from zero, small.big + big.small + big.big (``products=1``:
+    big.big only), each step's sum added to the fp32 total in k order.
+    The steps' sums are formed in groups of at most STEPS_AT_ONCE
+    elements (a few large products instead of one small one per step);
+    only the adds to the total run one step at a time."""
+    pad = -a.shape[-1] % STEP  # zero products add exact zeros
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
     a_big, a_small = split(a)
     b_big, b_small = split(b)
-    total = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
-    for l0 in range(0, a.shape[1], STEP):
-        ks = slice(l0, l0 + STEP)
-        acc = torch.zeros_like(total)
-        if products == 3:
-            acc = acc + a_small[:, ks] @ b_big[ks]
-            acc = acc + a_big[:, ks] @ b_small[ks]
-        total = total + (acc + a_big[:, ks] @ b_big[ks])
+    total = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    group = STEP * max(1, STEPS_AT_ONCE // total.numel())
+    for l0 in range(0, a.shape[-1], group):
+        ks = slice(l0, l0 + group)
+        sums = step_sums(a_big[..., ks], a_small[..., ks], b_big[..., ks, :],
+                         b_small[..., ks, :], products)
+        for s in sums.unbind(-3):
+            total = total + s
     return total
 
 
 def model_dw(xa, d_y, products=3):
-    """dW = xa^T dY over splits of dw_chunk rows, added in split order."""
+    """dW = xa^T dY over splits of dw_chunk rows, added in split order (the
+    splits' products taken as one batch)."""
     M, K = xa.shape
     N = d_y.shape[1]
     chunk = dw_chunk(M, K, N)
+    pad = -M % chunk  # zero rows add exact zeros to the last split
+    pad_rows = torch.nn.functional.pad
+    xa = pad_rows(xa, (0, 0, 0, pad)).unflatten(0, (-1, chunk))
+    d_y = pad_rows(d_y, (0, 0, 0, pad)).unflatten(0, (-1, chunk))
+    if K >= N:
+        parts = ktile_mm(xa.transpose(1, 2), d_y, products)
+    else:
+        parts = ktile_mm(d_y.transpose(1, 2), xa, products).transpose(1, 2)
     total = torch.zeros(K, N, dtype=torch.float32)
-    for m0 in range(0, M, chunk):
-        rows = slice(m0, m0 + chunk)
-        if K >= N:
-            part = ktile_mm(xa[rows].T, d_y[rows], products)
-        else:
-            part = ktile_mm(d_y[rows].T, xa[rows], products).T
+    for part in parts.unbind(0):
         total = total + part
     return total
 

@@ -18,6 +18,7 @@ Every JAX host array kept is a copy (the reference's fused update
 donates its buffers).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import logging
 
 import numpy as np

@@ -16,6 +16,7 @@ the same static inputs and pools, and two engines from one seed to the
 same sampled tokens when every chunk is a replay.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import time
 
 import numpy as np

@@ -15,6 +15,7 @@ not have by itself: ``grad_req="write"`` overwrites across backwards,
 ``record``/``pause``/``train_mode``/``predict_mode`` set the same flags.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import re
 
 import numpy as np

@@ -10,6 +10,7 @@ Python's ``random``) are seeded the same on both sides. The worker-pool
 tests start two processes each and wait at most 120 s for a batch.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import gzip
 import logging
 import os

@@ -6,6 +6,7 @@ are float32 in both, added in another order), ``check_sha1``,
 ``download`` (raises the same error without touching the network) and
 ``shape_is_known``."""
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import hashlib
 
 import numpy as np

@@ -29,6 +29,7 @@ Tolerances (float32):
 - ``SPMDTrainStep`` hybridized against eager: losses 1e-6 relative.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import logging
 import re
 

@@ -13,6 +13,7 @@ gives the same result as the reference, and the random draws are held
 by their moments and by repeating under ``mx.random.seed``.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import random
 
 import numpy as np

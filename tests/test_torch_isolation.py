@@ -8,6 +8,7 @@ and without a CUDA card the entry points refuse to run
 unless the CPU was asked for.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import ast
 import os
 import subprocess
@@ -156,7 +157,7 @@ def test_random_and_engine_entry_points_need_cuda_or_explicit_cpu(
 # repository, the batch-shape guard) and the serving comparison script
 SERVING_MODULES = ("gluon/data/__init__.py", "gluon/data/shape_guard.py",
                    "serving/batcher.py", "serving/engine.py",
-                   "serving/repository.py", "serving/_histogram.py")
+                   "serving/repository.py")
 
 
 @pytest.mark.parametrize("rel", SERVING_MODULES + ("../tools/serve_ab.py",))
@@ -262,7 +263,7 @@ def test_data_path_stages_to_the_card_only_when_asked(monkeypatch):
 
 
 # the modules of the twentieth slice (tensor parallelism, sharded state,
-# the A11 parts still to come)
+# live elasticity)
 TP_MODULES = ("parallel/mesh.py", "parallel/spmd.py",
               "parallel/ring_attention.py", "resilience/elastic.py",
               "resilience/resume.py", "resilience/checkpoint.py",
@@ -272,6 +273,27 @@ TP_MODULES = ("parallel/mesh.py", "parallel/spmd.py",
 
 @pytest.mark.parametrize("rel", TP_MODULES)
 def test_tp_modules_are_scanned(rel):
+    path = os.path.join(PKG, rel)
+    assert path in _port_files()
+    assert not [n for n, _ in _imported_roots(path) if n in FORBIDDEN]
+
+
+# the telemetry package (its copies of the reference's host-only modules
+# too: ``observability/metrics.py`` imports nothing of JAX, the port keeps
+# its own) and live elasticity
+TELEMETRY_MODULES = ("observability/__init__.py", "observability/metrics.py",
+                     "observability/tracing.py",
+                     "observability/introspect.py",
+                     "observability/flight.py",
+                     "observability/attribution.py",
+                     "observability/watchdog.py",
+                     "observability/federation.py",
+                     "observability/serve.py", "resilience/elastic.py",
+                     "resilience/chaos.py", "callback.py")
+
+
+@pytest.mark.parametrize("rel", TELEMETRY_MODULES)
+def test_telemetry_modules_are_scanned(rel):
     path = os.path.join(PKG, rel)
     assert path in _port_files()
     assert not [n for n, _ in _imported_roots(path) if n in FORBIDDEN]
@@ -319,7 +341,8 @@ def test_a11_rest_modules_are_scanned(rel):
     assert not [n for n, _ in _imported_roots(path) if n in FORBIDDEN]
 
 
-@pytest.mark.parametrize("name", ["ring", "pipeline", "moe", "composed"])
+@pytest.mark.parametrize("name", ["ring", "pipeline", "moe", "composed",
+                                  "elastic", "federation"])
 def test_parallel_worker_entries_load_no_jax(tmp_path, name):
     """The new parallel test files are the workers of their worlds: run as
     ``--worker imports`` each loads the port and no JAX or

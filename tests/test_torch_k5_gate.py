@@ -9,6 +9,7 @@ line): the kernels were closer to exact arithmetic than the fp32 plain
 version, and the TF32 control 49 times farther than the gate.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import pytest
 
 import chip_smoke

@@ -5,6 +5,7 @@ latter held against the JAX package's helpers on the same numpy inputs.
 Helpers move values without arithmetic, so results must be equal.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -28,6 +28,7 @@ fails on mixed devices; the comparison moves each copy back to its
 context after every step on the JAX side only.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 

@@ -12,6 +12,7 @@ layers of float32 products over at most 128 terms, RMSNorm and RoPE in
 fp32 on both sides; they differ in summation order only, ~1e-6).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import os
 import subprocess
 import sys

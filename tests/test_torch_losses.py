@@ -10,6 +10,7 @@ alpha recursion sums log-probabilities over every time step), input
 gradients within 1e-5 of the largest |gradient|.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

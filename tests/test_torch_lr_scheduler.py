@@ -5,6 +5,7 @@ the schedulers keep state). The schedulers are host arithmetic in Python
 floats on both sides, so the rates must be equal.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import pytest
 
 import mxnet_tpu as jmx

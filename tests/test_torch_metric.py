@@ -7,6 +7,7 @@ float32 values: results within 1e-6 relative (float64 sums over float32
 inputs; ``np.corrcoef`` and logs of the same values).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import logging
 
 import numpy as np
@@ -144,10 +145,26 @@ def test_speedometer_progress_bar_and_log_match_jax(caplog, with_metric):
     assert any("samples/sec" in line for line in got)
 
 
-def test_callbacks_not_ported_yet_raise():
+def test_callbacks_not_ported_yet_raise(caplog):
+    """The Module API's checkpoint callbacks raise naming A13;
+    ``TelemetryLogger`` logs the telemetry summary as the JAX package's
+    does, at its period, tagged by epoch or batch."""
     with pytest.raises(mx.MXNetError, match="ROADMAP A13"):
         mx.callback.module_checkpoint(None, "prefix")
     with pytest.raises(mx.MXNetError, match="ROADMAP A13"):
         mx.callback.do_checkpoint("prefix")
-    with pytest.raises(mx.MXNetError, match="ROADMAP A12"):
-        mx.callback.TelemetryLogger()
+    lines = {}
+    for mod in (mx, jmx):
+        caplog.clear()
+        with caplog.at_level(logging.INFO, logger="telemetry"):
+            cb = mod.callback.TelemetryLogger(period=2)
+            for i in range(4):
+                cb(i)
+            cb(mod.callback.BatchEndParam(epoch=1, nbatch=7,
+                                          eval_metric=None))
+            cb(mod.callback.BatchEndParam(epoch=1, nbatch=8,
+                                          eval_metric=None))
+        lines[mod] = [r.getMessage().split("telemetry summary")[0]
+                      for r in caplog.records if r.name == "telemetry"]
+    assert lines[mx] == lines[jmx] == ["[Epoch 1] ", "[Epoch 3] ",
+                                       "[Epoch 1] Batch [8] "]

@@ -48,6 +48,7 @@ JAX package's own gradients move by 7.9e-2 of their layer's largest when
 its input moves by one rounding).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 

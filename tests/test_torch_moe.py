@@ -7,6 +7,7 @@ tests/test_torch_moe.py --worker <scenario> <out_dir>`` imports neither
 JAX nor the JAX package.
 
 The same numpy weights go to both packages (``init_moe_params`` draws
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 from each package's own generator). Tolerance 1e-5 (relative and
 absolute, float32), forward and gradients:
 

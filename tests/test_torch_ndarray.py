@@ -15,6 +15,7 @@ package's, on the CPU.
   port, and every public NDArray method of the reference exists.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import pickle
 
 import numpy as np

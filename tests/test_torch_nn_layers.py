@@ -12,6 +12,7 @@ most a few hundred terms, and the norms divide by a standard deviation
 estimated from 24 to 200 values).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import re
 
 import numpy as np

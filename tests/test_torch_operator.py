@@ -22,6 +22,7 @@ JAX package's ``ops/math.py``, ``ops/shape_ops.py``, ``ops/nn.py``,
 - ``tests/test_operator.py``'s cases that the five modules reach.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import zlib
 
 import numpy as np

@@ -7,6 +7,7 @@ of element-wise float32 operations, evaluated in another order on each
 side: a few ulp of values of order 1).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 

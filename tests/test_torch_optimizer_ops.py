@@ -12,6 +12,7 @@ within one float16 step (2^-10 relative, 1e-6 absolute near 0), since
 each side rounds its own float32 result once.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 

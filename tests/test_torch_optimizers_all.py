@@ -25,6 +25,7 @@ masters: the master within ``TOL``, the weight within one float16 step
 later update replaces: every host array kept is a copy.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

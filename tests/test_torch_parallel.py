@@ -25,6 +25,7 @@ JAX package's (``parallel/mesh.py``, ``parallel/overlap.py``).
   reference's words, a ring of one rank is the plain attention).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch
@@ -300,8 +301,9 @@ def _fake_world(monkeypatch, n):
     monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
 
 
-#: ROADMAP A11's parts that the port still leaves
-A11_LEFT = ("elastic",)
+#: ROADMAP A11's parts that the port still leaves: none since live
+#: elasticity
+A11_LEFT = ()
 
 
 @pytest.mark.parametrize("what", [
@@ -310,10 +312,10 @@ A11_LEFT = ("elastic",)
     "checkpoint_manager_in_a_world", "load_checkpoint_in_a_world",
     "prefetcher_mesh", "ring_attention", "elastic"])
 def test_a11_remainders_raise(what, tmp_path, monkeypatch):
-    """What ROADMAP A11 still leaves (``A11_LEFT``) raises MXNetError
-    naming it; each part a slice has ported keeps its case, which holds
-    it working in one process (the worlds of several ranks are
-    ``tests/test_torch_tp.py``'s and ``tests/test_torch_dist.py``'s)."""
+    """Every part of ROADMAP A11 is ported (``A11_LEFT`` is empty); each
+    keeps its case, which holds it working in one process (the worlds of
+    several ranks are ``tests/test_torch_tp.py``'s,
+    ``tests/test_torch_dist.py``'s and ``tests/test_torch_elastic.py``'s)."""
     from mxnet_tpu_torch import resilience
     from mxnet_tpu_torch.gluon.data.prefetcher import DevicePrefetcher
 
@@ -322,11 +324,25 @@ def test_a11_remainders_raise(what, tmp_path, monkeypatch):
     loss = mx.gluon.loss.L2Loss()
     x = mx.nd.ones((4, 3), ctx=mx.cpu())
     y = mx.nd.ones((4, 2), ctx=mx.cpu())
-    if what in A11_LEFT:
-        with pytest.raises(mx.MXNetError, match="A11"):
-            resilience.ElasticTrainer()
-        return
-    if what == "pp_axis":
+    assert what not in A11_LEFT
+    if what == "elastic":
+        # a pool of one rank: the step is the plain one, the resize
+        # controller runs with no collective and no signal
+        et = resilience.ElasticTrainer(net, loss, "sgd", {})
+        plain = mx.gluon.nn.Dense(2, in_units=3, prefix="dense0_")
+        plain.initialize(ctx=mx.cpu())
+        plain.weight.set_data(net.weight.data())
+        plain.bias.set_data(net.bias.data())
+        step = mx.parallel.SPMDTrainStep(plain, loss, "sgd", {})
+        for _ in range(3):
+            assert et.step(x, y, lr=0.1) == step(x, y, lr=0.1)
+        assert et.devices == [0] and et.committed_steps == 3
+        assert et.resize_events == []
+        desc = et.snapshot()
+        assert resilience.verify_descriptor(desc) == []
+        assert desc["step"] == 3
+        et.close()
+    elif what == "pp_axis":
         # the pipeline executor's: SPMDTrainStep declines with the
         # reference's words (test_composed4d.py)
         with pytest.raises(mx.MXNetError, match="use Composed4DStep"):

@@ -23,6 +23,7 @@ neither JAX nor the JAX package.
   ``measure_pipeline_bubble``'s reports equal.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import os
 import sys
 import time

@@ -13,6 +13,7 @@ many batches while the consumer's stream is busy (one is reused only
 after its copy ran), and the consumer's stream ordered after the copy.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import gc
 import threading
 import time

@@ -11,6 +11,7 @@ but the null block 0, whose content under colliding pad writes is
 unspecified), and the first sampled token equal for the same seed.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ probability below 1e-8, while a wrong mean or scale fails them; seeds are
 fixed, so the tests repeat.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

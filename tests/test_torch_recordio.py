@@ -15,6 +15,7 @@ package (the cases of ``tests/test_io_recordio.py``).
   exactly; ``LibSVMIter`` raises naming ROADMAP A13.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import ctypes
 import gzip
 import hashlib

@@ -14,6 +14,7 @@ same weights. ``*_on_cuda`` tests (the repository's swap with both kinds
 of engine captured on the card) skip without one.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import threading
 import time
 

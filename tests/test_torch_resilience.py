@@ -14,6 +14,7 @@ random state (each package keeps its own generator's) equal exactly.
 Elastic and sharded checkpoints are ROADMAP A11's.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import json
 import os
 import signal
@@ -340,13 +341,25 @@ def test_env_configures_a_manager(tmp_path, monkeypatch):
 
 
 def test_a11_surface_raises(tmp_path):
-    """Live elasticity is what A11 leaves here; the sharded checkpoint is
-    ported (``tests/test_torch_tp.py`` holds it in worlds of ranks) and
-    refuses what it cannot write or find, as the JAX package's does."""
-    for fn in (resilience.ElasticTrainer, resilience.MembershipMonitor,
-               resilience.snapshot_descriptor):
-        with pytest.raises(mx.MXNetError, match="A11"):
-            fn()
+    """A11's surface works here: live elasticity's three names (their
+    worlds of ranks are ``tests/test_torch_elastic.py``'s), and the
+    sharded checkpoint (``tests/test_torch_tp.py`` holds it in worlds of
+    ranks) refuses what it cannot write or find, as the JAX package's
+    does."""
+    mon = resilience.MembershipMonitor(straggler_factor=2.0)
+    mon.request_resize(2, reason="manual")
+    assert [s["kind"] for s in mon.drain()] == ["resize"]
+    desc = resilience.snapshot_descriptor(
+        {"param::w": [(((0, 2),), np.ones(2, np.float32))]}, step=1)
+    assert resilience.verify_descriptor(desc) == [] \
+        == jmx.resilience.verify_descriptor(desc)
+    net = mx.gluon.nn.Dense(2, in_units=3)
+    net.initialize(ctx=mx.cpu())
+    et = resilience.ElasticTrainer(net, mx.gluon.loss.L2Loss(), "sgd")
+    assert np.isfinite(et.step(mx.nd.ones((2, 3), ctx=mx.cpu()),
+                               mx.nd.ones((2, 2), ctx=mx.cpu())))
+    assert et.committed_steps == 1
+    et.close()
     net = mx.gluon.nn.Dense(2, in_units=3)
     net.initialize(ctx=mx.cpu())
     step = mx.parallel.SPMDTrainStep(net, mx.gluon.loss.L2Loss(), "sgd")

@@ -26,6 +26,7 @@ stages):
   apart, so no tolerance could tell a fault from rounding.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import re
 
 import numpy as np

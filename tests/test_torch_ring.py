@@ -18,6 +18,7 @@ the reference test's, rtol 1e-4 and atol 1e-5. ``global_view=True``
 gives the global result on every rank.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import os
 import sys
 import time

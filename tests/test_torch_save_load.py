@@ -16,6 +16,7 @@ format, a load before deferred initialisation, and a load into a
 hybridized net, which writes in place and captures no new entry.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ blobs, the npz fallback (bool) and a legacy npz load; bad magic, a
 sparse blob and a truncated file raise.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import struct
 import sys
 

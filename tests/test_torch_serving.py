@@ -17,6 +17,7 @@ ROADMAP A13) and the telemetry cases ``test_serving_metrics_and_slo_
 snapshot`` and ``test_report_serving_section`` (A12).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import collections
 import threading
 import time
@@ -28,7 +29,7 @@ import torch
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as mx
 from mxnet_tpu.observability.metrics import Histogram as JaxHistogram
-from mxnet_tpu_torch.serving._histogram import Histogram
+from mxnet_tpu_torch.observability.metrics import Histogram
 
 FEAT = 6
 CLASSES = 4
@@ -110,8 +111,9 @@ def _rel_close(got, want, tol=TOL):
 # -- satellite units: the latency histogram ---------------------------------
 
 def test_histogram_quantile_equals_the_reference():
-    """The engines' private copy of the reference's ``Histogram`` gives
-    exactly its quantiles on the same observations."""
+    """The registry's ``Histogram`` (which the engines keep their
+    latency in) gives exactly the reference's quantiles on the same
+    observations."""
     rs = np.random.RandomState(7)
     obs = list(rs.exponential(0.01, 200)) + [0.5, 1.5, 3.0, 100.0]
     for buckets in ((1.0, 2.0, 4.0, 8.0), None):

@@ -8,6 +8,7 @@ and masks must be equal, exactly, with the same dtypes and shapes, and the
 same inputs must raise in both.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

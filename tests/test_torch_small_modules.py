@@ -14,6 +14,7 @@ sqrt(2 / (1 + slope^2) / fan_avg) on 256 x 512 weights, the reference's
 draws by the same test.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import random
 
 import numpy as np

@@ -23,6 +23,7 @@ The JAX step donates its buffers: every JAX host array a test keeps is a
 copy (``np.array``).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -19,6 +19,7 @@ The multi-device cases (``bucketed_psum`` in the scan, a mesh) are
 ROADMAP A11's.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import logging
 
 import numpy as np

@@ -11,6 +11,7 @@ rate changed between supersteps, which needs no new capture; and
 the tensors the graph reads in place. This file imports no JAX.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import gc
 
 import numpy as np

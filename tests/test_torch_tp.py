@@ -44,6 +44,7 @@ and meanwhile computes the JAX package's side in the test process.
   1e-4 relative; ``DevicePrefetcher(mesh=)`` hands each rank its rows.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import json
 import os
 import signal

@@ -13,6 +13,7 @@ eager net bit for bit on the CPU (the same operators in the same order;
 on the card 1e-6 relative, as ``test_torch_hybridize.py`` allows).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

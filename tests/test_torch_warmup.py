@@ -18,6 +18,7 @@ against the JAX package 1e-5 absolute and relative (float32, the same
 weights, sums in other orders).
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 import torch

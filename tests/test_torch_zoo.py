@@ -32,6 +32,7 @@ The JAX side runs hybridized (one compile per pass) to keep the file
 inside its time budget.
 """
 
+import torch_threads  # noqa: F401  (a worker's share of the cores)
 import numpy as np
 import pytest
 
